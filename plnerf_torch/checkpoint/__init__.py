@@ -1,0 +1,1 @@
+"""checkpoint modules of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""core modules of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""eval modules of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""kernels modules of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""serving modules of the PyTorch port (see the package docstring)."""
