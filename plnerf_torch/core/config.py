@@ -78,7 +78,8 @@ class RenderConfig:
     fused_fold_heads: bool = False
     # occupancy-grid guided coarse sampling; not ported yet (must be None)
     occ: Optional[Any] = None
-    # rematerialisation only matters for training; not used by the port
+    # training: recompute the MLP query in the backward pass
+    # (torch.utils.checkpoint) instead of keeping its activations
     remat_mlp: bool = False
 
     @property

@@ -1,5 +1,7 @@
 """The volumetric renderer (port of ``plnerf/core/render.py``): coarse
-pass -> hierarchical importance resampling -> fine pass, forward only.
+pass -> hierarchical importance resampling -> fine pass, differentiable
+end to end except the importance samples, which are detached as in the
+reference.
 
 RNG: one ``torch.Generator`` feeds, in order, the coarse jitter, the
 coarse density noise, the resample draws and the fine density noise.  The
@@ -16,6 +18,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import as_tensor
 from . import mlp, quadrature, sampling
@@ -67,9 +70,16 @@ def render_rays(
 
     def run(model, z, cfg):
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
-        raw = mlp.query_network(model, pts, viewdirs, cfg, cam_embedding,
-                                dtype=dtype, use_fused=rcfg.use_fused_mlp,
-                                fused_fold_heads=rcfg.fused_fold_heads)
+
+        def query(p):
+            return mlp.query_network(model, p, viewdirs, cfg, cam_embedding,
+                                     dtype=dtype, use_fused=rcfg.use_fused_mlp,
+                                     fused_fold_heads=rcfg.fused_fold_heads)
+
+        if rcfg.remat_mlp and torch.is_grad_enabled():
+            raw = checkpoint(query, pts, use_reentrant=False)
+        else:
+            raw = query(pts)
         noise = 0.0
         if rcfg.raw_noise_std > 0.0:
             noise = _maybe(overrides, "noise", dev)

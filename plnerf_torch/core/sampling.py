@@ -147,8 +147,9 @@ def sample_pdf_reformulation(
     """
     bins_aug = torch.cat([near, bins, far], dim=-1)          # [R, S+2]
     cdf = torch.cumsum(weights, dim=-1)           # the weights ARE the pdf
-    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
-    cdf[..., -1] = 1.0                                       # [R, S+2]
+    # the last entry set to 1 out of place: cdf descends from the weights
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf[..., :-1],
+                     torch.ones_like(cdf[..., :1])], dim=-1)  # [R, S+2]
 
     inds = searchsorted_right(cdf, u)
     below = torch.clamp_min(inds - 1, 0)

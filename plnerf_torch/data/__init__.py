@@ -1,0 +1,1 @@
+"""data modules of the PyTorch port (see the package docstring)."""

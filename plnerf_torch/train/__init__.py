@@ -1,0 +1,1 @@
+"""train modules of the PyTorch port (see the package docstring)."""

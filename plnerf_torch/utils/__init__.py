@@ -1,0 +1,1 @@
+"""utils modules of the PyTorch port (see the package docstring)."""

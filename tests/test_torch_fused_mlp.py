@@ -194,14 +194,6 @@ def test_mma_fragment_order():
                        fused_mlp.mma_fragments(p.weights[0]))
 
 
-def test_apply_refuses_autograd():
-    kw = dict(netdepth=2, netwidth=16, multires=4, multires_views=2)
-    pe, ve = np_inputs(kw, 5)
-    m = torch_model(kw, np_params(kw))
-    with pytest.raises(NotImplementedError, match="no_grad"):
-        fused_mlp.apply(m, t(pe), t(ve), ModelConfig(**kw))
-
-
 def test_forward_cuda_refuses_cpu_tensors():
     kw = dict(netdepth=2, netwidth=16, multires=4, multires_views=2)
     pe, ve = np_inputs(kw, 5)
