@@ -14,7 +14,18 @@ Phases, one line each, then the result line:
            (2e-2); then kernel, plain-version and unfused
            ``apply_mlp`` (cuBLAS) times at one fine pass of a 32,768-ray
            chunk (6.29 M points), beside the bound.
-3. bwd     the fused MLP backward kernel against its plain PyTorch version
+3. probes  the four dot-probe kernels of plnerf_torch/kernels/csrc/dot_probe.cu
+           (shape, mixed, merged with a scratch or a concatenated operand,
+           mosaic chained / independent / mlp) against their plain PyTorch
+           versions at 2,629,632 rows, every shape, variant and row tile
+           (tolerance 1e-5 x max|ref| without a bf16 recast between dots,
+           2e-2 x max|ref| with one); then the probe path: every experiment of
+           plnerf_torch.tools.dot_decompose (A shapes, B mixed, D row tile,
+           E merged, C the real bf16 forward) and plnerf_torch.tools.
+           mosaic_probe at 2,629,632 rows, with the kernels' launch
+           counters set to 0 before and read after; the decomposition; and
+           each kernel's plain-version and cuBLAS times beside the bound.
+4. bwd     the fused MLP backward kernel against its plain PyTorch version
            on the card: 8x256 viewdirs MLP at 65,537 points (one ray, a
            ragged last tile) and at the coarse (1024 x 128) and fine
            (1024 x 192) passes of a 1024-ray train step, split and folded
@@ -24,16 +35,16 @@ Phases, one line each, then the result line:
            bit-identical results; then kernel, plain-version and
            autograd-through-``apply_mlp`` (cuBLAS) times at the fine pass,
            beside the bound.
-4. slice   ``ServingRenderer.from_params`` at full width (two 8x256 MLPs,
+5. slice   ``ServingRenderer.from_params`` at full width (two 8x256 MLPs,
            128 + 64 samples, linear, white background, fused MLP on) with
            seeded random weights: three 32,768-ray requests (test config,
            perturb kept, seeds 0-2), the first again with bf16 MLPs, and
            one 400x400 image (800x800 Blender intrinsics, render_factor 2)
            in eval_det mode, rendered twice.
            The kernels' launch counters are set to 0 before and read after.
-5. ref     the card's render of 512 rays against the CPU render (the
+6. ref     the card's render of 512 rays against the CPU render (the
            kernel's plain version) of the same weights.
-6. train   the NVS training step of configs/blender_linear.txt at full
+7. train   the NVS training step of configs/blender_linear.txt at full
            width (two 8x256 MLPs, 128 + 64 samples, 1024 rays per step
            from one image, two Adams under the exponential decay, fused
            MLP on with folded heads) on the numpy sphere scene, 8 views at
@@ -44,7 +55,7 @@ Phases, one line each, then the result line:
            are set to 0 before and read after; every step must launch each
            kernel twice (coarse, fine) and the loss must fall.  Then three
            more fp32 steps under torch.profiler: device time by kernel.
-7. train_reference  three steps from the same weights on the same injected
+8. train_reference  three steps from the same weights on the same injected
            batch (256 rays, perturb off) on the card (kernels) and on the
            CPU (plain versions), and the card's first step with the
            unfused MLP: step-1 grads and per-step losses.
@@ -80,6 +91,14 @@ N_RAND = 1024                      # rays per train step (blender_linear)
 # the JAX driver's step variants (run_plnerf.py:582,620): precrop for the
 # first 500 steps, constant quadrature for the first 1000; cut to 30 / 60
 PRECROP_STEPS, CONSTANT_STEPS, TRAIN_STEPS, BF16_STEPS = 30, 60, 90, 20
+PROBE_ROWS = 8192 * 321            # the TPU probes' N
+# probe kernel vs plain version, scaled by max|ref|: fp32 sums only
+# (shape, independent) or a bf16 recast between dots (the rest)
+PROBE_TOLERANCE = {"sums": 1e-5, "recast": 2e-2}
+PROBE_REPLACES = {"shape": "tools/dot_decompose.py:89",     # make_shape_kernel
+                  "mixed": "tools/dot_decompose.py:161",    # make_mixed_kernel
+                  "merged": "tools/dot_decompose.py:230",   # make_merged_kernel
+                  "mosaic": "tools/mosaic_probe.py:22"}     # make_kernel
 
 
 def log(phase: str, **kw) -> None:
@@ -95,18 +114,9 @@ def card_line() -> str:
 
 def cuda_ms(fn, reps: int = 5) -> float:
     """Median CUDA-event time of ``fn`` after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
+    from plnerf_torch.utils.profile import timed_ms
+
+    return timed_ms(fn, torch.device("cuda"), reps)
 
 
 def macs_per_point(cfg, head: int) -> int:
@@ -247,6 +257,186 @@ def phase_kernel(dev):
         log("kernel_time", points=n, rays=R_CHUNK, samples=S, card=card_line(),
             times=times)
     return max(errs.values()), times["split_float32"]
+
+
+def _probe_checks(dev) -> dict:
+    """Every probe kernel against its plain version on the same inputs at
+    PROBE_ROWS rows, the size the probe path runs, for every shape, variant
+    and row tile; returns the max abs error by kernel.  Raises once every
+    case has been read if any is over its tolerance."""
+    from plnerf_torch.kernels import dot_probe as dp
+    from plnerf_torch.tools import dot_decompose as dd, mosaic_probe as mp
+
+    n, reps = PROBE_ROWS, dd.REPS
+    sums, recast = PROBE_TOLERANCE["sums"], PROBE_TOLERANCE["recast"]
+    shapes = [(k, m) for k, m, _ in dd.WALK] + [(384, 256), (384, 128)]
+    errs, checks, failed = {}, {}, []
+
+    def hold(kernel, key, got, ref, tol):
+        """Records the max abs error per kernel and, beside max|ref|, per
+        case; a case past ``tol`` x max|ref| goes into ``failed``."""
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+        checks[key] = [err, scale]
+        if not (torch.isfinite(got).all() and err <= tol * scale):
+            failed.append(key)
+
+    with torch.no_grad():
+        for k, m in shapes:
+            x, ws = dd.inputs(n, k, [(k, m)] * reps, dev, seed=k + m)
+            ref = dp.shape_plain(x, ws)
+            for tile in dp.TILES:
+                hold("shape", f"shape_{k}x{m}_t{tile}",
+                     dp.shape_cuda(x, ws, tile), ref, sums)
+        x, ws = dd.inputs(n, 128, dd.MIXED_SHAPES, dev, seed=1)
+        ref = dp.mixed_plain(x, ws)
+        for tile in dp.TILES:
+            hold("mixed", f"mixed_t{tile}", dp.mixed_cuda(x, ws, tile), ref,
+                 recast)
+        x, ws = dd.inputs(n, 128, dd.MERGED_SHAPES, dev, seed=2)
+        ref = dp.merged_plain(x, ws)
+        for concat, tiles in ((False, dp.TILES), (True, dp.CONCAT_TILES)):
+            for tile in tiles:
+                hold("merged",
+                     f"merged_{'concat' if concat else 'scratch'}_t{tile}",
+                     dp.merged_cuda(x, ws, tile, concat), ref, recast)
+        x, ws = mp.inputs(n, dev, seed=3)
+        for variant in dp.VARIANTS:
+            ref = dp.mosaic_plain(x, ws, variant)
+            for tile in dp.TILES:
+                hold("mosaic", f"mosaic_{variant}_t{tile}",
+                     dp.mosaic_cuda(x, ws, tile, variant), ref,
+                     sums if variant == "independent" else recast)
+        del x, ws, ref
+    torch.cuda.empty_cache()
+    log("probe_check", rows=n, max_abs_err=errs, max_abs_err_and_scale=checks,
+        tolerance=PROBE_TOLERANCE,
+        note="tolerance scales with max|ref|; 'sums' for shape and "
+             "mosaic independent, 'recast' for the rest")
+    if failed:
+        raise AssertionError("probe kernels over tolerance: " + ", ".join(
+            f"{key} err {checks[key][0]} (max|ref| {checks[key][1]})"
+            for key in failed))
+    return errs
+
+
+def _library_call(name, x, ws):
+    """A cuBLAS call (bf16 in and out, fp32 sums) computing probe ``name``
+    on (x, ws): the yardstick, never called by the port.  The shape probe
+    is one GEMM, x repeated along K against the weights stacked (operands
+    built here, outside the timing); the walks are torch.matmul / addmm
+    chains on their own shapes."""
+    mm = torch.matmul
+    w = ws
+
+    def mixed():
+        h = mm(x, w[0])
+        for i in range(1, 5):
+            h = mm(h, w[i])
+        h = mm(torch.addmm(mm(x, w[5]), h, w[6]), w[7])
+        fa = mm(mm(h, w[8]), w[9])
+        hv = torch.addmm(mm(x, w[11]), fa[:, :256], w[10])
+        return torch.cat([mm(hv, w[12]), fa[:, 256:]], 1)
+
+    def merged():
+        h = mm(x, w[0])
+        for i in range(1, 5):
+            h = mm(h, w[i])
+        h = mm(mm(mm(torch.cat([h, x], 1), w[5]), w[6]), w[7])
+        fa = mm(h, w[8])
+        hv = mm(torch.cat([fa[:, :256], x], 1), w[9])
+        return torch.cat([mm(hv, w[10]), fa[:, 256:]], 1)
+
+    def mosaic():
+        h = x
+        for wi in w:
+            h = mm(h, wi)
+        return h
+
+    if name == "shape":
+        xs, wst = torch.cat([x] * len(ws), 1), torch.cat(list(ws), 0)
+        return lambda: mm(xs, wst)
+    return {"mixed": mixed, "merged": merged, "mosaic": mosaic}[name]
+
+
+def phase_probes(dev):
+    """Returns (launches by probe kernel, fused forward launches, one
+    entry of the kernels line per probe kernel)."""
+    from plnerf_torch.kernels import dot_probe as dp, fused_mlp
+    from plnerf_torch.tools import dot_decompose as dd, mosaic_probe as mp
+
+    t0 = time.perf_counter()
+    errs = _probe_checks(dev)
+    n, tile = PROBE_ROWS, dd.T
+    torch.cuda.synchronize()
+    for k in dp.launches:                     # probe path starts here
+        dp.launches[k] = 0
+    fused_mlp.launches = 0
+    with torch.no_grad():
+        res = {"A": dd.experiment_shapes(n, dev, tile),
+               "B": dd.experiment_mixed(n, dev, tile)}
+        res.update(D=dd.experiment_tiles(n, dev, res["B"]),
+                   E=dd.experiment_merged(n, dev, tile, res["B"]),
+                   C=dd.experiment_real(n, dev),
+                   mosaic=mp.experiment(n, dev))
+    launches = dict(dp.launches)              # probe path ends here
+    fwd_launches = fused_mlp.launches
+    if min(launches.values()) < 1 or fwd_launches < 1:
+        raise AssertionError(f"the probe path launched no kernel: {launches}"
+                             f", fused forward {fwd_launches}")
+
+    shape_r = next(r for r in res["A"]["shapes"] if r["shape"] == [256, 256])
+    scratch = {(r["operand"], r["tile"]): r["ms"] for r in res["E"]["merged"]}
+    chained = next(r for r in res["mosaic"]
+                   if r["tile"] == tile and r["variant"] == "chained")
+    real = {r["heads"]: r["ms"] for r in res["C"]["forward"]}
+    log("probe_decomposition", card=card_line(), rows=n, tile=tile,
+        predicted_walk_ms_from_shapes=res["A"]["predicted_walk_ms"],
+        mixed_ms=res["B"]["ms"], mixed_tflop_per_s=res["B"]["tflop_per_s"],
+        merged_scratch_ms=scratch[("scratch", tile)],
+        merged_like_for_like_ms={f"{o}_t{t}": ms
+                                 for (o, t), ms in scratch.items()},
+        real_forward_bf16_ms=real)
+    log("probe_time", card=card_line(), rows=n, experiments=res)
+
+    cases = {   # kernel: (its ms, shapes, x width, out width, plain)
+        "shape": (shape_r["ms"], [(256, 256)] * dd.REPS, 256, 256,
+                  lambda x, ws: dp.shape_plain(x, ws)),
+        "mixed": (res["B"]["ms"], dd.MIXED_SHAPES, 128, 256, dp.mixed_plain),
+        "merged": (scratch[("scratch", tile)], dd.MERGED_SHAPES, 128, 256,
+                   dp.merged_plain),
+        "mosaic": (chained["ms"], [(256, 256)] * mp.D, 256, 256,
+                   lambda x, ws: dp.mosaic_plain(x, ws, "chained")),
+    }
+    entries = []
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    for name, (ms, shapes, k_in, n_out, plain) in cases.items():
+        x, ws = dd.inputs(n, k_in, shapes, dev)
+        with torch.no_grad():
+            plain_ms = cuda_ms(lambda: plain(x, ws), 3)
+            library_ms = cuda_ms(_library_call(name, x, ws), 3)
+        bound_ms, bound_by = dp.bound(*dp.cost(n, shapes, k_in, n_out))
+        entries.append({
+            "name": f"dot_probe_{name}", "route": "cuda",
+            "source": "plnerf_torch/kernels/csrc/dot_probe.cu",
+            "replaces": PROBE_REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms})
+        del x, ws
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    log("probe_kernels", card=card_line(), rows=n, tile=tile,
+        phase_s=time.perf_counter() - t0,
+        note="ms: shape (256, 256) x13, mixed, merged scratch and mosaic "
+             "chained at the row tile; max_abs_err: the worst case of "
+             "probe_check at the same rows; library: for shape one GEMM "
+             "[N, 13 x 256] @ [13 x 256, 256], else a torch.matmul / addmm "
+             "chain, bf16 in and out, fp32 sums", kernels=entries)
+    return launches, fwd_launches, entries
 
 
 def _blender_rays(dev, n_rays, seed):
@@ -566,43 +756,21 @@ def _sphere_scene(dev):
             torch.arange(8, device=dev))
 
 
-def _profile_steps(step, state, batches) -> dict:
-    """Device time by kernel over a few train steps (torch.profiler): ms
-    per step in the forward kernel, the backward kernel's three passes
-    and everything else, and the device's busy share of the wall time
-    (the profiler's own overhead included in the wall time)."""
-    from torch.profiler import ProfilerActivity, profile
+def _profile_steps(step, state, batches, dev) -> dict:
+    """Device time by kernel over a few train steps (torch.profiler, read
+    by plnerf_torch.utils.profile): ms per step in the forward kernel, the
+    backward kernel's three passes and everything else, the device's busy
+    share of the wall time and the top device and host ops."""
+    from plnerf_torch.utils.profile import profile_steps
 
-    groups = {"fused_mlp_fwd": ("fp32_kernel", "bf16_kernel"),
-              "fused_mlp_bwd_data": ("data_kernel",),
-              "fused_mlp_bwd_weight": ("weight_kernel",),
-              "fused_mlp_bwd_reduce": ("reduce_kernel",)}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for rays, target in batches:
-            state, _ = step(state, {"rays": rays, "target": target})
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    ms = dict.fromkeys(list(groups) + ["other"], 0.0)
-    top = []
-    for e in prof.key_averages():
-        # device-side events only: a CPU op's entry repeats its kernels
-        dev_us = e.self_device_time_total
-        if e.device_type != torch.autograd.DeviceType.CUDA or dev_us <= 0:
-            continue
-        top.append((dev_us, e.key))
-        name = next((k for k, pats in groups.items()
-                     if any(p in e.key for p in pats)), "other")
-        ms[name] += dev_us / 1e3
-    n = len(batches)
-    total = sum(ms.values())
-    top.sort(reverse=True)
-    return {"ms_per_step": {k: v / n for k, v in ms.items()},
-            "device_ms_per_step": total / n, "wall_ms_per_step": wall_ms / n,
-            "device_busy_share": total / wall_ms,
-            "top_device_ops": [[k[:60], us / 1e3 / n] for us, k in top[:12]]}
+    it = iter(batches)
+
+    def run():
+        nonlocal state
+        rays, target = next(it)
+        state, _ = step(state, {"rays": rays, "target": target})
+
+    return profile_steps(run, len(batches), dev)
 
 
 def phase_train(dev):
@@ -646,7 +814,7 @@ def phase_train(dev):
     profile = _profile_steps(steps["lin"], state, [
         batching.sample_one_image_batch(images, poses, K, i_train, g, N_RAND,
                                         2.0, 6.0, True)[:2]
-        for _ in range(3)])
+        for _ in range(3)], dev)
 
     fp32 = rec[:TRAIN_STEPS]
     first = statistics.mean(r["loss"] for r in fp32[:10])
@@ -785,6 +953,7 @@ def main() -> int:
         dev = resolve_device(None)
         phase_env()
         err, t = phase_kernel(dev)
+        probe_launches, probe_fwd, probe_entries = phase_probes(dev)
         bwd_err, bwd_t = phase_bwd_kernel(dev)
         launches = phase_slice(dev)
         phase_reference(dev)
@@ -793,7 +962,8 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         return 1
-    if launches < 1 or train_fwd < 1 or train_bwd < 1:
+    if (launches < 1 or train_fwd < 1 or train_bwd < 1 or probe_fwd < 1
+            or min(probe_launches.values()) < 1):
         print("chip_smoke: a main path launched no kernel", file=sys.stderr)
         return 1
     # the training path runs folded heads in fp32
@@ -801,7 +971,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "fused_mlp_fwd", "route": "cuda",
         "source": "plnerf_torch/kernels/csrc/fused_mlp_fwd.cu",
-        "replaces": KERNEL_REPLACES, "launches": launches + train_fwd,
+        "replaces": KERNEL_REPLACES,
+        "launches": launches + train_fwd + probe_fwd,
         "max_abs_err": err, "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]}, {
@@ -810,7 +981,8 @@ def main() -> int:
         "replaces": BWD_REPLACES, "launches": train_bwd,
         "max_abs_err": bwd_err, "ms": bt["kernel_ms"],
         "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"],
-        "bound_by": bt["bound_by"], "library_ms": bt["library_ms"]}]}))
+        "bound_by": bt["bound_by"], "library_ms": bt["library_ms"]}]
+        + probe_entries}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

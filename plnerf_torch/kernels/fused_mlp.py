@@ -561,8 +561,10 @@ def unpack_grads(p: PackedMLP, model: NeRF, dW, dB):
     return out
 
 
-def _forward(p: PackedMLP, x: torch.Tensor, v: Optional[torch.Tensor],
-             v_div: int) -> torch.Tensor:
+def forward(p: PackedMLP, x: torch.Tensor, v: Optional[torch.Tensor],
+            v_div: int = 1) -> torch.Tensor:
+    """raw [N, 4] of the packed MLP: a CPU tensor runs ``forward_plain``,
+    a CUDA tensor ``forward_cuda``."""
     if x.device.type == "cpu":
         return forward_plain(p, x, v, v_div)
     if x.device.type == "cuda":
@@ -581,7 +583,7 @@ class FusedMLPFunction(torch.autograd.Function):
     def forward(ctx, p, x, v, v_div, model, cfg, pts, views, *params):
         ctx.p, ctx.v_div, ctx.model, ctx.cfg = p, v_div, model, cfg
         ctx.save_for_backward(x, v, pts, views)
-        return _forward(p, x, v, v_div)
+        return forward(p, x, v, v_div)
 
     @staticmethod
     def backward(ctx, g):
@@ -634,5 +636,5 @@ def apply(model: NeRF, pts_embed: torch.Tensor,
         raw = FusedMLPFunction.apply(p, x, v, v_div, model, cfg, pts, views,
                                      *params)
     else:
-        raw = _forward(p, x, v, v_div)
+        raw = forward(p, x, v, v_div)
     return softplus10_density(raw, cfg).reshape(tuple(lead) + (4,))

@@ -1,0 +1,206 @@
+"""The port's dot-walk probes (plnerf_torch/kernels/dot_probe.py and
+plnerf_torch/tools/{dot_decompose,mosaic_probe}.py) against the TPU probe
+kernels of tools/dot_decompose.py and tools/mosaic_probe.py.
+
+The TPU kernel bodies run in Pallas interpret mode under this file's own
+``pl.pallas_call`` with the tools' BlockSpecs, at 256 rows and row tile
+128; the tools are loaded by file path and not edited.  Inputs are bf16
+values made with numpy from a seed and handed to both.  Tolerances, scaled
+by max|ref|: 1e-5 where the probe only sums in fp32 (shape, mosaic
+independent), 2e-2 where it rounds to bf16 between dots (one flipped
+rounding moves a value by 2^-8 and travels down the chain)."""
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from plnerf_torch.kernels import dot_probe
+from plnerf_torch.tools import dot_decompose, mosaic_probe
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROWS, TILE = 256, 128
+SUMS, RECAST = 1e-5, 2e-2
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(
+        f"_tpu_{name}", os.path.join(REPO, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+JDD = _load("dot_decompose")
+JMP = _load("mosaic_probe")
+
+
+def _bf16(rng, shape, scale=1.0):
+    """numpy values rounded to bf16: (torch tensor, the same as jax)."""
+    t = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+         .to(torch.bfloat16) * scale)
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+def _inputs(k, shapes, seed):
+    rng = np.random.default_rng(seed)
+    x, jx = _bf16(rng, (ROWS, k))
+    ws = [_bf16(rng, s, 0.05) for s in shapes]
+    return x, [w for w, _ in ws], jx, [j for _, j in ws]
+
+
+def _pallas(kernel, jx, jws, n_out, scratch=()):
+    """The tools' pallas_call: x in row tiles, every weight whole, out in
+    row tiles, all in VMEM; interpret mode."""
+    return np.asarray(pl.pallas_call(
+        kernel, grid=(ROWS // TILE,),
+        in_specs=[pl.BlockSpec((TILE, jx.shape[1]), lambda i: (i, 0),
+                               memory_space=pltpu.VMEM)]
+        + [pl.BlockSpec(memory_space=pltpu.VMEM)] * len(jws),
+        out_specs=pl.BlockSpec((TILE, n_out), lambda i: (i, 0),
+                               memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((ROWS, n_out), jnp.float32),
+        scratch_shapes=list(scratch), interpret=True)(jx, *jws))
+
+
+def _close(got, ref, tol):
+    ref = np.asarray(ref, np.float64)
+    err = np.abs(got.numpy().astype(np.float64) - ref).max()
+    assert err <= tol * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
+SHAPES = [(k, n) for k, n, _ in JDD.WALK] + [(384, 256), (384, 128)]
+
+
+def test_constants_match_the_tpu_tools():
+    assert dot_decompose.N_ROWS == JDD.N_ROWS
+    assert dot_decompose.WALK == [tuple(w) for w in JDD.WALK]
+    assert dot_probe.MERGED_SHAPES == JDD.MERGED_SHAPES
+    assert (mosaic_probe.N, mosaic_probe.D, mosaic_probe.W) == \
+        (JMP.N, JMP.D, JMP.W)
+    assert sum(c for *_, c in JDD.WALK) == len(dot_probe.MIXED_SHAPES)
+
+
+@pytest.mark.parametrize("k,n", SHAPES, ids=[f"{k}x{n}" for k, n in SHAPES])
+def test_shape_matches_tpu_kernel(k, n):
+    x, ws, jx, jws = _inputs(k, [(k, n)] * 13, seed=k + n)
+    ref = _pallas(JDD.make_shape_kernel(k, n, 13), jx, jws, n)
+    _close(dot_probe.run_shape(x, ws, TILE), ref, SUMS)
+
+
+def test_mixed_matches_tpu_kernel():
+    x, ws, jx, jws = _inputs(128, dot_probe.MIXED_SHAPES, seed=1)
+    ref = _pallas(JDD.make_mixed_kernel(), jx, jws, 256)
+    _close(dot_probe.run_mixed(x, ws, TILE), ref, RECAST)
+
+
+@pytest.mark.parametrize("use_concat", [False, True],
+                         ids=["scratch", "concat"])
+def test_merged_matches_tpu_kernel(use_concat):
+    x, ws, jx, jws = _inputs(128, dot_probe.MERGED_SHAPES, seed=2)
+    ref = _pallas(JDD.make_merged_kernel(use_concat), jx, jws, 256,
+                  [pltpu.VMEM((TILE, 384), jnp.bfloat16)])
+    tile = dot_probe.CONCAT_TILES[0] if use_concat else TILE
+    _close(dot_probe.run_merged(x, ws, tile, use_concat), ref, RECAST)
+
+
+@pytest.mark.parametrize("variant", dot_probe.VARIANTS)
+def test_mosaic_matches_tpu_kernel(variant):
+    x, ws, jx, jws = _inputs(256, [(256, 256)] * 13, seed=3)
+    ref = _pallas(JMP.make_kernel(variant), jx, jws, 256)
+    _close(mosaic_probe.run(x, ws, variant, TILE), ref,
+           SUMS if variant == "independent" else RECAST)
+
+
+def _broken_mlp_chain(x, ws, bias, no_relu_at):
+    h = x
+    for i, w in enumerate(ws):
+        h = torch.matmul(h.to(torch.bfloat16).float(), w.float()) + bias
+        if i != no_relu_at:
+            h = torch.clamp_min(h, 0.0)
+    return h
+
+
+@pytest.mark.parametrize("bias,no_relu_at", [(0.0, None), (0.01, 6),
+                                             (0.01, 12)],
+                         ids=["no_bias", "no_relu_6", "no_relu_12"])
+def test_recast_tolerance_rejects_a_broken_mlp_chain(bias, no_relu_at):
+    """The mlp probe's outputs stay below 1, so its limit scales with
+    max|ref| itself: a chain without the +0.01 or one relu fails it."""
+    x, ws, _, _ = _inputs(256, [(256, 256)] * 13, seed=3)
+    ref = dot_probe.mosaic_plain(x, ws, "mlp")
+    _close(ref, ref.numpy(), RECAST)
+    with pytest.raises(AssertionError):
+        _close(_broken_mlp_chain(x, ws, bias, no_relu_at), ref.numpy(),
+               RECAST)
+
+
+RAGGED = {
+    "shape": lambda: dot_probe.run_shape(
+        *dot_decompose.inputs(200, 128, [(128, 128)] * 2, "cpu"), 128),
+    "mixed": lambda: dot_probe.run_mixed(
+        *dot_decompose.inputs(200, 128, dot_probe.MIXED_SHAPES, "cpu"), 64),
+    "merged": lambda: dot_probe.run_merged(
+        *dot_decompose.inputs(96, 128, dot_probe.MERGED_SHAPES, "cpu"), 64,
+        True),
+    "mosaic": lambda: mosaic_probe.run(
+        *mosaic_probe.inputs(200, "cpu"), "mlp", 128),
+}
+
+
+@pytest.mark.parametrize("kernel", list(RAGGED))
+def test_ragged_rows_raise(kernel):
+    with pytest.raises(ValueError, match="multiple of the row tile"):
+        RAGGED[kernel]()
+
+
+def test_concat_takes_tile_64_only():
+    x, ws = dot_decompose.inputs(256, 128, dot_probe.MERGED_SHAPES, "cpu")
+    with pytest.raises(ValueError, match="row tile 128"):
+        dot_probe.run_merged(x, ws, 128, use_concat=True)
+    assert dot_probe.run_merged(x, ws, 128).shape == (256, 256)
+
+
+def test_cuda_launchers_refuse_cpu_tensors():
+    x, ws = dot_decompose.inputs(128, 128, dot_probe.MIXED_SHAPES, "cpu")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        dot_probe.mixed_cuda(x, ws, 128)
+
+
+def test_bound_at_the_probe_rows():
+    """The probes' bounds at 989 TFLOP/s: 2.27 ms for (128, 256) x13, 4.53
+    for (256, 256) x13 and each mosaic variant, 3.66 for the walks."""
+    n = dot_decompose.N_ROWS
+    for shapes, k, ms in (([(128, 256)] * 13, 128, 2.27),
+                          ([(256, 256)] * 13, 256, 4.53),
+                          (dot_probe.MIXED_SHAPES, 128, 3.66),
+                          (dot_probe.MERGED_SHAPES, 128, 3.66)):
+        got, by = dot_probe.bound(*dot_probe.cost(n, shapes, k, 256))
+        assert by == "operations" and abs(got - ms) < 0.01, (got, ms)
+
+
+def test_dot_decompose_runs_on_cpu():
+    out = dot_decompose.main(["--device", "cpu", "--rows", "256",
+                              "--what", "shapes,mixed,merged,real"])
+    assert [r["shape"] for r in out["A"]["shapes"]] == \
+        [[k, n] for k, n, _ in dot_decompose.WALK]
+    assert out["A"]["predicted_walk_ms"] > 0 and out["B"]["ms"] > 0
+    assert [r["tile"] for r in out["D"]["mixed"]] == list(dot_probe.TILES)
+    assert {(r["operand"], r["tile"]) for r in out["E"]["merged"]} == \
+        {("scratch", 128), ("scratch", 64), ("concat", 64)}
+    assert [r["heads"] for r in out["C"]["forward"]] == ["split", "folded"]
+
+
+def test_mosaic_probe_runs_on_cpu():
+    out = mosaic_probe.main(["--device", "cpu", "--rows", "256"])
+    assert [(r["tile"], r["variant"]) for r in out] == [
+        (t, v) for t in dot_probe.TILES for v in dot_probe.VARIANTS]
+    assert all(r["ms"] > 0 for r in out)

@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels (plnerf_torch/kernels/csrc/fused_mlp_fwd.cu
-and fused_mlp_bwd.cu) against their plain PyTorch versions, on a CUDA
-device only.
+"""The hand-written CUDA kernels (plnerf_torch/kernels/csrc/fused_mlp_fwd.cu,
+fused_mlp_bwd.cu and dot_probe.cu) against their plain PyTorch versions,
+on a CUDA device only.
 
 This file imports neither JAX nor ``plnerf``, so it also runs on a machine
 with a card and no JAX: ``python -m pytest --noconftest
@@ -11,7 +11,7 @@ import torch
 from plnerf_torch.core.config import ModelConfig
 from plnerf_torch.core.encoding import embed
 from plnerf_torch.core.mlp import NeRF
-from plnerf_torch.kernels import fused_mlp
+from plnerf_torch.kernels import dot_probe, fused_mlp
 
 torch.set_num_threads(1)
 
@@ -160,3 +160,73 @@ def test_cuda_autograd_matches_cpu(cuda_device, fold):
         out.append([x.grad, v.grad] + [q.grad for q in md.parameters()])
     for i, (a, b) in enumerate(zip(*out)):
         _assert_rel_l2(a.cpu(), b, 1e-4, f"grad {i}")
+
+
+# ------------------------------------------------ dot-walk probes --
+
+PROBE_SHAPES = [(128, 256), (256, 256), (256, 384), (256, 128), (128, 128),
+                (384, 256), (384, 128)]
+
+
+def _probe_inputs(dev, k, shapes, rows=256):
+    g = torch.Generator(device=dev).manual_seed(k + len(shapes))
+    x = torch.randn(rows, k, generator=g, device=dev).to(torch.bfloat16)
+    ws = [torch.randn(*s, generator=g, device=dev).to(torch.bfloat16) * 0.05
+          for s in shapes]
+    return x, ws
+
+
+# name: (x width, weight shapes, kernel(x, ws, tile), plain(x, ws),
+#        tolerance x max|ref|, row tiles)
+PROBES = {
+    **{f"shape_{k}x{n}": (k, [(k, n)] * 13, dot_probe.shape_cuda,
+                          dot_probe.shape_plain, 1e-5, dot_probe.TILES)
+       for k, n in PROBE_SHAPES},
+    "mixed": (128, dot_probe.MIXED_SHAPES, dot_probe.mixed_cuda,
+              dot_probe.mixed_plain, 2e-2, dot_probe.TILES),
+    "merged_scratch": (128, dot_probe.MERGED_SHAPES, dot_probe.merged_cuda,
+                       dot_probe.merged_plain, 2e-2, dot_probe.TILES),
+    "merged_concat": (128, dot_probe.MERGED_SHAPES,
+                      lambda x, ws, t: dot_probe.merged_cuda(x, ws, t, True),
+                      dot_probe.merged_plain, 2e-2, dot_probe.CONCAT_TILES),
+    **{f"mosaic_{v}": (256, [(256, 256)] * 13,
+                       lambda x, ws, t, v=v: dot_probe.mosaic_cuda(x, ws, t,
+                                                                   v),
+                       lambda x, ws, v=v: dot_probe.mosaic_plain(x, ws, v),
+                       1e-5 if v == "independent" else 2e-2, dot_probe.TILES)
+       for v in dot_probe.VARIANTS},
+}
+PROBE_CASES = [(name, tile) for name, case in PROBES.items()
+               for tile in case[5]]
+
+
+@pytest.mark.parametrize("name,tile", PROBE_CASES,
+                         ids=[f"{n}_t{t}" for n, t in PROBE_CASES])
+def test_cuda_probe_matches_plain_and_repeats(cuda_device, name, tile):
+    """Each probe kernel against its plain version at 256 rows, and two
+    calls bit-identical (no atomics, a fixed summation order)."""
+    k, shapes, kernel, plain, tol, _ = PROBES[name]
+    x, ws = _probe_inputs(cuda_device, k, shapes)
+    key = name.split("_")[0]
+    before = dot_probe.launches[key]
+    got = kernel(x, ws, tile)
+    again = kernel(x, ws, tile)
+    torch.cuda.synchronize()
+    assert dot_probe.launches[key] == before + 2
+    ref = plain(x, ws)
+    assert torch.equal(got, again)
+    err = float((got - ref).abs().max())
+    assert err <= tol * float(ref.abs().max()), err
+
+
+@pytest.mark.parametrize("name", list(PROBES))
+def test_cuda_probe_refuses_ragged_rows_and_wrong_dtype(cuda_device, name):
+    k, shapes, kernel, _, _, tiles = PROBES[name]
+    x, ws = _probe_inputs(cuda_device, k, shapes, rows=tiles[0] * 3 + 32)
+    with pytest.raises(ValueError, match="multiple of the row tile"):
+        kernel(x, ws, tiles[0])
+    x, ws = _probe_inputs(cuda_device, k, shapes)
+    with pytest.raises(ValueError, match="bfloat16"):
+        kernel(x.float(), ws, tiles[0])
+    with pytest.raises(ValueError, match="bfloat16"):
+        kernel(x, [w.half() for w in ws], tiles[0])

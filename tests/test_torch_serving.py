@@ -146,18 +146,22 @@ def _port_modules():
 
 def test_port_imports_neither_jax_nor_plnerf():
     mods = [m for _, m in _port_modules()]
-    assert "plnerf_torch.kernels.fused_mlp" in mods
+    assert {"plnerf_torch.kernels.fused_mlp", "plnerf_torch.kernels.dot_probe",
+            "plnerf_torch.tools.dot_decompose",
+            "plnerf_torch.utils.profile"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or "
             "k.startswith('jax.') or k == 'plnerf' or "
-            "k.startswith('plnerf.'))\n"
+            "k.startswith('plnerf.') or k == 'tools' or "
+            "k.startswith('tools.'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
-    pat = re.compile(r"^\s*(import|from)\s+(jax|plnerf)(\.|\s|$)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|plnerf|tools)(\.|\s|$)",
+                     re.M)
     for rel, _ in _port_modules():
         with open(os.path.join(REPO, rel)) as f:
             assert not pat.search(f.read()), rel
