@@ -34,7 +34,8 @@ Phases, one line each, then the result line:
            (2e-2), per-ray views, every call made twice and held to
            bit-identical results; then kernel, plain-version and
            autograd-through-``apply_mlp`` (cuBLAS) times at the fine pass,
-           beside the bound.
+           beside the bound, and each pass's device time (data, weight,
+           reduce) from a short torch.profiler window.
 5. slice   ``ServingRenderer.from_params`` at full width (two 8x256 MLPs,
            128 + 64 samples, linear, white background, fused MLP on) with
            seeded random weights: three 32,768-ray requests (test config,
@@ -54,7 +55,8 @@ Phases, one line each, then the result line:
            to 30 / 60), then 20 bf16 steps.  The kernels' launch counters
            are set to 0 before and read after; every step must launch each
            kernel twice (coarse, fine) and the loss must fall.  Then three
-           more fp32 steps under torch.profiler: device time by kernel.
+           more fp32 steps under torch.profiler: device time by kernel and
+           the backward's share of it.
 8. train_reference  three steps from the same weights on the same injected
            batch (256 rays, perturb off) on the card (kernels) and on the
            CPU (plain versions), and the card's first step with the
@@ -63,6 +65,8 @@ Phases, one line each, then the result line:
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without CUDA, without the repository beside it, or on any failure.
+``--only bwd,train`` runs the build and the named phases alone and prints
+no result lines.
 """
 from __future__ import annotations
 
@@ -163,7 +167,8 @@ def phase_env():
     log("env", card=card_line(), torch=torch.__version__,
         cuda=torch.version.cuda, kernels_built=names,
         build_s=round(time.perf_counter() - t0, 3),
-        allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+        allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        ptxas={name: build.ptxas_info(name) for name in names})
 
 
 def _kernel_inputs(cfg, R, S, fold, dtype, dev, seed):
@@ -653,6 +658,17 @@ def _bwd_hold(key, p, x, v, v_div, g, errs, rels) -> None:
                                      f"> {tol}")
 
 
+def _bwd_pass_ms(fn, dev, reps: int = 3) -> dict:
+    """Device ms per call of the backward's passes (data, weight, reduce;
+    ``other``: the wrapper's own ops) from a short torch.profiler window
+    of ``reps`` calls after one warm-up."""
+    from plnerf_torch.utils.profile import profile_steps
+
+    fn()
+    prof = profile_steps(fn, reps, dev)
+    return {**prof["ms_per_step"], "device": prof["device_ms_per_step"]}
+
+
 def phase_bwd_kernel(dev):
     """Returns (max abs error over every comparison, times by schedule)."""
     from plnerf_torch.core.config import ModelConfig
@@ -695,6 +711,8 @@ def phase_bwd_kernel(dev):
                 device=dev).manual_seed(7))
             entry = {"kernel_ms": cuda_ms(
                 lambda: fused_mlp.backward_cuda(p, x, v, v_div, g))}
+            entry["pass_ms"] = _bwd_pass_ms(
+                lambda: fused_mlp.backward_cuda(p, x, v, v_div, g), dev)
             entry["bound_ms"], entry["bound_by"] = bwd_bound(p, x, v, g, n,
                                                              full)
             entry["plain_ms"] = cuda_ms(
@@ -816,6 +834,9 @@ def phase_train(dev):
                                         2.0, 6.0, True)[:2]
         for _ in range(3)], dev)
 
+    bwd_ms = sum(profile["ms_per_step"][k] for k in (
+        "fused_mlp_bwd_data", "fused_mlp_bwd_weight", "fused_mlp_bwd_reduce"))
+    profile["bwd_share_of_device"] = bwd_ms / profile["device_ms_per_step"]
     fp32 = rec[:TRAIN_STEPS]
     first = statistics.mean(r["loss"] for r in fp32[:10])
     last = statistics.mean(r["loss"] for r in fp32[-10:])
@@ -937,7 +958,22 @@ def phase_train_reference(dev):
                              f"{cpu['losses']}")
 
 
-def main() -> int:
+PHASES = ("kernel", "probes", "bwd", "slice", "reference", "train",
+          "train_reference")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases out of " + ", ".join(PHASES)
+                    + " (env always runs): their lines only, no result "
+                    "lines")
+    args = ap.parse_args(argv)
+    only = args.only.split(",") if args.only else None
+    if only and not set(only) <= set(PHASES):
+        ap.error(f"--only takes {', '.join(PHASES)}")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -952,6 +988,13 @@ def main() -> int:
     try:
         dev = resolve_device(None)
         phase_env()
+        if only:
+            fns = dict(zip(PHASES, (
+                phase_kernel, phase_probes, phase_bwd_kernel, phase_slice,
+                phase_reference, phase_train, phase_train_reference)))
+            for name in only:
+                fns[name](dev)
+            return 0
         err, t = phase_kernel(dev)
         probe_launches, probe_fwd, probe_entries = phase_probes(dev)
         bwd_err, bwd_t = phase_bwd_kernel(dev)

@@ -3,43 +3,92 @@
 // Replaces the TPU kernel plnerf/kernels/fused_mlp.py `_bwd_kernel`
 // (launched by `_backward` through pl.pallas_call) for the viewdirs
 // topology, split and folded head schedules.  Given the packed weights
-// (the forward's layout, see fused_mlp_fwd.cu), x [N, in_p], v [N / v_div,
-// v_p] and the cotangent g of raw [N, 4], it writes dx [N, in_p] and dv
-// [N, v_p] (fp32, dv per point) and the fp32 grads of every packed weight
-// block and bias, in the packed order, into one buffer.
+// (row-major [K, N] blocks at the forward's offsets, see fused_mlp_fwd.cu),
+// x [N, in_p], v [N / v_div, v_p] and the cotangent g of raw [N, 4], it
+// writes dx [N, in_p] and dv [N, v_p] (fp32, dv per point) and the fp32
+// grads of every packed weight block and bias, in the packed order, into
+// one buffer.
 //
-// Bound: operations.  Recompute + data grads + weight grads are about three
-// times the forward's multiply-adds (~1.78 M MACs per point split, ~1.58 M
-// folded, at 8x256), against ~100 values read and ~100 written per point.
+// Bound: operations.  The backward does 3.56 MFLOP per point split, 3.17
+// folded (recompute, data grads, weight grads: chip_smoke.py
+// bwd_flops_per_point) against ~1 KB per point of x, v, g, dx and dv; at
+// one fine pass of a 1024-ray step (196,608 points) that is 10.4 / 9.3 ms
+// at the H100's 67 TFLOP/s in fp32 and 0.71 / 0.63 ms at 989 in bf16.
+// What bounds each pass on this card:
+//  - fp32 data pass: a K = N = 256 product over points does 64 FLOP per
+//    byte even with its input and output in device memory, above the fp32
+//    ridge of 20 FLOP/B (67 TFLOP/s over 3.35 TB/s).  The FMA pipes set the
+//    pace, so every layer is its own launch of one SGEMM core and nothing
+//    has to stay on chip from layer to layer.
+//  - bf16 data pass: the same product is 128 FLOP/B, under the bf16 ridge
+//    (295 FLOP/B); per-layer launches would wait on device memory, so the
+//    walk from layer to layer stays in shared memory.
+//  - weight pass (both): A^T @ dA over the points, 128 x 128 tiles whose
+//    operands stream from L2 at 32 (fp32) or 64 (bf16) FLOP per byte, so
+//    the FMA pipes (fp32) or the tensor cores (bf16).
 //
-// Three passes on one stream, no floating-point atomics, so two calls on
-// the same inputs give bit-identical results:
+// Passes on one stream, no floating-point atomics, so two calls on the
+// same inputs give bit-identical results:
 //
-// 1. `data_kernel` (one CTA per 64-point tile): recomputes the forward,
-//    writing every layer's relu output to a global workspace `acts` in the
-//    compute dtype (the recompute lists of the TPU kernel do not fit in 227
-//    KB of shared memory: 8 x 256 x 64 points is 512 KB in fp32), then
-//    backpropagates through the heads and layers.  Each product of the data
-//    grads, da @ W^T, reads a transposed copy of the weights (`wt`, packed
-//    by the wrapper), so it is the same [K, N] product as the forward's.
-//    Relu masks are read back from `acts`; every pre-relu grad `da` goes to
-//    a second workspace `dacts`.  dx and dv are written per point.
-// 2. `weight_kernel`: every dW block is A^T @ dA over the points, where A
-//    is the block's input (x, v, a relu output, the feature) and dA its
-//    output grad, both read from global memory; every db is the column sum
-//    of dA.  One CTA computes a 64 x 64 tile of one block, or 64 columns of
-//    one db, over one chunk of 2,048 points and writes it to its own slot
-//    of a partial buffer (on the TPU the sequential grid accumulated in
-//    place).
-// 3. `reduce_kernel` sums the partials over the chunks in chunk order.
+// 0. transpose_kernel writes every weight block transposed ([N, K] at
+//    its offset) into the workspace (`wt`), cot_data_kernel d_rgb and the
+//    d_alpha block of the cotangent.
+// 1. The data pass recomputes the forward (every relu output to `acts`:
+//    8 x 256 x 128 points is 1 MB in fp32, more than a CTA holds), then
+//    backpropagates through the heads and the layers (every pre-relu grad
+//    to `dacts`); dx and dv are written per point.  Each data grad
+//    da @ W^T reads the transposed blocks (`wt`), so it is the same
+//    [K, N] row-major product as the recompute.
+//    fp32: one launch of sgemm_data_kernel per product, in order:
+//    recompute (bias and relu, to acts), heads, data grads (relu mask read
+//    from acts as 16-byte rows, to dacts), dx (the first skip layer's x
+//    block writes it, later x blocks and layer 0 add to it in that fixed
+//    order), dv.  The core: a CTA tile of 128 points x 128 columns, 256
+//    threads with an 8 x 8 outer product each, k-slabs of 16 through a
+//    3-stage ring of 16-byte cp.async copies (both operands, so each
+//    weight byte is fetched once per CTA), every FMA operand read by
+//    LDS.128, ragged points and columns masked; 2 CTAs per SM.
+//    bf16: data_kernel, one CTA of 8 warps per 128-point tile, the walk
+//    of dot_probe.cu: activations in shared memory as bf16 rows padded by
+//    8 (ldmatrix without bank conflicts), weight k-slabs of 32 rows
+//    streamed from L2 through a 2-stage cp.async ring shared by the
+//    warps, mma.sync m16n8k16 with fp32 accumulators.  Relu outputs and
+//    da leave the shared tile for acts / dacts as 16-byte rows after each
+//    layer's barrier; each data grad's mask (the relu output it needs)
+//    comes back from acts as 16-byte rows by cp.async into its output
+//    tile before the product, and the epilogue multiplies in place; dx
+//    and dv go from the fragments to device memory (no fp32 dx
+//    accumulator).
+// 2. weight_kernel: every dW block is A^T @ dA over the points (A the
+//    block's input: x, v, a relu output, the feature; dA its output
+//    grad), both point-major in the workspace.  One CTA computes a
+//    128 x 128 tile of one block over one chunk of points (the product's
+//    k) and writes it to its own slot of a partial buffer (on the TPU the
+//    sequential grid accumulated in place); the chunks are sized so that
+//    the grid is whole waves of 2 CTAs per SM; the CTAs holding dW rows
+//    0..127 of the block that owns a db also sum its dA columns.  fp32 on
+//    the SGEMM core with both operands k-major (no transposing); bf16 on
+//    mma.sync with 32-point stages copied as contiguous point rows and
+//    read by ldmatrix.trans.  Only live CTAs are launched.
+// 3. reduce_kernel sums the partials over the chunks in chunk order.
 //
-// Paths: float32 runs true fp32 FMAs on the CUDA cores (no TF32, as the
-// JAX package's Precision.HIGHEST); bfloat16 runs mma.sync m16n8k16 with
-// fp32 accumulation, activations and pre-relu grads stored in bf16 (the
-// next product rounds them to bf16 anyway, as in the JAX kernel).
-// wgmma, TMA and keeping the workspace out of device memory come later.
+// Shared memory per CTA (8x256 MLP, input 64, views 32): fp32 cores
+// 55,296 B (3 stages of 128 x 20 + 16 x 128 floats); bf16 weight_kernel
+// 52,224 B (3 stages of 2 x 32 x 136 bf16); data_kernel 224,256 B of the
+// 232,448 a CTA may use: weight ring 2 x 32 x 264 bf16 (33,792), two
+// activation buffers 128 x 296 bf16 (151,552; 296 = [dfeat | d_alpha]
+// + 8), x 128 x 72 (18,432), views 128 x 40 (10,240), d_rgb 128 x 40
+// (10,240).  A wider MLP than w_p = 256 does not fit; the wrapper raises.
+//
+// Registers (ptxas -v for sm_90a, chip_smoke.py's env line): no
+// spills anywhere.  sgemm_data_kernel 128 (__launch_bounds__(256, 2));
+// data_kernel 255, one CTA per SM (shared memory bounds it anyway), its
+// column-pass routine `dense` compiled as one call without spills;
+// weight_kernel 128 (fp32) / 124 (bf16), 2 CTAs per SM; transpose_kernel
+// 32, cot_data_kernel 12, reduce_kernel 28.
 //
 // Workspace (one buffer, size from plnerf_fused_mlp_bwd_workspace):
+//   wt    [n_w] compute dtype: the weight blocks transposed
 //   acts  [N, Ca] compute dtype: relu_0 .. relu_{L-1} (w_p each), then
 //         split: feature (w_p), z_hv (h_p); folded: z_hv (h_p)
 //   dacts [N, Cd] compute dtype: da_0 .. da_{L-1} (w_p each), then
@@ -50,18 +99,20 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int BM = 64;        // points per CTA of the data kernel
-constexpr int THREADS = 256;  // 8 warps
+constexpr int THREADS = 256;  // 8 warps in every kernel
 constexpr int ALIGN = 32;     // K / N granularity of every packed block
-constexpr int LDF = BM + 4;   // fp32 k-major row
-constexpr int PADB = 8;       // bf16 row padding
-constexpr int CHUNK = 2048;   // points per weight-grad partial
 constexpr int MAX_LAYERS = 16;
 constexpr int MAX_BLK = 2 * MAX_LAYERS + 4;
 constexpr int MAX_BIAS = MAX_LAYERS + 3;
-constexpr int MAX_JOBS = MAX_BLK + MAX_BIAS;
+// Weight-pass grid: point chunks so that the tiles fill WAVES waves of
+// two CTAs on each of the H100's 132 SMs (a fixed count: the chunking,
+// and so the summation order, depends on n and the layout only)
+constexpr int SMS = 132, WEIGHT_CTAS_PER_SM = 2, WAVES = 4;
+constexpr int MIN_CHUNK = 256;
 
 enum Head { SPLIT = 0, FOLDED = 1 };
 
@@ -81,7 +132,7 @@ struct Layout {
   int blk_x[MAX_LAYERS], blk_h[MAX_LAYERS];  // blk_x = -1: no skip input
   int hb;               // first head block; head biases follow the L layers
   int act[MAX_LAYERS], feat, zhv, Ca;
-  int da[MAX_LAYERS], dcat, dav, drgb, Cd;
+  int da[MAX_LAYERS], dcat, dalpha, dav, drgb, Cd;
   long long n_w, n_grad;  // weight elements, weight + bias elements
 };
 
@@ -133,188 +184,269 @@ int build_layout(Layout* y, int L, unsigned skip_mask, int in_p, int w_p,
   c = 0;
   for (int i = 0; i < L; ++i) { y->da[i] = c; c += w_p; }
   y->dcat = c; c += (head == SPLIT ? w_p : h_p) + ALIGN;
+  y->dalpha = y->dcat + (head == SPLIT ? w_p : h_p);
   y->dav = head == SPLIT ? c : y->dcat; if (head == SPLIT) c += h_p;
   y->drgb = c; c += ALIGN;
   y->Cd = c;
   return 1;
 }
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16_rn(x);
+// ------------------------------------------------------------ copies ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Weight element type of the kernel's buffers: fp32 row-major, bf16 in
-// mma fragment order (4 values per uint2).
-template <typename T> struct WType { typedef float type; };
-template <> struct WType<bf16> { typedef uint2 type; };
-__device__ __forceinline__ const float* wptr(const float* w, long long off) {
-  return w + off;
-}
-__device__ __forceinline__ const uint2* wptr(const uint2* w, long long off) {
-  return w + off / 4;
+// 16 bytes global -> shared; zeros where !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-// What happens to one output element (row, c) of a product:
-//   x += bias[c]; relu on c < relu_cols; where mask is set,
-//   x = mask[row][c] > 0 ? x : 0 (NaN x passes, as jnp.where);
-//   rows < n_valid go to gout (compute dtype) and fout (fp32) where set.
-// The caller then stores x to the shared buffer `smem` (c < smem_cols)
-// and/or adds it to the shared fp32 accumulator `acc`.
-template <typename T>
-struct Ep {
-  const float* bias;
-  int relu_cols;
-  const T* mask;
-  long long mask_ld;
-  T* smem;
-  int smem_ld, smem_cols;
-  float* acc;
-  int acc_ld;
-  T* gout;
-  long long g_ld;
-  int g_cols;
-  float* fout;
-  long long f_ld;
-  int f_cols;
-  int n_valid;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  __device__ float value(int row, int c, float x) const {
-    if (bias) x += bias[c];
-    if (c < relu_cols && x < 0.f) x = 0.f;
-    if (mask)
-      x = (row < n_valid && to_f(mask[row * mask_ld + c]) > 0.f) ? x : 0.f;
-    if (row < n_valid) {
-      if (gout && c < g_cols) gout[row * g_ld + c] = from_f<T>(x);
-      if (fout && c < f_cols) fout[row * f_ld + c] = x;
-    }
-    return x;
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------ transpose, cotangent -------
+
+// wt: block j of w ([K, N] row-major) as [N, K] at the same offset, one
+// 32 x 32 tile per CTA through shared memory.  U: the element's bits.
+template <typename U>
+__global__ void __launch_bounds__(THREADS)
+transpose_kernel(const U* __restrict__ w, U* __restrict__ wt,
+                 const Layout y) {
+  __shared__ U tile[32][33];
+  int t = blockIdx.x, j = 0;
+  for (; j + 1 < y.n_blk; ++j) {
+    const int tiles = (y.wk[j] / 32) * (y.wn[j] / 32);
+    if (t < tiles) break;
+    t -= tiles;
   }
+  const int K = y.wk[j], N = y.wn[j];
+  const int k0 = (t / (N / 32)) * 32, n0 = (t % (N / 32)) * 32;
+  const U* src = w + y.woff[j];
+  U* dst = wt + y.woff[j];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int r = ty; r < 32; r += THREADS / 32)
+    tile[r][tx] = src[(long long)(k0 + r) * N + n0 + tx];
+  __syncthreads();
+  for (int r = ty; r < 32; r += THREADS / 32)
+    dst[(long long)(n0 + r) * K + k0 + tx] = tile[tx][r];
+}
+
+
+// d_rgb = [g0 g1 g2 0 ..] (32 columns) and the d_alpha block
+// [g3 0 ..] (32 columns, the last of dcat) into dacts
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+cot_data_kernel(const float* __restrict__ g, T* __restrict__ dacts,
+                long long n, int Cd, int drgb, int dalpha) {
+  const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (e >= n * 2 * ALIGN) return;
+  const long long r = e / (2 * ALIGN);
+  const int c = (int)(e - r * 2 * ALIGN);
+  float val;
+  int col;
+  if (c < ALIGN) {
+    val = c < 3 ? g[r * 4 + c] : 0.f;
+    col = drgb + c;
+  } else {
+    val = c == ALIGN ? g[r * 4 + 3] : 0.f;
+    col = dalpha + c - ALIGN;
+  }
+  if (sizeof(T) == 4)
+    reinterpret_cast<float*>(dacts)[r * Cd + col] = val;
+  else
+    reinterpret_cast<bf16*>(dacts)[r * Cd + col] = __float2bfloat16_rn(val);
+}
+
+// ---------------------------------------------- fp32 SGEMM core -------
+
+constexpr int FBM = 128, FBN = 128, FBK = 16, FST = 3;
+constexpr int FLDA = FBK + 4;                  // point-major A row [BM][20]
+constexpr int F_STAGE = FBM * FLDA + FBK * FBN;  // floats per ring stage
+constexpr int F_SMEM = FST * F_STAGE * 4;      // 55,296 B
+// each thread copies two 16-byte chunks of each operand per slab
+static_assert(FBM * FBK == 8 * THREADS && FBK * FBN == 8 * THREADS,
+              "two chunks a thread");
+
+// One summand A @ B of a product: A rows (point p reads row p / a_div,
+// lda apart), columns [0, K); B [K, *] row-major, ldb apart.
+struct FTerm {
+  const float* a;
+  long long lda, a_div;
+  int K;
+  const float* b;
+  int ldb;
 };
 
-template <typename T>
-__device__ Ep<T> ep_none(int n_valid) {
-  Ep<T> e;
-  e.bias = nullptr; e.relu_cols = 0; e.mask = nullptr; e.mask_ld = 0;
-  e.smem = nullptr; e.smem_ld = 0; e.smem_cols = 0; e.acc = nullptr;
-  e.acc_ld = 0; e.gout = nullptr; e.g_ld = 0; e.g_cols = 0;
-  e.fout = nullptr; e.f_ld = 0; e.f_cols = 0; e.n_valid = n_valid;
-  return e;
-}
+// out[p][c] = epilogue(sum_t A_t @ B_t), c < N:  + bias[c]; relu on
+// c < relu_cols; where mask is set, 0 unless mask[p][c] > 0 (NaN passes,
+// as jnp.where); with accumulate, the old out[p][c] + the value.
+struct FOp {
+  FTerm t[2];
+  int nterms, N;
+  const float* bias;
+  int relu_cols;
+  const float* mask;
+  long long mask_ld;
+  float* out;
+  long long out_ld;
+  int accumulate;
+};
 
-// ---------------------------------------------------------------- fp32 --
-// Shared activations are k-major [K][LDF]; `acc` is k-major too.
+// A point-major (k contiguous): As[BM][FLDA].  Warp w owns points
+// 32 (w & 3) .. + 32 and columns 64 (w >> 2) .. + 64; lane (lm, ln) the
+// points 4 i + lm and the columns 4 ln .. + 4 and 32 + 4 ln .. + 4.  The
+// four lm rows of one read are 20 words apart: four bank quads, no
+// conflict.
+__global__ void __launch_bounds__(THREADS, 2)
+sgemm_data_kernel(const FOp op, long long n) {
+  extern __shared__ __align__(16) float fsm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int lm = lane & 3, ln = lane >> 2;
+  const long long row0 = (long long)blockIdx.x * FBM;
+  const int n0 = blockIdx.y * FBN;
+  const int s0 = op.t[0].K / FBK;
+  const int slabs = s0 + (op.nterms > 1 ? op.t[1].K / FBK : 0);
 
-// out columns n0 .. n0 + 32J of A1 @ W1 + A2 @ W2 (W row stride ldw)
-template <int J>
-__device__ __forceinline__ void f32_pass(
-    const float* A1, int K1, const float* __restrict__ W1, const float* A2,
-    int K2, const float* __restrict__ W2, int ldw, int n0,
-    const Ep<float>& ep) {
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;  // warp ty owns points 8ty..8ty+7
-  float acc[8][J];
+  auto load = [&](int s, int st) {
+    const bool first = s < s0;
+    const float* a = first ? op.t[0].a : op.t[1].a;
+    const long long lda = first ? op.t[0].lda : op.t[1].lda;
+    const long long a_div = first ? op.t[0].a_div : op.t[1].a_div;
+    const float* b = first ? op.t[0].b : op.t[1].b;
+    const int ldb = first ? op.t[0].ldb : op.t[1].ldb;
+    const int k0 = (first ? s : s - s0) * FBK;
+    float* As = fsm + st * F_STAGE;
+    float* Bs = As + FBM * FLDA;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int e = tid + j * THREADS;
+      const int r = e >> 2, c = (e & 3) * 4;
+      const long long p = row0 + r;
+      const bool ok = p < n;
+      const long long ar = ok ? (a_div == 1 ? p : p / a_div) : 0;
+      cp_async16(As + r * FLDA + c, a + ar * lda + k0 + c, ok);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int e = tid + j * THREADS;
+      const int r = e >> 5, c = (e & 31) * 4;
+      const bool ok = n0 + c < op.N;
+      cp_async16(Bs + r * FBN + c,
+                 b + (long long)(k0 + r) * ldb + (ok ? n0 + c : 0), ok);
+    }
+  };
+
+  float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < J; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-#pragma unroll 1
-  for (int s = 0; s < 2; ++s) {
-    const float* A = s ? A2 : A1;
-    const int K = s ? K2 : K1;
-    const float* W = s ? W2 : W1;
-    if (K == 0) continue;
-    const float* a_ptr = A + ty * 8;
-    const float* w_ptr = W + n0 + tx;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      float w[J];
 #pragma unroll
-      for (int j = 0; j < J; ++j)
-        w[j] = __ldg(w_ptr + (size_t)k * ldw + 32 * j);
-      const float4 u = *reinterpret_cast<const float4*>(a_ptr + k * LDF);
-      const float4 q = *reinterpret_cast<const float4*>(a_ptr + k * LDF + 4);
-      const float a[8] = {u.x, u.y, u.z, u.w, q.x, q.y, q.z, q.w};
+  for (int s = 0; s < FST - 1; ++s) {
+    if (s < slabs) load(s, s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int s = 0; s < slabs; ++s) {
+    cp_async_wait<FST - 2>();
+    __syncthreads();  // slab s landed; stage (s - 1) % FST is free
+    if (s + FST - 1 < slabs) load(s + FST - 1, (s + FST - 1) % FST);
+    cp_async_commit();
+    const float* As = fsm + (s % FST) * F_STAGE;
+    const float* Bs = As + FBM * FLDA;
+#pragma unroll
+    for (int k4 = 0; k4 < FBK; k4 += 4) {
+      float4 a[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(
+            As + (wm * 32 + lm + 4 * i) * FLDA + k4);
 #pragma unroll
-        for (int j = 0; j < J; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* brow = Bs + (k4 + kk) * FBN + wn * 64 + ln * 4;
+        const float4 b0 = *reinterpret_cast<const float4*>(brow);
+        const float4 b1 = *reinterpret_cast<const float4*>(brow + 32);
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y
+                         : kk == 2 ? a[i].z : a[i].w;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+        }
+      }
     }
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int c = n0 + tx + 32 * j;
-    float v[8];
+  for (int i = 0; i < 8; ++i) {
+    const long long p = row0 + wm * 32 + lm + 4 * i;
+    if (p >= n) continue;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = ep.value(ty * 8 + i, c, acc[i][j]);
-    if (ep.smem && c < ep.smem_cols) {
-      float* p = ep.smem + c * LDF + ty * 8;
-      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-    }
-    if (ep.acc) {
-      float4* p = reinterpret_cast<float4*>(ep.acc + c * LDF + ty * 8);
-      float4 s0 = p[0], s1 = p[1];
-      s0.x += v[0]; s0.y += v[1]; s0.z += v[2]; s0.w += v[3];
-      s1.x += v[4]; s1.y += v[5]; s1.z += v[6]; s1.w += v[7];
-      p[0] = s0;
-      p[1] = s1;
-    }
-  }
-}
-
-// Columns [0, N) of A1 @ W1 + A2 @ W2, widest passes first.
-__device__ void dense(const float* A1, int, int K1, const float* W1,
-                      const float* A2, int, int K2, const float* W2, int N,
-                      int ldw, const Ep<float>& ep) {
-  int n0 = 0;
-  while (n0 < N) {
-    const int rem = (N - n0) / 32;
-    if (rem >= 8) {
-      f32_pass<8>(A1, K1, W1, A2, K2, W2, ldw, n0, ep);
-      n0 += 256;
-    } else if (rem >= 4) {
-      f32_pass<4>(A1, K1, W1, A2, K2, W2, ldw, n0, ep);
-      n0 += 128;
-    } else if (rem >= 2) {
-      f32_pass<2>(A1, K1, W1, A2, K2, W2, ldw, n0, ep);
-      n0 += 64;
-    } else {
-      f32_pass<1>(A1, K1, W1, A2, K2, W2, ldw, n0, ep);
-      n0 += 32;
+    for (int h = 0; h < 2; ++h) {
+      const int c = n0 + wn * 64 + h * 32 + ln * 4;
+      if (c >= op.N) continue;
+      float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                    acc[i][4 * h + 3]};
+      if (op.bias) {
+        const float4 b = __ldg(reinterpret_cast<const float4*>(op.bias + c));
+        v[0] += b.x; v[1] += b.y; v[2] += b.z; v[3] += b.w;
+      }
+      if (c < op.relu_cols)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = v[q] < 0.f ? 0.f : v[q];
+      if (op.mask) {
+        const float4 m = *reinterpret_cast<const float4*>(
+            op.mask + p * op.mask_ld + c);
+        v[0] = m.x > 0.f ? v[0] : 0.f;
+        v[1] = m.y > 0.f ? v[1] : 0.f;
+        v[2] = m.z > 0.f ? v[2] : 0.f;
+        v[3] = m.w > 0.f ? v[3] : 0.f;
+      }
+      float4* o = reinterpret_cast<float4*>(op.out + p * op.out_ld + c);
+      if (op.accumulate) {
+        const float4 q = *o;
+        v[0] = q.x + v[0]; v[1] = q.y + v[1];
+        v[2] = q.z + v[2]; v[3] = q.w + v[3];
+      }
+      *o = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
 }
 
-// dst[k][r] = src[(row0 + r) / div][k]
-__device__ void stage(float* dst, int, const float* __restrict__ src,
-                      int cols, long long row0, long long div, int n_valid) {
-  for (int e = threadIdx.x; e < BM * cols; e += THREADS) {
-    const int r = e / cols;
-    const int k = e - r * cols;
-    dst[k * LDF + r] = (r < n_valid) ? src[((row0 + r) / div) * cols + k]
-                                     : 0.f;
-  }
+// ------------------------------------------ bf16 fused data pass --------
+
+constexpr int BM = 128, KS = 32, PAD = 8;
+constexpr int RING_LD = 256 + PAD;  // widest column pass 256
+constexpr int RING_STAGE = KS * RING_LD;
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void put(float* buf, int, int r, int c, float x) {
-  buf[c * LDF + r] = x;
-}
-
-// ---------------------------------------------------------------- bf16 --
-// Shared activations are row-major [BM][ld] bf16; `acc` is row-major fp32.
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
-  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
-  return l | (h << 16);
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
 }
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
@@ -326,512 +458,631 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One warp tile: rows r0 .. r0 + 16 MT, columns c0 .. c0 + 32 of
-// A1 @ W1 + A2 @ W2 (W blocks ldw columns wide, fragment order)
-template <int MT>
-__device__ __forceinline__ void bf16_tile(
-    const bf16* A1, int lda1, int K1, const uint2* __restrict__ W1,
-    const bf16* A2, int lda2, int K2, const uint2* __restrict__ W2, int ldw,
-    int r0, int c0, const Ep<bf16>& ep) {
-  const int lane = threadIdx.x & 31;
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
+  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
+  return l | (h << 16);
+}
+
+__device__ __forceinline__ bool bf16_pos(uint32_t bits) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)bits)) > 0.f;
+}
+
+// One summand A @ W: A [BM, K] in shared memory (row stride lda), W [K, *]
+// row-major in device memory (row stride ldw).
+struct HTerm {
+  const bf16* a;
+  int lda, K;
+  const bf16* w;
+  int ldw;
+};
+
+// Where a product's output goes.  dst: bf16 into shared memory, after
+// + bias[c] and relu on c < relu_cols; with mask, 0 unless the value
+// dst already holds there is > 0 (the relu output, staged beforehand).
+// gout (dst null): fp32 rows < n_valid to device memory, old + value with
+// accumulate.
+struct HEp {
+  bf16* dst;
+  int ld;
+  const float* bias;
+  int relu_cols, mask;
+  float* gout;
+  long long gld;
+  int accumulate, n_valid;
+};
+
+// Output columns [c0, c0 + NP) of t0 (+ t1): warps in WR rows of MT
+// 16-row blocks and 8 / WR columns of NT 8-column blocks.  Slab s + 1
+// loads while slab s multiplies; ends with every warp past its last ring
+// read.  cp.async groups committed before the call are waited for by the
+// first slab's wait.
+template <int WR, int MT, int NT>
+__device__ __forceinline__ void mma_product(const HTerm& t0, const HTerm& t1,
+                                            int nterms, int c0, bf16* ring,
+                                            const HEp& ep) {
+  constexpr int WC = 8 / WR;
+  constexpr int NP = WC * NT * 8;
+  constexpr int LDW = NP + PAD;
+  static_assert(WR * MT * 16 == BM, "warp rows must cover the tile");
+  static_assert(NT % 2 == 0, "B fragments load in pairs of n blocks");
+  static_assert(NP <= 256, "column pass wider than the ring");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp / WC, wc = warp - wr * WC;
   const int g = lane >> 2, t = lane & 3;
-  const int NB = ldw / 8;
-  float acc[MT][4][4];
+  const int s0 = t0.K / KS;
+  const int slabs = s0 + (nterms > 1 ? t1.K / KS : 0);
+
+  auto load = [&](int s, bf16* stage) {
+    const bool first = s < s0;
+    const bf16* w = first ? t0.w : t1.w;
+    const int ldw = first ? t0.ldw : t1.ldw;
+    const int k0 = (first ? s : s - s0) * KS;
+    constexpr int CH = NP / 8;  // 16-byte chunks per slab row
+    for (int e = threadIdx.x; e < KS * CH; e += THREADS) {
+      const int r = e / CH;
+      const int c = (e - r * CH) * 8;
+      cp_async16(stage + r * LDW + c, w + (size_t)(k0 + r) * ldw + c0 + c,
+                 true);
+    }
+  };
+
+  float acc[MT][NT][4];
 #pragma unroll
   for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][nj][q] = 0.f;
+
+  load(0, ring);
+  cp_async_commit();
+#pragma unroll 1
+  for (int s = 0; s < slabs; ++s) {
+    if (s + 1 < slabs) {
+      load(s + 1, ring + ((s + 1) & 1) * RING_STAGE);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* stage = ring + (s & 1) * RING_STAGE;
+    const bool first = s < s0;
+    const bf16* a = first ? t0.a : t1.a;
+    const int lda = first ? t0.lda : t1.lda;
+    const int ck = (first ? s : s - s0) * KS;
+#pragma unroll
+    for (int kk = 0; kk < KS; kk += 16) {
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+        ldmatrix_x4(af[mi], a + (wr * MT * 16 + mi * 16 + (lane & 15)) * lda +
+                                ck + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int nj = 0; nj < NT; nj += 2) {
+        uint32_t bfr[4];
+        ldmatrix_x4_trans(bfr, stage + (kk + (lane & 15)) * LDW +
+                                   wc * NT * 8 + nj * 8 + (lane >> 4) * 8);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+          mma_bf16(acc[mi][nj], af[mi], bfr[0], bfr[1]);
+          mma_bf16(acc[mi][nj + 1], af[mi], bfr[2], bfr[3]);
+        }
+      }
+    }
+    __syncthreads();  // the stage is refilled two slabs on
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < NT; ++nj) {
+      const int c = c0 + wc * NT * 8 + nj * 8 + 2 * t;  // columns c, c + 1
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = wr * MT * 16 + mi * 16 + g + 8 * h;
+        float v0 = acc[mi][nj][2 * h], v1 = acc[mi][nj][2 * h + 1];
+        if (!ep.dst) {
+          if (row < ep.n_valid) {
+            float2* o = reinterpret_cast<float2*>(ep.gout + row * ep.gld + c);
+            if (ep.accumulate) {
+              const float2 q = *o;
+              v0 = q.x + v0;
+              v1 = q.y + v1;
+            }
+            *o = make_float2(v0, v1);
+          }
+          continue;
+        }
+        if (ep.bias) {
+          v0 += __ldg(ep.bias + c);
+          v1 += __ldg(ep.bias + c + 1);
+        }
+        if (c < ep.relu_cols) {  // relu_cols is a multiple of 32
+          v0 = v0 < 0.f ? 0.f : v0;
+          v1 = v1 < 0.f ? 0.f : v1;
+        }
+        uint32_t* d = reinterpret_cast<uint32_t*>(ep.dst + row * ep.ld + c);
+        uint32_t out = pack_bf16x2(v0, v1);
+        if (ep.mask) {
+          const uint32_t m = *d;
+          out = (bf16_pos(m) ? out & 0xffffu : 0u) |
+                (bf16_pos(m >> 16) ? out & 0xffff0000u : 0u);
+        }
+        *d = out;
+      }
+    }
+}
+
+// Columns [0, N) of t0 (+ t1), in passes of 256, 128, 64 and 32 columns.
+__device__ __noinline__ void dense(const HTerm t0, const HTerm t1, int nterms,
+                                   int N, bf16* ring, const HEp ep) {
+  int c0 = 0;
+  while (c0 < N) {
+    const int rem = N - c0;
+    if (rem >= 256) {
+      mma_product<2, 4, 8>(t0, t1, nterms, c0, ring, ep);
+      c0 += 256;
+    } else if (rem >= 128) {
+      mma_product<2, 4, 4>(t0, t1, nterms, c0, ring, ep);
+      c0 += 128;
+    } else if (rem >= 64) {
+      mma_product<4, 2, 4>(t0, t1, nterms, c0, ring, ep);
+      c0 += 64;
+    } else {
+      mma_product<8, 1, 4>(t0, t1, nterms, c0, ring, ep);
+      c0 += 32;
+    }
+  }
+}
+
+// rows (row0 + r) / div of src (row stride sld), columns [0, cols), into
+// dst [BM][ld] by cp.async; zeros for r >= n_valid.  The caller commits.
+__device__ void get_rows(bf16* dst, int ld, const bf16* __restrict__ src,
+                         long long sld, long long row0, long long div,
+                         int cols, int n_valid) {
+  const int ch = cols / 8;
+  for (int e = threadIdx.x; e < BM * ch; e += THREADS) {
+    const int r = e / ch;
+    const int c = (e - r * ch) * 8;
+    const bool ok = r < n_valid;
+    const long long sr = ok ? (div == 1 ? row0 + r : (row0 + r) / div) : 0;
+    cp_async16(dst + r * ld + c, src + sr * sld + c, ok);
+  }
+}
+
+// rows [0, n_valid), columns [0, cols) of src [BM][ld] to dst (row
+// stride dld), 16 bytes a thread
+__device__ void put_rows(bf16* __restrict__ dst, long long dld,
+                         const bf16* src, int ld, int cols, int n_valid) {
+  const int ch = cols / 8;
+  for (int e = threadIdx.x; e < n_valid * ch; e += THREADS) {
+    const int r = e / ch;
+    const int c = (e - r * ch) * 8;
+    *reinterpret_cast<uint4*>(dst + r * dld + c) =
+        *reinterpret_cast<const uint4*>(src + r * ld + c);
+  }
+}
+
+__device__ __forceinline__ HTerm term(const bf16* a, int lda, int K,
+                                      const bf16* w, int ldw) {
+  return HTerm{a, lda, K, w, ldw};
+}
+
+__device__ __forceinline__ HEp to_smem(bf16* dst, int ld) {
+  return HEp{dst, ld, nullptr, 0, 0, nullptr, 0, 0, 0};
+}
+
+__device__ __forceinline__ HEp to_global(float* out, long long gld,
+                                         int accumulate, int n_valid) {
+  return HEp{nullptr, 0, nullptr, 0, 0, out, gld, accumulate, n_valid};
+}
+
+long long data_smem_bf16(int in_p, int w_p, int v_p) {
+  const long long wide = w_p + ALIGN;  // h_p <= w_p
+  return 2LL * (2 * RING_STAGE + 2 * BM * (wide + PAD)) +
+         2LL * BM * ((in_p + PAD) + (v_p + PAD) + (ALIGN + PAD));
+}
+
+template <int HEAD>
+__global__ void __launch_bounds__(THREADS, 1)
+data_kernel(const bf16* __restrict__ x, const bf16* __restrict__ v,
+            long long v_div, const bf16* __restrict__ w,
+            const bf16* __restrict__ wt, const float* __restrict__ bbuf,
+            bf16* acts, bf16* dacts, float* __restrict__ dx,
+            float* __restrict__ dv, long long n, const Layout y) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int in_p = y.in_p, w_p = y.w_p, v_p = y.v_p, h_p = y.h_p;
+  const int ldh = w_p + ALIGN + PAD, ldx = in_p + PAD, ldv = v_p + PAD,
+            ldr = ALIGN + PAD;
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  bf16* buf0 = ring + 2 * RING_STAGE;
+  bf16* buf1 = buf0 + BM * ldh;
+  bf16* xs = buf1 + BM * ldh;
+  bf16* vs = xs + BM * ldx;
+  bf16* rs = vs + BM * ldv;
+
+  const long long row0 = (long long)blockIdx.x * BM;
+  const int n_valid = (int)min((long long)BM, n - row0);
+  bf16* arow = acts + row0 * y.Ca;
+  bf16* drow = dacts + row0 * y.Cd;
+  const float* bias = bbuf - y.n_w;  // indexed by boff
+  auto W = [&](int j) { return w + y.woff[j]; };
+  auto WT = [&](int j) { return wt + y.woff[j]; };
+  const HTerm none = term(nullptr, 0, 0, nullptr, 0);
+
+  get_rows(xs, ldx, x, in_p, row0, 1, in_p, n_valid);
+  get_rows(vs, ldv, v, v_p, row0, v_div, v_p, n_valid);
+  get_rows(rs, ldr, dacts + y.drgb, y.Cd, row0, 1, ALIGN, n_valid);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // ---- forward recompute: relu outputs to the shared ping-pong, then
+  // to acts as 16-byte rows
+  const bf16* h = xs;
+  int hk = in_p, hld = ldx;
+  bf16* dst = buf0;
+  for (int i = 0; i < y.L; ++i) {
+    HEp ep = to_smem(dst, ldh);
+    ep.bias = bias + y.boff[i];
+    ep.relu_cols = w_p;
+    const int bx = y.blk_x[i], bh = y.blk_h[i];
+    if (bx >= 0)
+      dense(term(xs, ldx, in_p, W(bx), w_p), term(h, hld, w_p, W(bh), w_p),
+            2, w_p, ring, ep);
+    else
+      dense(term(h, hld, hk, W(bh), w_p), none, 1, w_p, ring, ep);
+    __syncthreads();
+    put_rows(arow + y.act[i], y.Ca, dst, ldh, w_p, n_valid);
+    h = dst;
+    hk = w_p;
+    hld = ldh;
+    dst = (dst == buf0) ? buf1 : buf0;
+  }
+  bf16* X = const_cast<bf16*>(h);  // relu_{L-1}
+  bf16* Y = dst;
+  const int hb = y.hb, hbias = y.L;
+  if (HEAD == SPLIT) {
+    // feature = h @ Waf[:, :w_p] + baf -> Y, acts.feat
+    HEp ep = to_smem(Y, ldh);
+    ep.bias = bias + y.boff[hbias];
+    dense(term(X, ldh, w_p, W(hb), w_p + ALIGN), none, 1, w_p, ring, ep);
+    __syncthreads();
+    put_rows(arow + y.feat, y.Ca, Y, ldh, w_p, n_valid);
+    get_rows(Y + w_p, ldh, dacts + y.dalpha, y.Cd, row0, 1, ALIGN, n_valid);
+    cp_async_commit();
+    // z_hv = relu(feature @ Wvf + v @ Wvv + bv) -> X, acts.zhv
+    ep = to_smem(X, ldh);
+    ep.bias = bias + y.boff[hbias + 1];
+    ep.relu_cols = h_p;
+    dense(term(Y, ldh, w_p, W(hb + 1), h_p), term(vs, ldv, v_p, W(hb + 2), h_p),
+          2, h_p, ring, ep);
+    __syncthreads();
+    put_rows(arow + y.zhv, y.Ca, X, ldh, h_p, n_valid);
+    // ---- backward.  da_v = [z_hv > 0] (d_rgb @ Wr^T), in place in X
+    ep = to_smem(X, ldh);
+    ep.mask = 1;
+    dense(term(rs, ldr, ALIGN, WT(hb + 3), h_p), none, 1, h_p, ring, ep);
+    __syncthreads();
+    put_rows(drow + y.dav, y.Cd, X, ldh, h_p, n_valid);
+    // dv = da_v @ Wvv^T
+    dense(term(X, ldh, h_p, WT(hb + 2), v_p), none, 1, v_p, ring,
+          to_global(dv + row0 * v_p, v_p, 0, n_valid));
+    // dfeat = da_v @ Wvf^T -> Y[:, :w_p]; Y[:, w_p:] holds d_alpha
+    dense(term(X, ldh, h_p, WT(hb + 1), w_p), none, 1, w_p, ring,
+          to_smem(Y, ldh));
+    __syncthreads();
+    put_rows(drow + y.dcat, y.Cd, Y, ldh, w_p, n_valid);
+    // da_{L-1} = [relu_{L-1} > 0] ([dfeat | d_alpha] @ Waf^T) -> X
+    get_rows(X, ldh, acts + y.act[y.L - 1], y.Ca, row0, 1, w_p, n_valid);
+    cp_async_commit();
+    ep = to_smem(X, ldh);
+    ep.mask = 1;
+    dense(term(Y, ldh, w_p + ALIGN, WT(hb), w_p), none, 1, w_p, ring, ep);
+  } else {
+    // z_hv = relu((h @ Wfa + v @ Wvv + bfa)[:, :h_p]) -> Y, acts.zhv;
+    // the d_alpha block into Y[:, h_p:]
+    get_rows(Y + h_p, ldh, dacts + y.dalpha, y.Cd, row0, 1, ALIGN, n_valid);
+    cp_async_commit();
+    HEp ep = to_smem(Y, ldh);
+    ep.bias = bias + y.boff[hbias];
+    ep.relu_cols = h_p;
+    dense(term(X, ldh, w_p, W(hb), h_p + ALIGN),
+          term(vs, ldv, v_p, W(hb + 1), h_p + ALIGN), 2, h_p, ring, ep);
+    __syncthreads();
+    put_rows(arow + y.zhv, y.Ca, Y, ldh, h_p, n_valid);
+    // ---- backward.  da_v = [z_hv > 0] (d_rgb @ Wr^T), in place in Y
+    ep = to_smem(Y, ldh);
+    ep.mask = 1;
+    dense(term(rs, ldr, ALIGN, WT(hb + 2), h_p), none, 1, h_p, ring, ep);
+    __syncthreads();
+    put_rows(drow + y.dcat, y.Cd, Y, ldh, h_p, n_valid);
+    // dv = [da_v | d_alpha] @ Wvv^T
+    dense(term(Y, ldh, h_p + ALIGN, WT(hb + 1), v_p), none, 1, v_p, ring,
+          to_global(dv + row0 * v_p, v_p, 0, n_valid));
+    // da_{L-1} = [relu_{L-1} > 0] ([da_v | d_alpha] @ Wfa^T) -> X
+    get_rows(X, ldh, acts + y.act[y.L - 1], y.Ca, row0, 1, w_p, n_valid);
+    cp_async_commit();
+    ep = to_smem(X, ldh);
+    ep.mask = 1;
+    dense(term(Y, ldh, h_p + ALIGN, WT(hb), w_p), none, 1, w_p, ring, ep);
+  }
+  __syncthreads();
+  put_rows(drow + y.da[y.L - 1], y.Cd, X, ldh, w_p, n_valid);
+
+  // ---- pts layers, last to first.  dx: the first x block met writes
+  // it, every later one and layer 0 add to it, in that fixed order.
+  bf16* cur = X;
+  int dx_set = 0;
+  float* dxr = dx + row0 * in_p;
+  for (int i = y.L - 1; i >= 0; --i) {
+    bf16* other = (cur == buf0) ? buf1 : buf0;
+    const int bx = y.blk_x[i], bh = y.blk_h[i];
+    if (bx >= 0) {  // dx (+)= da_i @ Wx_i^T
+      dense(term(cur, ldh, w_p, WT(bx), in_p), none, 1, in_p, ring,
+            to_global(dxr, in_p, dx_set, n_valid));
+      dx_set = 1;
+    }
+    if (i > 0) {  // da_{i-1} = [relu_{i-1} > 0] (da_i @ Wh_i^T)
+      get_rows(other, ldh, acts + y.act[i - 1], y.Ca, row0, 1, w_p, n_valid);
+      cp_async_commit();
+      HEp ep = to_smem(other, ldh);
+      ep.mask = 1;
+      dense(term(cur, ldh, w_p, WT(bh), w_p), none, 1, w_p, ring, ep);
+      __syncthreads();
+      put_rows(drow + y.da[i - 1], y.Cd, other, ldh, w_p, n_valid);
+      cur = other;
+    } else {  // dx (+)= da_0 @ W_0^T
+      dense(term(cur, ldh, w_p, WT(bh), in_p), none, 1, in_p, ring,
+            to_global(dxr, in_p, dx_set, n_valid));
+    }
+  }
+}
+
+// --------------------------------------------------- weight pass -------
+
+constexpr int WBM = 128, WBN = 128;
+
+struct Job {
+  const void* a;
+  long long lda, a_div;
+  int K;               // dW rows (A columns)
+  const void* d;
+  long long ldd;
+  int N;               // dW columns (dA columns)
+  long long out;       // dW offset in a partial row
+  long long bias_out;  // db offset in a partial row, -1: none
+  int tiles_n, tile0;  // column tiles; first tile in the grid
+};
+struct Jobs {
+  Job j[MAX_BLK];
+  int n, tiles;
+  long long chunk;
+};
+
+// fp32: both operands k-major in shared memory (As[FBK][128] points x dW
+// rows, Bs[FBK][128] points x columns); lane (lm, ln) of warp w owns dW
+// rows 32 (w & 3) + 4 lm .. + 4 and + 16, columns as in the data kernel.
+__device__ void weight_tile(const Job& jb, long long r_lo, long long r_hi,
+                            int m0, int n0, bool with_db, float* out, float) {
+  extern __shared__ __align__(16) float fsm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int lm = lane & 3, ln = lane >> 2;
+  const float* A = static_cast<const float*>(jb.a);
+  const float* D = static_cast<const float*>(jb.d);
+  const long long pts = r_hi > r_lo ? r_hi - r_lo : 0;
+  const int slabs = (int)((pts + FBK - 1) / FBK);
+
+  auto load = [&](int s, int st) {
+    float* As = fsm + st * F_STAGE;
+    float* Bs = As + FBK * WBM;
+    const long long p0 = r_lo + (long long)s * FBK;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int e = tid + j * THREADS;
+      const int r = e >> 5, c = (e & 31) * 4;
+      const long long p = p0 + r;
+      const bool ok_p = p < r_hi;
+      const bool oka = ok_p && m0 + c < jb.K;
+      const long long ar = oka ? (jb.a_div == 1 ? p : p / jb.a_div) : 0;
+      cp_async16(As + r * WBM + c, A + ar * jb.lda + (oka ? m0 + c : 0), oka);
+      const bool okd = ok_p && n0 + c < jb.N;
+      cp_async16(Bs + r * WBN + c, D + (okd ? p : 0) * jb.ldd +
+                                       (okd ? n0 + c : 0), okd);
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  float db = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < FST - 1; ++s) {
+    if (s < slabs) load(s, s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int s = 0; s < slabs; ++s) {
+    cp_async_wait<FST - 2>();
+    __syncthreads();
+    if (s + FST - 1 < slabs) load(s + FST - 1, (s + FST - 1) % FST);
+    cp_async_commit();
+    const float* As = fsm + (s % FST) * F_STAGE;
+    const float* Bs = As + FBK * WBM;
+    if (with_db && tid < WBN)
+#pragma unroll
+      for (int k = 0; k < FBK; ++k) db += Bs[k * WBN + tid];
+#pragma unroll
+    for (int k = 0; k < FBK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(
+          As + k * WBM + wm * 32 + lm * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(
+          As + k * WBM + wm * 32 + 16 + lm * 4);
+      const float* brow = Bs + k * WBN + wn * 64 + ln * 4;
+      const float4 b0 = *reinterpret_cast<const float4*>(brow);
+      const float4 b1 = *reinterpret_cast<const float4*>(brow + 32);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + wm * 32 + (i >> 2) * 16 + lm * 4 + (i & 3);
+    if (m >= jb.K) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = n0 + wn * 64 + h * 32 + ln * 4;
+      if (c < jb.N)
+        *reinterpret_cast<float4*>(out + jb.out + (long long)m * jb.N + c) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+    }
+  }
+  if (with_db && tid < WBN && n0 + tid < jb.N)
+    out[jb.bias_out + n0 + tid] = db;
+}
+
+// bf16: stages of HBK points, As[HBK][136] and Bs[HBK][136] copied as
+// contiguous point rows; A fragments by ldmatrix.trans from the [point][dW
+// row] tile, B fragments by ldmatrix.trans from [point][column].  Warp w
+// owns dW rows 64 (w & 1) .. + 64 and columns 32 (w >> 1) .. + 32.
+constexpr int HBK = 32, HLD = 128 + PAD, HST = 3;
+constexpr int H_STAGE = 2 * HBK * HLD;  // bf16 elements per stage
+
+__device__ void weight_tile(const Job& jb, long long r_lo, long long r_hi,
+                            int m0, int n0, bool with_db, float* out, bf16) {
+  extern __shared__ __align__(16) unsigned char wsm_raw[];
+  bf16* wsm = reinterpret_cast<bf16*>(wsm_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* A = static_cast<const bf16*>(jb.a);
+  const bf16* D = static_cast<const bf16*>(jb.d);
+  const long long pts = r_hi > r_lo ? r_hi - r_lo : 0;
+  const int slabs = (int)((pts + HBK - 1) / HBK);
+
+  auto load = [&](int s, int st) {
+    bf16* As = wsm + st * H_STAGE;
+    bf16* Bs = As + HBK * HLD;
+    const long long p0 = r_lo + (long long)s * HBK;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int e = tid + j * THREADS;
+      const int r = e >> 4, c = (e & 15) * 8;
+      const long long p = p0 + r;
+      const bool ok_p = p < r_hi;
+      const bool oka = ok_p && m0 + c < jb.K;
+      const long long ar = oka ? (jb.a_div == 1 ? p : p / jb.a_div) : 0;
+      cp_async16(As + r * HLD + c, A + ar * jb.lda + (oka ? m0 + c : 0), oka);
+      const bool okd = ok_p && n0 + c < jb.N;
+      cp_async16(Bs + r * HLD + c, D + (okd ? p : 0) * jb.ldd +
+                                       (okd ? n0 + c : 0), okd);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
     for (int nj = 0; nj < 4; ++nj)
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[mi][nj][q] = 0.f;
+  float db = 0.f;
 
-#pragma unroll 1
-  for (int s = 0; s < 2; ++s) {
-    const bf16* A = s ? A2 : A1;
-    const int lda = s ? lda2 : lda1;
-    const int K = s ? K2 : K1;
-    if (K == 0) continue;
-    const uint2* W = (s ? W2 : W1) + (size_t)(c0 / 8) * 32 + lane;
-#pragma unroll 2
-    for (int kb = 0; kb < K / 16; ++kb) {
-      uint2 b[4];
 #pragma unroll
-      for (int nj = 0; nj < 4; ++nj)
-        b[nj] = __ldg(W + ((size_t)kb * NB + nj) * 32);
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        const bf16* p = A + (r0 + mi * 16 + g) * lda + kb * 16 + 2 * t;
-        uint32_t a[4];
-        a[0] = *reinterpret_cast<const uint32_t*>(p);
-        a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * lda);
-        a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * lda + 8);
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) mma_bf16(acc[mi][nj], a, b[nj].x,
-                                                b[nj].y);
-      }
-    }
+  for (int s = 0; s < HST - 1; ++s) {
+    if (s < slabs) load(s, s);
+    cp_async_commit();
   }
-
+#pragma unroll 1
+  for (int s = 0; s < slabs; ++s) {
+    cp_async_wait<HST - 2>();
+    __syncthreads();
+    if (s + HST - 1 < slabs) load(s + HST - 1, (s + HST - 1) % HST);
+    cp_async_commit();
+    const bf16* As = wsm + (s % HST) * H_STAGE;
+    const bf16* Bs = As + HBK * HLD;
+    if (with_db && tid < WBN)
 #pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
+      for (int k = 0; k < HBK; ++k) db += __bfloat162float(Bs[k * HLD + tid]);
 #pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      const int c = c0 + nj * 8 + 2 * t;  // columns c, c + 1
+    for (int kk = 0; kk < HBK; kk += 16) {
+      uint32_t af[4][4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = r0 + mi * 16 + g + 8 * h;
-        const float v0 = ep.value(row, c, acc[mi][nj][2 * h]);
-        const float v1 = ep.value(row, c + 1, acc[mi][nj][2 * h + 1]);
-        // smem_cols is a multiple of 32: c and c + 1 agree
-        if (ep.smem && c < ep.smem_cols)
-          *reinterpret_cast<uint32_t*>(ep.smem + row * ep.smem_ld + c) =
-              pack_bf16x2(v0, v1);
-        if (ep.acc) {
-          ep.acc[row * ep.acc_ld + c] += v0;
-          ep.acc[row * ep.acc_ld + c + 1] += v1;
+      for (int mi = 0; mi < 4; ++mi)
+        ldmatrix_x4_trans(af[mi], As + (kk + (lane >> 4) * 8 + (lane & 7)) *
+                                           HLD +
+                                       wm * 64 + mi * 16 +
+                                       ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int nj = 0; nj < 4; nj += 2) {
+        uint32_t bfr[4];
+        ldmatrix_x4_trans(bfr, Bs + (kk + (lane & 15)) * HLD + wn * 32 +
+                                   nj * 8 + (lane >> 4) * 8);
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+          mma_bf16(acc[mi][nj], af[mi], bfr[0], bfr[1]);
+          mma_bf16(acc[mi][nj + 1], af[mi], bfr[2], bfr[3]);
         }
       }
     }
-}
-
-// Columns [0, N) spread over the 8 warps (as in the forward kernel).
-__device__ void dense(const bf16* A1, int lda1, int K1, const uint2* W1,
-                      const bf16* A2, int lda2, int K2, const uint2* W2,
-                      int N, int ldw, const Ep<bf16>& ep) {
-  const int warp = threadIdx.x >> 5;
-  const int groups = N / 32;
-  const int full = groups & ~7;
-  for (int it = warp; it < full; it += 8)
-    bf16_tile<4>(A1, lda1, K1, W1, A2, lda2, K2, W2, ldw, 0, it * 32, ep);
-  const int rem = groups - full;
-  if (rem >= 4) {
-    for (int it = warp; it < rem * 2; it += 8)
-      bf16_tile<2>(A1, lda1, K1, W1, A2, lda2, K2, W2, ldw, (it & 1) * 32,
-                   (full + (it >> 1)) * 32, ep);
-  } else if (rem > 0) {
-    for (int it = warp; it < rem * 4; it += 8)
-      bf16_tile<1>(A1, lda1, K1, W1, A2, lda2, K2, W2, ldw, (it & 3) * 16,
-                   (full + (it >> 2)) * 32, ep);
   }
-}
+  cp_async_wait<0>();
 
-// dst[r][:] = src[(row0 + r) / div][:], 16 bytes at a time
-__device__ void stage(bf16* dst, int ldd, const bf16* __restrict__ src,
-                      int cols, long long row0, long long div, int n_valid) {
-  const int vec = cols / 8;
-  for (int e = threadIdx.x; e < BM * vec; e += THREADS) {
-    const int r = e / vec;
-    const int c = (e - r * vec) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_valid)
-      val = *reinterpret_cast<const uint4*>(src + ((row0 + r) / div) * cols +
-                                            c);
-    *reinterpret_cast<uint4*>(dst + r * ldd + c) = val;
-  }
-}
-
-__device__ __forceinline__ void put(bf16* buf, int ld, int r, int c,
-                                    float x) {
-  buf[r * ld + c] = __float2bfloat16_rn(x);
-}
-
-// ----------------------------------------------------------- pass 1 ------
-
-// The cotangent columns [g0, g0 + 3) (or the one column 3) into 32 shared
-// columns at `col` of `buf` and into the workspace section `dsec`; the
-// other columns are zero.
-template <typename T>
-__device__ void stage_g(T* buf, int ld, int col, T* dsec, long long Cd,
-                        const float* __restrict__ g, long long row0,
-                        int n_valid, int g0, int n_g) {
-  for (int e = threadIdx.x; e < BM * ALIGN; e += THREADS) {
-    const int r = e / ALIGN;
-    const int k = e - r * ALIGN;
-    const float val =
-        (k < n_g && r < n_valid) ? g[(row0 + r) * 4 + g0 + k] : 0.f;
-    put(buf, ld, r, col + k, val);
-    if (r < n_valid) dsec[r * Cd + k] = from_f<T>(val);
-  }
-}
-
-template <typename T>
-struct Smem;
-template <>
-struct Smem<float> {  // k-major fp32 buffers and dx accumulator
-  __host__ __device__ static long long rows_bytes(int cols) {
-    return (long long)cols * LDF * 4;
-  }
-  __host__ __device__ static int ld(int) { return LDF; }
-  __host__ __device__ static int acc_floats(int in_p) { return in_p * LDF; }
-  __device__ static float acc_at(const float* a, int, int r, int k) {
-    return a[k * LDF + r];
-  }
-};
-template <>
-struct Smem<bf16> {  // row-major bf16 buffers, row-major fp32 accumulator
-  __host__ __device__ static long long rows_bytes(int cols) {
-    return (long long)BM * (cols + PADB) * 2;
-  }
-  __host__ __device__ static int ld(int cols) { return cols + PADB; }
-  __host__ __device__ static int acc_floats(int in_p) {
-    return BM * (in_p + 4);
-  }
-  __device__ static float acc_at(const float* a, int ld, int r, int k) {
-    return a[r * ld + k];
-  }
-};
-
-template <typename T>
-long long data_smem(int in_p, int w_p, int v_p) {
-  return 2 * Smem<T>::rows_bytes(w_p + ALIGN) + Smem<T>::rows_bytes(in_p) +
-         Smem<T>::rows_bytes(v_p) + Smem<T>::rows_bytes(ALIGN) +
-         (long long)Smem<T>::acc_floats(in_p) * 4;  // fp32 dx accumulator
-}
-
-template <typename T, int HEAD>
-__global__ void __launch_bounds__(THREADS)
-data_kernel(const T* __restrict__ x, const T* __restrict__ v, long long v_div,
-            const float* __restrict__ g,
-            const typename WType<T>::type* __restrict__ wbuf,
-            const typename WType<T>::type* __restrict__ wtbuf,
-            const float* __restrict__ bbuf, T* acts, T* dacts,
-            float* __restrict__ dx,
-            float* __restrict__ dv, long long n, const Layout y) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int in_p = y.in_p, w_p = y.w_p, v_p = y.v_p, h_p = y.h_p;
-  const int wide = w_p + ALIGN;
-  const int ldh = Smem<T>::ld(wide), ldx = Smem<T>::ld(in_p),
-            ldv = Smem<T>::ld(v_p), ldr = Smem<T>::ld(ALIGN);
-  unsigned char* s = smem_raw;
-  T* buf0 = reinterpret_cast<T*>(s); s += Smem<T>::rows_bytes(wide);
-  T* buf1 = reinterpret_cast<T*>(s); s += Smem<T>::rows_bytes(wide);
-  T* xs = reinterpret_cast<T*>(s); s += Smem<T>::rows_bytes(in_p);
-  T* vs = reinterpret_cast<T*>(s); s += Smem<T>::rows_bytes(v_p);
-  T* rs = reinterpret_cast<T*>(s); s += Smem<T>::rows_bytes(ALIGN);
-  float* dxs = reinterpret_cast<float*>(s);
-  const int dx_ld = in_p + 4;  // row-major accumulator (bf16 path)
-
-  const long long row0 = (long long)blockIdx.x * BM;
-  const int n_valid = (int)min((long long)BM, n - row0);
-  T* arow = acts + row0 * y.Ca;
-  T* drow = dacts + row0 * y.Cd;
-  stage(xs, ldx, x, in_p, row0, 1, n_valid);
-  stage(vs, ldv, v, v_p, row0, v_div, n_valid);
-  for (int e = threadIdx.x; e < Smem<T>::acc_floats(in_p); e += THREADS)
-    dxs[e] = 0.f;
-  __syncthreads();
-
-  // ---- forward recompute: relu outputs to shared ping-pong and to acts
-  const T* h = xs;
-  int hk = in_p, ldin = ldx;
-  T* outb = buf0;
-  for (int i = 0; i < y.L; ++i) {
-    Ep<T> ep = ep_none<T>(n_valid);
-    ep.bias = bbuf - y.n_w + y.boff[i];
-    ep.relu_cols = w_p;
-    ep.smem = outb; ep.smem_ld = ldh; ep.smem_cols = w_p;
-    ep.gout = arow + y.act[i]; ep.g_ld = y.Ca; ep.g_cols = w_p;
-    const int bh = y.blk_h[i];
-    if (y.blk_x[i] >= 0)
-      dense(xs, ldx, in_p, wptr(wbuf, y.woff[y.blk_x[i]]), h, ldh, w_p,
-            wptr(wbuf, y.woff[bh]), w_p, w_p, ep);
-    else
-      dense(h, ldin, hk, wptr(wbuf, y.woff[bh]), nullptr, 0, 0, nullptr, w_p,
-            w_p, ep);
-    __syncthreads();
-    h = outb;
-    hk = w_p;
-    ldin = ldh;
-    outb = (outb == buf0) ? buf1 : buf0;
-  }
-  const int hb = y.hb, hbias = y.L;
-  T* cur;  // the shared buffer holding da of the last pts layer
-  if (HEAD == SPLIT) {
-    // feature = h @ Waf[:, :w_p] + baf (no relu) -> outb, acts.feat
-    Ep<T> ep = ep_none<T>(n_valid);
-    ep.bias = bbuf - y.n_w + y.boff[hbias];
-    ep.smem = outb; ep.smem_ld = ldh; ep.smem_cols = w_p;
-    ep.gout = arow + y.feat; ep.g_ld = y.Ca; ep.g_cols = w_p;
-    dense(h, ldh, w_p, wptr(wbuf, y.woff[hb]), nullptr, 0, 0, nullptr, w_p,
-          w_p + ALIGN, ep);
-    __syncthreads();
-    // z_hv = relu(feature @ Wvf + v @ Wvv + bv) -> acts.zhv
-    ep = ep_none<T>(n_valid);
-    ep.bias = bbuf - y.n_w + y.boff[hbias + 1];
-    ep.relu_cols = h_p;
-    ep.gout = arow + y.zhv; ep.g_ld = y.Ca; ep.g_cols = h_p;
-    dense(outb, ldh, w_p, wptr(wbuf, y.woff[hb + 1]), vs, ldv, v_p,
-          wptr(wbuf, y.woff[hb + 2]), h_p, h_p, ep);
-    stage_g(rs, ldr, 0, drow + y.drgb, y.Cd, g, row0, n_valid, 0, 3);
-    __syncthreads();
-    // ---- backward.  da_v = [z_hv > 0] (d_rgb @ Wr^T) -> buf0, dacts.dav
-    ep = ep_none<T>(n_valid);
-    ep.mask = arow + y.zhv; ep.mask_ld = y.Ca;
-    ep.smem = buf0; ep.smem_ld = ldh; ep.smem_cols = h_p;
-    ep.gout = drow + y.dav; ep.g_ld = y.Cd; ep.g_cols = h_p;
-    dense(rs, ldr, ALIGN, wptr(wtbuf, y.woff[hb + 3]), nullptr, 0, 0,
-          nullptr, h_p, h_p, ep);
-    __syncthreads();
-    // dv = da_v @ Wvv^T
-    ep = ep_none<T>(n_valid);
-    ep.fout = dv + row0 * v_p; ep.f_ld = v_p; ep.f_cols = v_p;
-    dense(buf0, ldh, h_p, wptr(wtbuf, y.woff[hb + 2]), nullptr, 0, 0,
-          nullptr, v_p, v_p, ep);
-    // [dfeat | d_alpha] -> buf1, dacts.dcat;  dfeat = da_v @ Wvf^T
-    ep = ep_none<T>(n_valid);
-    ep.smem = buf1; ep.smem_ld = ldh; ep.smem_cols = w_p;
-    ep.gout = drow + y.dcat; ep.g_ld = y.Cd; ep.g_cols = w_p;
-    dense(buf0, ldh, h_p, wptr(wtbuf, y.woff[hb + 1]), nullptr, 0, 0,
-          nullptr, w_p, w_p, ep);
-    stage_g(buf1, ldh, w_p, drow + y.dcat + w_p, y.Cd, g, row0, n_valid, 3,
-            1);
-    __syncthreads();
-    // da_{L-1} = [relu_{L-1} > 0] ([dfeat | d_alpha] @ Waf^T) -> buf0
-    ep = ep_none<T>(n_valid);
-    ep.mask = arow + y.act[y.L - 1]; ep.mask_ld = y.Ca;
-    ep.smem = buf0; ep.smem_ld = ldh; ep.smem_cols = w_p;
-    ep.gout = drow + y.da[y.L - 1]; ep.g_ld = y.Cd; ep.g_cols = w_p;
-    dense(buf1, ldh, w_p + ALIGN, wptr(wtbuf, y.woff[hb]), nullptr, 0, 0,
-          nullptr, w_p, w_p, ep);
-    __syncthreads();
-    cur = buf0;
-  } else {
-    // z_hv = relu((h @ Wfa + v @ Wvv + bfa)[:, :h_p]) -> acts.zhv
-    Ep<T> ep = ep_none<T>(n_valid);
-    ep.bias = bbuf - y.n_w + y.boff[hbias];
-    ep.relu_cols = h_p;
-    ep.gout = arow + y.zhv; ep.g_ld = y.Ca; ep.g_cols = h_p;
-    dense(h, ldh, w_p, wptr(wbuf, y.woff[hb]), vs, ldv, v_p,
-          wptr(wbuf, y.woff[hb + 1]), h_p, h_p + ALIGN, ep);
-    stage_g(rs, ldr, 0, drow + y.drgb, y.Cd, g, row0, n_valid, 0, 3);
-    __syncthreads();
-    // ---- backward.  [da_v | d_alpha] -> outb, dacts.dcat
-    T* dva = outb;
-    ep = ep_none<T>(n_valid);
-    ep.mask = arow + y.zhv; ep.mask_ld = y.Ca;
-    ep.smem = dva; ep.smem_ld = ldh; ep.smem_cols = h_p;
-    ep.gout = drow + y.dcat; ep.g_ld = y.Cd; ep.g_cols = h_p;
-    dense(rs, ldr, ALIGN, wptr(wtbuf, y.woff[hb + 2]), nullptr, 0, 0,
-          nullptr, h_p, h_p, ep);
-    stage_g(dva, ldh, h_p, drow + y.dcat + h_p, y.Cd, g, row0, n_valid, 3,
-            1);
-    __syncthreads();
-    // dv = [da_v | d_alpha] @ Wvv^T
-    ep = ep_none<T>(n_valid);
-    ep.fout = dv + row0 * v_p; ep.f_ld = v_p; ep.f_cols = v_p;
-    dense(dva, ldh, h_p + ALIGN, wptr(wtbuf, y.woff[hb + 1]), nullptr, 0, 0,
-          nullptr, v_p, v_p, ep);
-    // da_{L-1} = [relu_{L-1} > 0] ([da_v | d_alpha] @ Wfa^T)
-    cur = (dva == buf0) ? buf1 : buf0;
-    ep = ep_none<T>(n_valid);
-    ep.mask = arow + y.act[y.L - 1]; ep.mask_ld = y.Ca;
-    ep.smem = cur; ep.smem_ld = ldh; ep.smem_cols = w_p;
-    ep.gout = drow + y.da[y.L - 1]; ep.g_ld = y.Cd; ep.g_cols = w_p;
-    dense(dva, ldh, h_p + ALIGN, wptr(wtbuf, y.woff[hb]), nullptr, 0, 0,
-          nullptr, w_p, w_p, ep);
-    __syncthreads();
-  }
-
-  // ---- pts layers, last to first: dx accumulates in dxs
-  for (int i = y.L - 1; i >= 0; --i) {
-    T* other = (cur == buf0) ? buf1 : buf0;
-    const int bx = y.blk_x[i], bh = y.blk_h[i];
-    Ep<T> ea = ep_none<T>(n_valid);
-    ea.acc = dxs; ea.acc_ld = dx_ld;
-    if (bx >= 0)  // dx += da_i @ Wx_i^T
-      dense(cur, ldh, w_p, wptr(wtbuf, y.woff[bx]), nullptr, 0, 0, nullptr,
-            in_p, in_p, ea);
-    if (i > 0) {  // da_{i-1} = [relu_{i-1} > 0] (da_i @ Wh_i^T)
-      Ep<T> ep = ep_none<T>(n_valid);
-      ep.mask = arow + y.act[i - 1]; ep.mask_ld = y.Ca;
-      ep.smem = other; ep.smem_ld = ldh; ep.smem_cols = w_p;
-      ep.gout = drow + y.da[i - 1]; ep.g_ld = y.Cd; ep.g_cols = w_p;
-      dense(cur, ldh, w_p, wptr(wtbuf, y.woff[bh]), nullptr, 0, 0, nullptr,
-            w_p, w_p, ep);
-    } else {  // dx += da_0 @ W_0^T
-      dense(cur, ldh, w_p, wptr(wtbuf, y.woff[bh]), nullptr, 0, 0, nullptr,
-            in_p, in_p, ea);
-    }
-    __syncthreads();
-    cur = other;
-  }
-  for (int e = threadIdx.x; e < n_valid * in_p; e += THREADS) {
-    const int r = e / in_p;
-    const int k = e - r * in_p;
-    dx[(row0 + r) * in_p + k] = Smem<T>::acc_at(dxs, dx_ld, r, k);
-  }
-}
-
-// ----------------------------------------------------------- pass 2 ------
-
-// One dW block A^T @ D, or (a == nullptr) one db block, the column sums
-// of D
-struct Job {
-  const void* a;
-  long long lda, a_div;
-  int K;
-  const void* d;
-  long long ldd;
-  int N;
-  long long out;  // element offset in a partial row
-};
-struct Jobs {
-  Job j[MAX_JOBS];
-  int n;
-};
-
-// Weight-grad tile: 64 dW rows x 64 columns, 32 points per step.  (A
-// 128 x 128 fp32 tile with 8 x 8 per thread took 147 registers, so one
-// CTA per SM, and was slower on the H100 than this one at 64.)
-constexpr int TK = 64, TN = 64, TP = 32;
-
-template <typename T>
-__device__ __forceinline__ float job_a(const Job& jb, long long row, int k) {
-  const long long r = jb.a_div == 1 ? row : row / jb.a_div;
-  return to_f(static_cast<const T*>(jb.a)[r * jb.lda + k]);
-}
-
-// fp32: CUDA-core FMAs; thread (ty, tx) owns dW rows k0 + 4ty .. + 4 and
-// columns n0 + 4tx .. + 4 of the 64 x 64 tile.
-__device__ void weight_tile(const Job& jb, long long r_lo, long long r_hi,
-                            int k0, int n0, float* out, float) {
-  __shared__ __align__(16) float As[TP][TK + 4];
-  __shared__ __align__(16) float Ds[TP][TN + 4];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][4] = {};
-  const float* D = static_cast<const float*>(jb.d);
-  for (long long p0 = r_lo; p0 < r_hi; p0 += TP) {
-    for (int e = threadIdx.x; e < TP * TK; e += THREADS) {
-      const int pr = e / TK, kk = e - pr * TK;
-      const long long row = p0 + pr;
-      const bool ok = row < r_hi;
-      As[pr][kk] = (ok && k0 + kk < jb.K) ? job_a<float>(jb, row, k0 + kk)
-                                          : 0.f;
-      Ds[pr][kk] = (ok && n0 + kk < jb.N) ? D[row * jb.ldd + n0 + kk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int pr = 0; pr < TP; ++pr) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[pr][ty * 4]);
-      const float4 d = *reinterpret_cast<const float4*>(&Ds[pr][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float dvv[4] = {d.x, d.y, d.z, d.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], dvv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+    for (int nj = 0; nj < 4; ++nj) {
+      const int c = n0 + wn * 32 + nj * 8 + 2 * t;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + ty * 4 + i, c = n0 + tx * 4 + j;
-      if (k < jb.K && c < jb.N) out[jb.out + (long long)k * jb.N + c] =
-          acc[i][j];
-    }
-}
-
-// bf16: mma.sync m16n8k16 over the points; warp w owns dW rows
-// k0 + 16 (w % 4) .. + 16 and columns n0 + 32 (w / 4) .. + 32.
-// Shared tiles are transposed (At[k][p], Dt[n][p]) so that both operands'
-// fragments are pairs along the points.
-__device__ void weight_tile(const Job& jb, long long r_lo, long long r_hi,
-                            int k0, int n0, float* out, bf16) {
-  __shared__ __align__(16) bf16 At[TK][TP + PADB];
-  __shared__ __align__(16) bf16 Dt[TN][TP + PADB];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int mr = (warp & 3) * 16, nc = (warp >> 2) * 32;
-  float acc[4][4] = {};
-  const bf16* D = static_cast<const bf16*>(jb.d);
-  const bf16 zero = __float2bfloat16_rn(0.f);
-  for (long long p0 = r_lo; p0 < r_hi; p0 += TP) {
-    for (int e = threadIdx.x; e < TP * TK; e += THREADS) {
-      const int pr = e / TK, kk = e - pr * TK;
-      const long long row = p0 + pr;
-      const bool ok = row < r_hi;
-      At[kk][pr] = (ok && k0 + kk < jb.K)
-                       ? __float2bfloat16_rn(job_a<bf16>(jb, row, k0 + kk))
-                       : zero;
-      Dt[kk][pr] = (ok && n0 + kk < jb.N) ? D[row * jb.ldd + n0 + kk] : zero;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kb = 0; kb < TP / 16; ++kb) {
-      const bf16* p = &At[mr + g][kb * 16 + 2 * t];
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(p);
-      a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * (TP + PADB));
-      a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-      a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * (TP + PADB) + 8);
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        const bf16* q = &Dt[nc + nj * 8 + g][kb * 16 + 2 * t];
-        mma_bf16(acc[nj], a, *reinterpret_cast<const uint32_t*>(q),
-                 *reinterpret_cast<const uint32_t*>(q + 8));
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * 64 + mi * 16 + g + 8 * h;
+        if (m < jb.K && c < jb.N)
+          *reinterpret_cast<float2*>(out + jb.out + (long long)m * jb.N + c) =
+              make_float2(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
       }
     }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int k = k0 + mr + g + 8 * (q >> 1);
-      const int c = n0 + nc + nj * 8 + 2 * t + (q & 1);
-      if (k < jb.K && c < jb.N) out[jb.out + (long long)k * jb.N + c] =
-          acc[nj][q];
-    }
+  if (with_db && tid < WBN && n0 + tid < jb.N)
+    out[jb.bias_out + n0 + tid] = db;
 }
 
-// db (a job with a == nullptr): the column sums of D over the chunk, for
-// the tn columns from n0.  THREADS / tn threads per column each sum an
-// interleaved share of the points; their partials are added in a fixed
-// order.
 template <typename T>
-__device__ void bias_tile(const Job& jb, long long r_lo, long long r_hi,
-                          int n0, int tn, float* out) {
-  __shared__ float part[THREADS];
-  const int per = THREADS / tn;
-  const int c = threadIdx.x % tn, q = threadIdx.x / tn;
-  const T* D = static_cast<const T*>(jb.d);
-  float s = 0.f;
-  if (n0 + c < jb.N)
-    for (long long row = r_lo + q; row < r_hi; row += per)
-      s += to_f(D[row * jb.ldd + n0 + c]);
-  part[threadIdx.x] = s;
-  __syncthreads();
-  if (q == 0 && n0 + c < jb.N) {
-    float t = 0.f;
-    for (int i = 0; i < per; ++i) t += part[i * tn + c];
-    out[jb.out + n0 + c] = t;
-  }
+constexpr int weight_smem() {
+  return sizeof(T) == 4 ? F_SMEM : HST * H_STAGE * 2;
 }
 
-// grid (tiles, jobs, chunks): CTA (tile, job, chunk) writes its tile of
-// the job's block, summed over the chunk's points, to partial row `chunk`.
-// (at most 64 registers: four CTAs per SM)
+// grid (tiles, chunks): CTA (tile, chunk) writes its tile of its job's
+// block, summed over the chunk's points, to partial row `chunk`.
 template <typename T>
-__global__ void __launch_bounds__(THREADS, 4)
+__global__ void __launch_bounds__(THREADS, 2)
 weight_kernel(const Jobs jobs, long long n, long long n_grad,
               float* __restrict__ partial) {
-  const Job& jb = jobs.j[blockIdx.y];
-  const int tiles_n = (jb.N + TN - 1) / TN;
-  const int tiles = ((jb.K + TK - 1) / TK) * tiles_n;
-  if ((int)blockIdx.x >= tiles) return;
-  const int k0 = (blockIdx.x / tiles_n) * TK, n0 = (blockIdx.x % tiles_n) * TN;
-  const long long r_lo = (long long)blockIdx.z * CHUNK;
-  const long long r_hi = min(n, r_lo + CHUNK);
-  float* out = partial + blockIdx.z * n_grad;
-  if (jb.a == nullptr)
-    bias_tile<T>(jb, r_lo, r_hi, n0, TN, out);
-  else
-    weight_tile(jb, r_lo, r_hi, k0, n0, out, T());
+  const int bid = blockIdx.x;
+  int ji = 0;
+  while (ji + 1 < jobs.n && bid >= jobs.j[ji + 1].tile0) ++ji;
+  const Job jb = jobs.j[ji];
+  const int tile = bid - jb.tile0;
+  const int mt = tile / jb.tiles_n, nt = tile - mt * jb.tiles_n;
+  const long long r_lo = (long long)blockIdx.y * jobs.chunk;
+  const long long r_hi = min(n, r_lo + jobs.chunk);
+  weight_tile(jb, r_lo, r_hi, mt * WBM, nt * WBN,
+              jb.bias_out >= 0 && mt == 0, partial + blockIdx.y * n_grad,
+              T());
 }
 
-// ----------------------------------------------------------- pass 3 ------
+// ----------------------------------------------------------- reduce ----
 
 __global__ void reduce_kernel(const float* __restrict__ partial,
                               long long n_chunks, long long n_grad,
@@ -847,25 +1098,12 @@ __global__ void reduce_kernel(const float* __restrict__ partial,
 
 long long align256(long long b) { return (b + 255) / 256 * 256; }
 
-struct Workspace {
-  long long acts, dacts, partial, total;  // byte offsets, total bytes
-};
-
-Workspace workspace(const Layout& y, long long n, int esize) {
-  Workspace w;
-  const long long n_chunks = (n + CHUNK - 1) / CHUNK;
-  w.acts = 0;
-  w.dacts = align256(n * y.Ca * esize);
-  w.partial = w.dacts + align256(n * y.Cd * esize);
-  w.total = w.partial + align256(n_chunks * y.n_grad * 4);
-  return w;
-}
-
-Jobs make_jobs(const Layout& y, const void* x, const void* v, long long v_div,
-               const unsigned char* acts, const unsigned char* dacts,
-               int esize) {
+Jobs make_jobs(const Layout& y, long long n, const void* x, const void* v,
+               long long v_div, const unsigned char* acts,
+               const unsigned char* dacts, int esize) {
   Jobs js;
   js.n = 0;
+  js.tiles = 0;
   auto act = [&](int col) {
     return (const void*)(acts + (long long)col * esize);
   };
@@ -873,99 +1111,279 @@ Jobs make_jobs(const Layout& y, const void* x, const void* v, long long v_div,
     return (const void*)(dacts + (long long)col * esize);
   };
   auto add = [&](const void* a, long long lda, long long a_div, int K,
-                 const void* d, int N, long long out) {
+                 const void* d, int N, long long out, long long bias_out) {
     Job& j = js.j[js.n++];
     j.a = a; j.lda = lda; j.a_div = a_div; j.K = K;
-    j.d = d; j.ldd = y.Cd; j.N = N; j.out = out;
+    j.d = d; j.ldd = y.Cd; j.N = N; j.out = out; j.bias_out = bias_out;
+    j.tiles_n = (N + WBN - 1) / WBN;
+    j.tile0 = js.tiles;
+    js.tiles += ((K + WBM - 1) / WBM) * j.tiles_n;
   };
   for (int i = 0; i < y.L; ++i) {
     const void* da = dac(y.da[i]);
     if (y.blk_x[i] >= 0)
-      add(x, y.in_p, 1, y.in_p, da, y.w_p, y.woff[y.blk_x[i]]);
+      add(x, y.in_p, 1, y.in_p, da, y.w_p, y.woff[y.blk_x[i]], -1);
     const int bh = y.blk_h[i];
     if (i == 0)
-      add(x, y.in_p, 1, y.in_p, da, y.w_p, y.woff[bh]);
+      add(x, y.in_p, 1, y.in_p, da, y.w_p, y.woff[bh], y.boff[i]);
     else
-      add(act(y.act[i - 1]), y.Ca, 1, y.w_p, da, y.w_p, y.woff[bh]);
-    add(nullptr, 0, 1, 1, da, y.w_p, y.boff[i]);
+      add(act(y.act[i - 1]), y.Ca, 1, y.w_p, da, y.w_p, y.woff[bh],
+          y.boff[i]);
   }
   const int hb = y.hb, L = y.L;
   const void* last = act(y.act[L - 1]);
   const void* zhv = act(y.zhv);
   const void* drgb = dac(y.drgb);
+  const void* dcat = dac(y.dcat);
   if (y.head == SPLIT) {
-    const void* dcat = dac(y.dcat);
     const void* dav = dac(y.dav);
-    add(last, y.Ca, 1, y.w_p, dcat, y.w_p + ALIGN, y.woff[hb]);
-    add(act(y.feat), y.Ca, 1, y.w_p, dav, y.h_p, y.woff[hb + 1]);
-    add(v, y.v_p, v_div, y.v_p, dav, y.h_p, y.woff[hb + 2]);
-    add(zhv, y.Ca, 1, y.h_p, drgb, ALIGN, y.woff[hb + 3]);
-    add(nullptr, 0, 1, 1, dcat, y.w_p + ALIGN, y.boff[L]);
-    add(nullptr, 0, 1, 1, dav, y.h_p, y.boff[L + 1]);
-    add(nullptr, 0, 1, 1, drgb, ALIGN, y.boff[L + 2]);
+    add(last, y.Ca, 1, y.w_p, dcat, y.w_p + ALIGN, y.woff[hb], y.boff[L]);
+    add(act(y.feat), y.Ca, 1, y.w_p, dav, y.h_p, y.woff[hb + 1],
+        y.boff[L + 1]);
+    add(v, y.v_p, v_div, y.v_p, dav, y.h_p, y.woff[hb + 2], -1);
+    add(zhv, y.Ca, 1, y.h_p, drgb, ALIGN, y.woff[hb + 3], y.boff[L + 2]);
   } else {
-    const void* dcat = dac(y.dcat);
-    add(last, y.Ca, 1, y.w_p, dcat, y.h_p + ALIGN, y.woff[hb]);
-    add(v, y.v_p, v_div, y.v_p, dcat, y.h_p + ALIGN, y.woff[hb + 1]);
-    add(zhv, y.Ca, 1, y.h_p, drgb, ALIGN, y.woff[hb + 2]);
-    add(nullptr, 0, 1, 1, dcat, y.h_p + ALIGN, y.boff[L]);
-    add(nullptr, 0, 1, 1, drgb, ALIGN, y.boff[L + 1]);
+    add(last, y.Ca, 1, y.w_p, dcat, y.h_p + ALIGN, y.woff[hb], y.boff[L]);
+    add(v, y.v_p, v_div, y.v_p, dcat, y.h_p + ALIGN, y.woff[hb + 1], -1);
+    add(zhv, y.Ca, 1, y.h_p, drgb, ALIGN, y.woff[hb + 2], y.boff[L + 1]);
   }
+  // point chunks: at most WAVES whole waves of the grid, chunks of a
+  // multiple of 32 points and at least MIN_CHUNK
+  const long long target = (long long)SMS * WEIGHT_CTAS_PER_SM * WAVES;
+  const long long want = target / js.tiles > 0 ? target / js.tiles : 1;
+  long long chunk = (n + want - 1) / want;
+  chunk = (chunk + 31) / 32 * 32;
+  js.chunk = chunk < MIN_CHUNK ? MIN_CHUNK : chunk;
   return js;
 }
 
-template <typename T, int HEAD>
-int launch(const void* x, const void* v, long long v_div, const float* g,
-           const void* w, const void* wt, const float* b, float* grads,
-           float* dx, float* dv, unsigned char* ws, long long n,
-           const Layout& y, cudaStream_t stream) {
-  typedef typename WType<T>::type WT;
-  const Workspace wl = workspace(y, n, sizeof(T));
-  T* acts = reinterpret_cast<T*>(ws + wl.acts);
-  T* dacts = reinterpret_cast<T*>(ws + wl.dacts);
-  float* partial = reinterpret_cast<float*>(ws + wl.partial);
+struct Workspace {
+  long long wt, acts, dacts, partial, total;  // byte offsets, total bytes
+  long long n_chunks;
+};
 
-  const size_t smem = (size_t)data_smem<T>(y.in_p, y.w_p, y.v_p);
-  auto kern = data_kernel<T, HEAD>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<(unsigned)((n + BM - 1) / BM), THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(v), v_div, g,
-      static_cast<const WT*>(w), static_cast<const WT*>(wt), b, acts, dacts,
-      dx, dv, n, y);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+Workspace workspace(const Layout& y, long long n, int esize) {
+  Workspace w;
+  const Jobs js = make_jobs(y, n, nullptr, nullptr, 1, nullptr, nullptr,
+                            esize);
+  w.n_chunks = (n + js.chunk - 1) / js.chunk;
+  w.wt = 0;
+  w.acts = align256(y.n_w * esize);
+  w.dacts = w.acts + align256(n * y.Ca * esize);
+  w.partial = w.dacts + align256(n * y.Cd * esize);
+  w.total = w.partial + align256(w.n_chunks * y.n_grad * 4);
+  return w;
+}
 
-  const Jobs js = make_jobs(y, x, v, v_div,
+template <typename T>
+int weight_and_reduce(const Layout& y, long long n, const void* x,
+                      const void* v, long long v_div, const T* acts,
+                      const T* dacts, float* partial, long long n_chunks,
+                      float* grads, cudaStream_t stream) {
+  const Jobs js = make_jobs(y, n, x, v, v_div,
                             reinterpret_cast<const unsigned char*>(acts),
                             reinterpret_cast<const unsigned char*>(dacts),
                             sizeof(T));
-  int max_tiles = 1;
-  for (int j = 0; j < js.n; ++j) {
-    const int t = ((js.j[j].K + TK - 1) / TK) * ((js.j[j].N + TN - 1) / TN);
-    max_tiles = t > max_tiles ? t : max_tiles;
-  }
-  const long long n_chunks = (n + CHUNK - 1) / CHUNK;
-  weight_kernel<T><<<dim3(max_tiles, js.n, (unsigned)n_chunks), THREADS, 0,
-                     stream>>>(js, n, y.n_grad, partial);
+  cudaError_t e = cudaFuncSetAttribute(
+      weight_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      weight_smem<T>());
+  if (e != cudaSuccess) return (int)e;
+  weight_kernel<T><<<dim3(js.tiles, (unsigned)n_chunks), THREADS,
+                     weight_smem<T>(), stream>>>(js, n, y.n_grad, partial);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-
   reduce_kernel<<<(unsigned)((y.n_grad + 255) / 256), 256, 0, stream>>>(
       partial, n_chunks, y.n_grad, grads);
   return (int)cudaGetLastError();
+}
+
+// the transposed weights and the cotangent's workspace columns
+template <typename T>
+int launch_prologue(const Layout& y, const T* w, T* wt, const float* g,
+                    T* dacts, long long n, cudaStream_t stream) {
+  typedef typename std::conditional<sizeof(T) == 4, uint32_t, uint16_t>::type
+      U;
+  transpose_kernel<U><<<(unsigned)(y.n_w / (32 * 32)), THREADS, 0,
+                        stream>>>(reinterpret_cast<const U*>(w),
+                                  reinterpret_cast<U*>(wt), y);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long total = n * 2 * ALIGN;
+  cot_data_kernel<T><<<(unsigned)((total + THREADS - 1) / THREADS), THREADS,
+                       0, stream>>>(g, dacts, n, y.Cd, y.drgb, y.dalpha);
+  return (int)cudaGetLastError();
+}
+
+// fp32: the data pass as one launch of sgemm_data_kernel per product
+int launch_f32(const float* x, const float* v, long long v_div,
+               const float* g, const float* w, const float* b, float* grads,
+               float* dx, float* dv, unsigned char* ws, long long n,
+               const Layout& y, cudaStream_t stream) {
+  const Workspace wl = workspace(y, n, 4);
+  float* wt = reinterpret_cast<float*>(ws + wl.wt);
+  float* acts = reinterpret_cast<float*>(ws + wl.acts);
+  float* dacts = reinterpret_cast<float*>(ws + wl.dacts);
+  float* partial = reinterpret_cast<float*>(ws + wl.partial);
+  int rc = launch_prologue<float>(y, w, wt, g, dacts, n, stream);
+  if (rc) return rc;
+  cudaError_t e = cudaFuncSetAttribute(
+      sgemm_data_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      F_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const float* bias = b - y.n_w;  // indexed by boff
+  const int in_p = y.in_p, w_p = y.w_p, v_p = y.v_p, h_p = y.h_p;
+  const long long Ca = y.Ca, Cd = y.Cd;
+  auto Wb = [&](int j) { return FTerm{nullptr, 0, 1, 0, w + y.woff[j],
+                                      y.wn[j]}; };
+  auto WTb = [&](int j) { return FTerm{nullptr, 0, 1, 0, wt + y.woff[j],
+                                       y.wk[j]}; };
+  // t: the B operand (Wb / WTb) with A rows a (lda, a_div) of width K
+  auto with = [](FTerm t, const float* a, long long lda, int K,
+                 long long a_div = 1) {
+    t.a = a; t.lda = lda; t.K = K; t.a_div = a_div;
+    return t;
+  };
+  auto op = [](int N, float* out, long long ld) {
+    FOp o{};
+    o.nterms = 1; o.N = N; o.out = out; o.out_ld = ld;
+    return o;
+  };
+  auto run = [&](const FOp& o) {
+    const dim3 grid((unsigned)((n + FBM - 1) / FBM),
+                    (unsigned)((o.N + FBN - 1) / FBN));
+    sgemm_data_kernel<<<grid, THREADS, F_SMEM, stream>>>(o, n);
+    return (int)cudaGetLastError();
+  };
+  const float* A = acts;
+  float* D = dacts;
+
+  // forward recompute
+  for (int i = 0; i < y.L; ++i) {
+    FOp o = op(w_p, acts + y.act[i], Ca);
+    o.bias = bias + y.boff[i];
+    o.relu_cols = w_p;
+    const int bx = y.blk_x[i], bh = y.blk_h[i];
+    const float* h = i == 0 ? x : A + y.act[i - 1];
+    const long long hld = i == 0 ? in_p : Ca;
+    if (bx >= 0) {
+      o.t[0] = with(Wb(bx), x, in_p, in_p);
+      o.t[1] = with(Wb(bh), h, hld, w_p);
+      o.nterms = 2;
+    } else {
+      o.t[0] = with(Wb(bh), h, hld, i == 0 ? in_p : w_p);
+    }
+    if ((rc = run(o))) return rc;
+  }
+  const int hb = y.hb, L = y.L;
+  const float* last = A + y.act[L - 1];
+  if (y.head == SPLIT) {
+    FOp o = op(w_p, acts + y.feat, Ca);  // feature
+    o.bias = bias + y.boff[L];
+    o.t[0] = with(Wb(hb), last, Ca, w_p);
+    if ((rc = run(o))) return rc;
+    o = op(h_p, acts + y.zhv, Ca);  // z_hv
+    o.bias = bias + y.boff[L + 1];
+    o.relu_cols = h_p;
+    o.t[0] = with(Wb(hb + 1), A + y.feat, Ca, w_p);
+    o.t[1] = with(Wb(hb + 2), v, v_p, v_p, v_div);
+    o.nterms = 2;
+    if ((rc = run(o))) return rc;
+    o = op(h_p, D + y.dav, Cd);  // da_v
+    o.mask = A + y.zhv;
+    o.mask_ld = Ca;
+    o.t[0] = with(WTb(hb + 3), D + y.drgb, Cd, ALIGN);
+    if ((rc = run(o))) return rc;
+    o = op(v_p, dv, v_p);  // dv
+    o.t[0] = with(WTb(hb + 2), D + y.dav, Cd, h_p);
+    if ((rc = run(o))) return rc;
+    o = op(w_p, D + y.dcat, Cd);  // dfeat
+    o.t[0] = with(WTb(hb + 1), D + y.dav, Cd, h_p);
+    if ((rc = run(o))) return rc;
+    o = op(w_p, D + y.da[L - 1], Cd);  // da_{L-1}
+    o.mask = last;
+    o.mask_ld = Ca;
+    o.t[0] = with(WTb(hb), D + y.dcat, Cd, w_p + ALIGN);
+    if ((rc = run(o))) return rc;
+  } else {
+    FOp o = op(h_p, acts + y.zhv, Ca);  // z_hv
+    o.bias = bias + y.boff[L];
+    o.relu_cols = h_p;
+    o.t[0] = with(Wb(hb), last, Ca, w_p);
+    o.t[1] = with(Wb(hb + 1), v, v_p, v_p, v_div);
+    o.nterms = 2;
+    if ((rc = run(o))) return rc;
+    o = op(h_p, D + y.dcat, Cd);  // da_v
+    o.mask = A + y.zhv;
+    o.mask_ld = Ca;
+    o.t[0] = with(WTb(hb + 2), D + y.drgb, Cd, ALIGN);
+    if ((rc = run(o))) return rc;
+    o = op(v_p, dv, v_p);  // dv
+    o.t[0] = with(WTb(hb + 1), D + y.dcat, Cd, h_p + ALIGN);
+    if ((rc = run(o))) return rc;
+    o = op(w_p, D + y.da[L - 1], Cd);  // da_{L-1}
+    o.mask = last;
+    o.mask_ld = Ca;
+    o.t[0] = with(WTb(hb), D + y.dcat, Cd, h_p + ALIGN);
+    if ((rc = run(o))) return rc;
+  }
+  int dx_set = 0;
+  for (int i = L - 1; i >= 0; --i) {
+    const int bx = y.blk_x[i], bh = y.blk_h[i];
+    const float* da = D + y.da[i];
+    if (bx >= 0) {
+      FOp o = op(in_p, dx, in_p);
+      o.accumulate = dx_set;
+      o.t[0] = with(WTb(bx), da, Cd, w_p);
+      if ((rc = run(o))) return rc;
+      dx_set = 1;
+    }
+    FOp o = i > 0 ? op(w_p, D + y.da[i - 1], Cd) : op(in_p, dx, in_p);
+    if (i > 0) {
+      o.mask = A + y.act[i - 1];
+      o.mask_ld = Ca;
+    } else {
+      o.accumulate = dx_set;
+    }
+    o.t[0] = with(WTb(bh), da, Cd, w_p);
+    if ((rc = run(o))) return rc;
+  }
+  return weight_and_reduce<float>(y, n, x, v, v_div, acts, dacts, partial,
+                                  wl.n_chunks, grads, stream);
+}
+
+template <int HEAD>
+int launch_bf16(const bf16* x, const bf16* v, long long v_div,
+                const float* g, const bf16* w, const float* b, float* grads,
+                float* dx, float* dv, unsigned char* ws, long long n,
+                const Layout& y, cudaStream_t stream) {
+  const Workspace wl = workspace(y, n, 2);
+  bf16* wt = reinterpret_cast<bf16*>(ws + wl.wt);
+  bf16* acts = reinterpret_cast<bf16*>(ws + wl.acts);
+  bf16* dacts = reinterpret_cast<bf16*>(ws + wl.dacts);
+  float* partial = reinterpret_cast<float*>(ws + wl.partial);
+  int rc = launch_prologue<bf16>(y, w, wt, g, dacts, n, stream);
+  if (rc) return rc;
+  const int smem = (int)data_smem_bf16(y.in_p, y.w_p, y.v_p);
+  cudaError_t e = cudaFuncSetAttribute(
+      data_kernel<HEAD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  data_kernel<HEAD><<<(unsigned)((n + BM - 1) / BM), THREADS, smem,
+                      stream>>>(x, v, v_div, w, wt, b, acts, dacts, dx, dv,
+                                n, y);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return weight_and_reduce<bf16>(y, n, x, v, v_div, acts, dacts, partial,
+                                 wl.n_chunks, grads, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one CTA of the data kernel needs, in bytes.
+// Shared memory one CTA of the data pass needs, in bytes.
 long long plnerf_fused_mlp_bwd_smem(int in_p, int w_p, int v_p,
                                     int use_bf16) {
-  return use_bf16 ? data_smem<bf16>(in_p, w_p, v_p)
-                  : data_smem<float>(in_p, w_p, v_p);
+  return use_bf16 ? data_smem_bf16(in_p, w_p, v_p) : (long long)F_SMEM;
 }
 
 // Workspace bytes for n points (0: a layout the kernel does not take).
@@ -974,7 +1392,8 @@ long long plnerf_fused_mlp_bwd_workspace(long long n, int n_layers,
                                          int w_p, int v_p, int h_p, int head,
                                          int use_bf16) {
   Layout y;
-  if (!build_layout(&y, n_layers, skip_mask, in_p, w_p, v_p, h_p, head))
+  if (n < 1 ||
+      !build_layout(&y, n_layers, skip_mask, in_p, w_p, v_p, h_p, head))
     return 0;
   return workspace(y, n, use_bf16 ? 2 : 4).total;
 }
@@ -989,19 +1408,19 @@ long long plnerf_fused_mlp_bwd_n_grad(int n_layers, unsigned skip_mask,
   return y.n_grad;
 }
 
-// Launches the three passes on `stream`; returns cudaGetLastError() of the
-// first that fails (0 on success).  w: packed weights, wt: the same blocks
-// transposed ([N, K] each, same offsets), b: packed biases, g: [n, 4] fp32.
+// Launches the passes on `stream`; returns cudaGetLastError() of the
+// first that fails (0 on success).  w: packed weights, every block [K, N]
+// row-major; b: packed biases; g: [n, 4] fp32.
 int plnerf_fused_mlp_bwd(const void* x, const void* v, long long v_div,
-                         const void* g, const void* w, const void* wt,
-                         const void* b, void* grads, void* dx, void* dv,
+                         const void* g, const void* w, const void* b,
+                         void* grads, void* dx, void* dv,
                          void* workspace_buf, long long n, int n_layers,
                          unsigned skip_mask, int in_p, int w_p, int v_p,
                          int h_p, int head, int use_bf16, void* stream) {
   if (n <= 0) return 0;
   Layout y;
   if (in_p % ALIGN || w_p % ALIGN || v_p % ALIGN || h_p % ALIGN ||
-      v_div < 1 || (n + CHUNK - 1) / CHUNK > 65535 ||
+      h_p > w_p || v_div < 1 || (n + FBM - 1) / FBM > 0x7fffffffLL ||
       !build_layout(&y, n_layers, skip_mask, in_p, w_p, v_p, h_p, head))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1011,17 +1430,20 @@ int plnerf_fused_mlp_bwd(const void* x, const void* v, long long v_div,
   float* dxf = static_cast<float*>(dx);
   float* dvf = static_cast<float*>(dv);
   unsigned char* ws = static_cast<unsigned char*>(workspace_buf);
-  if (use_bf16)
+  if (use_bf16) {
+    const bf16* xb = static_cast<const bf16*>(x);
+    const bf16* vb = static_cast<const bf16*>(v);
+    const bf16* wb = static_cast<const bf16*>(w);
     return head == SPLIT
-               ? launch<bf16, SPLIT>(x, v, v_div, gf, w, wt, bf, gr, dxf, dvf,
-                                     ws, n, y, s)
-               : launch<bf16, FOLDED>(x, v, v_div, gf, w, wt, bf, gr, dxf,
-                                      dvf, ws, n, y, s);
-  return head == SPLIT
-             ? launch<float, SPLIT>(x, v, v_div, gf, w, wt, bf, gr, dxf, dvf,
+               ? launch_bf16<SPLIT>(xb, vb, v_div, gf, wb, bf, gr, dxf, dvf,
                                     ws, n, y, s)
-             : launch<float, FOLDED>(x, v, v_div, gf, w, wt, bf, gr, dxf, dvf,
+               : launch_bf16<FOLDED>(xb, vb, v_div, gf, wb, bf, gr, dxf, dvf,
                                      ws, n, y, s);
+  }
+  return launch_f32(static_cast<const float*>(x),
+                    static_cast<const float*>(v), v_div, gf,
+                    static_cast<const float*>(w), bf, gr, dxf, dvf, ws, n, y,
+                    s);
 }
 
 const char* plnerf_cuda_error_string(int code) {

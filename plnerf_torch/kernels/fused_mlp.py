@@ -17,10 +17,12 @@ schedule's views layer (rows split at ``netwidth``).  feature|alpha are
 N-merged, alpha in the column right after the feature block.  The folded
 schedule (``fold_heads``) uses the exact fold ``Wfv = Wf @ Wv1[:W]``,
 ``bfv = bf @ Wv1[:W] + bv`` computed in fp32 before any cast, N-merged
-with the alpha column; its view block spans the same N.  The bf16 kernel
-(tensor cores, ``mma.sync``) reads each block in mma fragment order
-(``mma_fragments``, applied by ``PackedMLP.flat``); the plain version
-reads the same blocks as ``[K, N]`` matrices.
+with the alpha column; its view block spans the same N.  The bf16
+forward kernel (tensor cores, ``mma.sync``) reads each block in mma
+fragment order (``mma_fragments``, applied by ``PackedMLP.flat``); the
+backward kernel reads every block row-major in either dtype and
+transposes them itself; the plain versions read the same blocks as
+``[K, N]`` matrices.
 
 Topology rules kept from the JAX wrapper: softplus10 is applied outside
 the kernel, a final-layer skip goes to the unfused ``apply_mlp``, any
@@ -85,14 +87,6 @@ class PackedMLP:
             (lambda w: w.reshape(-1))
         return (torch.cat([order(w) for w in self.weights]),
                 torch.cat([b.reshape(-1) for b in self.biases]))
-
-    def flat_t(self) -> torch.Tensor:
-        """The backward kernel's transposed weights: every block as [N, K]
-        at the offset of its [K, N] block in ``flat()`` (bf16 in mma
-        fragment order)."""
-        order = mma_fragments if self.dtype == torch.bfloat16 else \
-            (lambda w: w.reshape(-1))
-        return torch.cat([order(w.t().contiguous()) for w in self.weights])
 
 
 def mma_fragments(w: torch.Tensor) -> torch.Tensor:
@@ -434,8 +428,8 @@ def _bwd_library() -> ctypes.CDLL:
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         U = ctypes.c_uint
-        fn.argtypes = [P, P, L, P, P, P, P, P, P, P, P, L, I, U, I, I, I, I,
-                       I, I, P]
+        fn.argtypes = [P, P, L, P, P, P, P, P, P, P, L, I, U, I, I, I, I, I,
+                       I, P]
         fn.restype = ctypes.c_int
         lib.plnerf_fused_mlp_bwd_smem.argtypes = [I, I, I, I]
         lib.plnerf_fused_mlp_bwd_smem.restype = L
@@ -471,14 +465,16 @@ def backward_cuda(p: PackedMLP, x: torch.Tensor, v: torch.Tensor,
     if v_div < 1 or v.shape[0] * v_div < n:
         raise ValueError(f"v has {v.shape[0]} rows for {n} points at "
                          f"{v_div} per row")
-    wbuf, bbuf = p.flat()
+    wbuf = torch.cat([w.reshape(-1) for w in p.weights])   # row-major
+    bbuf = torch.cat([b.reshape(-1) for b in p.biases])
     if wbuf.device != dev:
         raise ValueError(f"weights on {wbuf.device}, inputs on {dev}")
-    wtbuf = p.flat_t()
     n_w = wbuf.numel()
-    grads = torch.zeros(n_w + bbuf.numel(), dtype=torch.float32, device=dev)
-    dx = torch.zeros((n, p.in_p), dtype=torch.float32, device=dev)
-    dv = torch.zeros((n, p.v_p), dtype=torch.float32, device=dev)
+    # the kernel writes every element (grads stay zeros for n = 0)
+    grads = (torch.empty if n > 0 else torch.zeros)(
+        n_w + bbuf.numel(), dtype=torch.float32, device=dev)
+    dx = torch.empty((n, p.in_p), dtype=torch.float32, device=dev)
+    dv = torch.empty((n, p.v_p), dtype=torch.float32, device=dev)
     if n > 0:
         lib = _bwd_library()
         bf16 = int(p.dtype == torch.bfloat16)
@@ -497,7 +493,7 @@ def backward_cuda(p: PackedMLP, x: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.plnerf_fused_mlp_bwd(
             x.data_ptr(), v.data_ptr(), v_div, g.data_ptr(), wbuf.data_ptr(),
-            wtbuf.data_ptr(), bbuf.data_ptr(), grads.data_ptr(),
+            bbuf.data_ptr(), grads.data_ptr(),
             dx.data_ptr(), dv.data_ptr(), ws.data_ptr(), n, *layout, bf16,
             stream)
         if rc != 0:

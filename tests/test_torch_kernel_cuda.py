@@ -114,14 +114,48 @@ def test_cuda_backward_matches_plain_version(cuda_device, dtype, tol, case):
     _assert_rel_l2(got[3], ref[3], tol, "dv")
 
 
+# (rays, samples per ray): n = 1; n below one 128-point tile; n = 128 k
+# - 1 and 128 k + 1; n past the smallest weight-pass chunk (256 points)
+# and across many chunks; per-ray views whose samples per ray (the views'
+# row divisor) do not divide the tile
+EDGE_SIZES = [(1, 1), (7, 11), (1, 127), (3, 43), (1, 255), (257, 1),
+              (3, 100), (41, 100)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("fold", [False, True], ids=["split", "folded"])
+@pytest.mark.parametrize("R,S", EDGE_SIZES,
+                         ids=[f"{r}x{s}" for r, s in EDGE_SIZES])
+def test_cuda_backward_at_tile_edges(cuda_device, dtype, tol, fold, R, S):
+    """The full-width backward against its plain version where the point
+    tiles, the weight-pass chunks and the per-ray views end raggedly."""
+    cfg = ModelConfig()
+    m, pe, ve, cot = _inputs(cfg, fold, dtype, cuda_device, R, S)
+    with torch.no_grad():
+        p, x, v, v_div = fused_mlp.prepare(m, pe, ve, cfg, dtype, fold)
+        assert v_div == S and x.shape[0] == R * S
+        got = fused_mlp.backward_cuda(p, x, v, v_div, cot)
+        torch.cuda.synchronize()
+        ref = fused_mlp.backward_plain(p, x, v, v_div, cot)
+    for name, a, b in zip(("dW", "db"), got[:2], ref[:2]):
+        for i, (ga, gb) in enumerate(zip(a, b)):
+            assert torch.isfinite(ga).all()
+            _assert_rel_l2(ga, gb, tol, f"{name}[{i}]")
+    _assert_rel_l2(got[2], ref[2], tol, "dx")
+    _assert_rel_l2(got[3], ref[3], tol, "dv")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("fold", [False, True])
-def test_cuda_backward_is_deterministic(cuda_device, fold):
+def test_cuda_backward_is_deterministic(cuda_device, fold, dtype):
     """No floating-point atomics: two calls give bit-identical grads."""
     cfg = ModelConfig()
-    m, pe, ve, cot = _inputs(cfg, fold, torch.float32, cuda_device, 64, 97)
+    m, pe, ve, cot = _inputs(cfg, fold, dtype, cuda_device, 64, 97)
     with torch.no_grad():
-        p, x, v, v_div = fused_mlp.prepare(m, pe, ve, cfg, torch.float32,
-                                           fold)
+        p, x, v, v_div = fused_mlp.prepare(m, pe, ve, cfg, dtype, fold)
         a = fused_mlp.backward_cuda(p, x, v, v_div, cot)
         b = fused_mlp.backward_cuda(p, x, v, v_div, cot)
     for ta, tb in zip(a[0] + a[1] + [a[2], a[3]], b[0] + b[1] + [b[2], b[3]]):
