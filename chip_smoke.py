@@ -13,7 +13,9 @@ Phases, one line each, then the result line:
            passes of a 32,768-ray chunk, in fp32 (tolerance 1e-4) and bf16
            (2e-2); then kernel, plain-version and unfused
            ``apply_mlp`` (cuBLAS) times at one fine pass of a 32,768-ray
-           chunk (6.29 M points), beside the bound.
+           chunk (6.29 M points), beside the bound, and the device time of
+           each fp32 launch (one per product and chunk) from a short
+           torch.profiler window.
 3. probes  the four dot-probe kernels of plnerf_torch/kernels/csrc/dot_probe.cu
            (shape, mixed, merged with a scratch or a concatenated operand,
            mosaic chained / independent / mlp) against their plain PyTorch
@@ -156,7 +158,7 @@ def bound(p, x, v, n: int, cfg) -> tuple:
 
 
 def phase_env():
-    from plnerf_torch.kernels import build
+    from plnerf_torch.kernels import build, fused_mlp
 
     from concurrent.futures import ThreadPoolExecutor
 
@@ -164,11 +166,19 @@ def phase_env():
     names = sorted(f[:-3] for f in os.listdir(build.CSRC) if f.endswith(".cu"))
     with ThreadPoolExecutor(len(names)) as ex:
         list(ex.map(build.build, names))
+    build_s = round(time.perf_counter() - t0, 3)
+    # dynamic shared memory per CTA (set at launch, not in ptxas's count)
+    # of the 8x256 MLP: input 64, views 32
+    fwd, bwd = fused_mlp._library(), fused_mlp._bwd_library()
+    smem = {"fused_mlp_fwd": {dt: fwd.plnerf_fused_mlp_fwd_smem(64, 256, 32, b)
+                              for dt, b in (("float32", 0), ("bfloat16", 1))},
+            "fused_mlp_bwd": {dt: bwd.plnerf_fused_mlp_bwd_smem(64, 256, 32, b)
+                              for dt, b in (("float32", 0), ("bfloat16", 1))}}
     log("env", card=card_line(), torch=torch.__version__,
-        cuda=torch.version.cuda, kernels_built=names,
-        build_s=round(time.perf_counter() - t0, 3),
+        cuda=torch.version.cuda, kernels_built=names, build_s=build_s,
         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-        ptxas={name: build.ptxas_info(name) for name in names})
+        ptxas={name: build.ptxas_info(name) for name in names},
+        dynamic_smem_8x256=smem)
 
 
 def _kernel_inputs(cfg, R, S, fold, dtype, dev, seed):
@@ -207,12 +217,34 @@ def _hold(key, p, x, v, v_div, errs) -> None:
                              f"{scale}) over tolerance {TOLERANCE[p.dtype]}")
 
 
+def _launch_ms(fn, dev, pattern: str, reps: int = 2) -> list:
+    """Device ms of every kernel launch whose name holds ``pattern`` in one
+    call of ``fn``, in launch order, the mean over ``reps`` calls in a
+    torch.profiler window after one warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(dev)
+    ks = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and pattern in e.name), key=lambda e: e.time_range.start)
+    per = len(ks) // reps
+    return [statistics.mean(ks[r * per + i].time_range.elapsed_us()
+                            for r in range(reps)) / 1e3 for i in range(per)]
+
+
 def phase_kernel(dev):
     """Returns (max abs error over every comparison, split fp32 times)."""
     from plnerf_torch.core.config import ModelConfig
     from plnerf_torch.core.mlp import apply_mlp
     from plnerf_torch.kernels import fused_mlp
 
+    t0 = time.perf_counter()
     full = ModelConfig()                      # 8x256, in 63, views 27
     plain = ModelConfig(use_viewdirs=False)
     dtypes = (torch.float32, torch.bfloat16)
@@ -246,6 +278,12 @@ def phase_kernel(dev):
                 _hold(key + "_fine", p, x, v, v_div, errs)
                 entry = {"kernel_ms": cuda_ms(
                     lambda: fused_mlp.forward_cuda(p, x, v, v_div))}
+                if dtype == torch.float32:
+                    # one fp32_kernel launch per product and chunk
+                    entry["launch_ms"] = _launch_ms(
+                        lambda: fused_mlp.forward_cuda(p, x, v, v_div), dev,
+                        "fp32_kernel")
+                    entry["chunks"] = len(fused_mlp.fwd_chunks(n, v_div))
                 entry["bound_ms"], entry["bound_by"] = bound(p, x, v, n, full)
                 if not fold:
                     entry["plain_ms"] = cuda_ms(
@@ -260,7 +298,9 @@ def phase_kernel(dev):
                        "bfloat16": TOLERANCE[torch.bfloat16]},
             note="tolerance scales with max(1, max|raw|)")
         log("kernel_time", points=n, rays=R_CHUNK, samples=S, card=card_line(),
-            times=times)
+            phase_s=time.perf_counter() - t0, times=times,
+            note="launch_ms: device ms of each fp32_kernel launch of one "
+                 "call (one per product, chunk by chunk)")
     return max(errs.values()), times["split_float32"]
 
 

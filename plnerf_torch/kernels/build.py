@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``build/plnerf_torch/``
 at the repository root (``.gitignore`` lists ``build/``).  The file name
-carries a hash of the source, so an edited source rebuilds and a stale
+carries a hash of the source and of the headers beside it
+(``csrc/*.cuh``), so an edited source or header rebuilds and a stale
 library is never loaded.  ``ptxas -v`` output (registers, shared memory,
 spills per kernel) is kept beside the library and read by
 ``ptxas_info``.  Nothing here runs at import time: this module is
@@ -41,11 +42,15 @@ def nvcc_path() -> str:
                        "CUDA toolkit at first use")
 
 
-def library_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+def library_path(name: str, csrc: str = CSRC) -> str:
+    """The library of ``<csrc>/<name>.cu``: its name carries a hash of the
+    source and of every header in ``csrc``, so an edit to either rebuilds."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(csrc, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read() + b"\0")
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(name: str) -> str:

@@ -1,36 +1,69 @@
 // Fused NeRF-MLP forward for Hopper (sm_90a).
 //
 // Replaces the TPU kernel plnerf/kernels/fused_mlp.py `_kernel` (launched
-// by `_forward` through pl.pallas_call).  One CTA maps a tile of BM = 64
-// points through every pts layer, the skip layer and one of three head
-// schedules (split viewdirs, folded viewdirs, plain output_linear) and
-// writes raw [N, 4] (rgb logits, density) straight to device memory.
+// by `_forward` through pl.pallas_call): every pts layer, the skip layer
+// and one of three head schedules (split viewdirs, folded viewdirs, plain
+// output_linear), raw [N, 4] (rgb logits, density) out in fp32.
 //
 // Bound: operations.  The flagship 8x256 viewdirs MLP is 593,408 MACs per
 // point in the split schedule and 527,872 in the folded one (1.19 / 1.06
-// MFLOP), against ~96 input values and 4 outputs per point: hundreds of
-// FLOPs per byte, far above the card's ridge point in fp32 and in bf16.
+// MFLOP) against ~96 input values and 4 outputs per point.  What bounds
+// each path on this card, and what the design does about it:
 //
-// What the design does about it: no [N, 256] activation ever leaves the
-// SM.  Activations ping-pong between two buffers in shared memory, each
-// layer reads its weights from L1/L2 (every CTA reads the same weights)
-// and only raw [N, 4] is written.  Two paths:
+// * float32 (`fp32_kernel`): true fp32 FMAs on the CUDA cores, no TF32,
+//   mirroring the JAX package's Precision.HIGHEST.  A K = N = 256 layer
+//   over points does 64 FLOP per byte even with its input and output in
+//   device memory, above the fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20
+//   FLOP/B): the FMA pipes set the pace.  So every product is one launch
+//   of the SGEMM core shared with the backward (sgemm_core.cuh: 128 x 128
+//   tiles, 8 x 8 per thread, a 3-stage 16-byte cp.async ring of both
+//   operands, 2 CTAs per SM), in layer order, bias and relu in its
+//   epilogue: layer 0; layers 1 .. L-1 (the skip layer as two terms); the
+//   head products.  Activations cross device memory between launches in
+//   two fp32 buffers [points, w_p] (the workspace).  The wrapper
+//   (plnerf_torch/kernels/fused_mlp.py forward_cuda) walks the points in
+//   chunks of at most FWD_CHUNK = 2^21 points, a whole number of view rows
+//   (samples per ray), so the workspace stays at 2 x 2^21 x w_p x 4 B (4 GB
+//   at w_p = 256) whatever the request; each chunk is still 16,384 point
+//   tiles, many waves of 264 CTA slots.  The feature|alpha head writes the
+//   features to a buffer and alpha to raw[:, 3] from the same epilogue;
+//   rgb goes to raw[:, :3].
+// * bfloat16 (`bf16_kernel`): one CTA maps 128 points through the whole
+//   MLP, activations never leave the SM: a layer of 128 x 256 bf16
+//   activations does 128 FLOP per byte if it crosses device memory, under
+//   the bf16 ridge (295 FLOP/B).  Products on wgmma.mma_async m64nNk16
+//   (bf16 operands, fp32 accumulators): two consumer warpgroups of 64 rows
+//   each.  A product's columns that go only to raw (the alpha column's
+//   32) run first, then the columns kept on chip as one pass of N <= 256
+//   (feature|alpha 288 = 32 + 256, folded 160 = 32 + 128).  A
+//   (activations) is read from shared memory: 128-row tiles of 32-column
+//   chunks, each row 64 bytes in the 64-byte swizzle (16-byte group g of
+//   row r stored at g ^ ((r >> 1) & 3)), K-major, so one descriptor form
+//   serves x, the views and the activations.  One activation tile: the
+//   last pass of a product holds all its kept columns in registers once
+//   its wgmmas are done, so its epilogue overwrites its input in place,
+//   which leaves room for the ring.  The epilogue is kept short, since
+//   both warpgroups run it while the tensor cores wait: the accumulators
+//   start at the bias (loaded before the pass's first wgmma), relu is on
+//   all of a pass's columns or none, and each pair of columns is one
+//   bf16x2 convert, one NaN-passing bf16x2 max and one 4-byte shared
+//   store, conflict-free in the swizzle.  B
+//   (weights) is streamed through an 8-stage ring of 16 KB stages in
+//   shared memory by a producer warp with 1-D cp.async.bulk copies guarded
+//   by mbarriers (full: the copy's bytes landed; empty: all 8 consumer
+//   warps finished their wgmma reads): PackedMLP.flat packs every 32-row
+//   k-slab of every pass ahead of time into its shared-memory image (W^T
+//   rows of 64 bytes in the same swizzle: K-major B, no transpose), in the
+//   order the kernel consumes them, so the producer streams one buffer
+//   front to back.  Each warpgroup's rows are its own: a layer boundary
+//   costs a fence.proxy.async and 128-thread barriers, never a CTA
+//   barrier.  The weight stream is 1.2 MB per 128 points from L2 (125 FLOP
+//   per L2 byte at 8x256).  Shared memory at 8x256: activations 64 KB, x
+//   16 KB, views 8 KB, ring 128 KB (222,336 B with alignment and barriers
+//   of the 232,448 a CTA may use).
 //
-// * float32 (`fp32_kernel`): true fp32 on the CUDA cores, no TF32,
-//   mirroring the JAX package's Precision.HIGHEST.  Activations are
-//   k-major ([K][BM + 4]), so a thread's 8 points at one k are one 16-byte
-//   shared load that its warp shares by broadcast; each of the 256 threads
-//   owns an 8-point x 8-column register tile (fewer on a narrow tail),
-//   and each warp reads one weight row per k, coalesced along the output
-//   dimension (lane tx takes columns tx + 32j).
-// * bfloat16 (`bf16_kernel`): tensor cores through mma.sync m16n8k16
-//   (bf16 operands, fp32 accumulation).  Activations are row-major bf16
-//   ([BM][K + 8]: the fragment loads and the epilogue's stores are
-//   bank-conflict free); the weights are stored in mma fragment order
-//   (one coalesced 8-byte load per lane per 16x8 block).  Each warp owns
-//   a 64x32 (or, for narrow layers, 32x32 / 16x32) output tile.
-//
-// wgmma, TMA and weight staging through shared memory are left for later.
+// Two calls on the same inputs give bit-identical results in both paths
+// (no atomics, a fixed order of every sum).
 //
 // Packed layout (built by plnerf_torch/kernels/fused_mlp.py pack_weights).
 // Every block is [K, N] with K and N padded to multiples of 32 and zeros
@@ -46,144 +79,275 @@
 //                 h_p), bias [h_p + 32]; Wvv [v_p, h_p + 32];
 //                 Wr [h_p, 32], bias [32]
 //   plain head:   Wo [w_p, 32], bias [32]
-// fp32 blocks are row-major.  bf16 blocks are in mma fragment order: for
-// each 16-row k block kb and 8-column n block nb (n blocks innermost),
-// 32 lanes x 4 values, lane l = 4g + t holding W[k0][n], W[k0+1][n],
-// W[k0+8][n], W[k0+9][n] with k0 = 16kb + 2t, n = 8nb + g.
-// x is [N, in_p]; v is [N / v_div, v_p] (point p reads view row p / v_div,
-// so per-ray views need no broadcast over samples).
+// fp32 blocks are row-major.  bf16 blocks are the wgmma stream: for each
+// product in order (`build_plan`), each pass of NP columns [c0, c0 + NP)
+// in `for_each_pass` order, each term, each k-slab [k0, k0 + 32): the
+// image of W[k0:k0+32, c0:c0+NP] transposed, NP rows of 32 values (64
+// bytes), the 16-byte group g of row n at position g ^ ((n >> 1) & 3).
+// x is [N, in_p]; v is [N / v_div, v_p] (point p reads view row
+// p / v_div, so per-ray views need no broadcast over samples).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "sgemm_core.cuh"
+
 namespace {
 
-constexpr int BM = 64;        // points per CTA
-constexpr int THREADS = 256;  // 8 warps
 constexpr int ALIGN = 32;     // K / N granularity of every packed block
-constexpr int LDF = BM + 4;   // fp32 k-major row: 272 bytes
-constexpr int PADB = 8;       // bf16 row padding: rows of K + 8 values
+constexpr int MAX_LAYERS = 16;
+constexpr int MAX_PRODS = MAX_LAYERS + 3;
 
 enum Head { SPLIT = 0, FOLDED = 1, PLAIN = 2 };
+// operand tiles of a product: x, the views, the two activation buffers
+enum Tile { T_NONE = -1, T_X = 0, T_V = 1, T_B0 = 2, T_B1 = 3 };
 
 typedef __nv_bfloat16 bf16;
 
-// Where a layer's outputs go: columns [0, n_smem) to the shared buffer
-// `out` (relu on columns < relu_cols), columns [g_col0, g_col0 + g_ncol)
-// to raw[:, g_dst + c - g_col0] before any relu.
-struct Epilogue {
-  int n_smem, relu_cols;
-  float* raw;
-  long long row0;
-  int n_valid, g_col0, g_ncol, g_dst;
-
-  __device__ void to_global(int row, int c, float val) const {
-    if (c >= g_col0 && c < g_col0 + g_ncol && row < n_valid)
-      raw[(row0 + row) * 4 + g_dst + (c - g_col0)] = val;
-  }
-  __device__ float relu(int c, float val) const {
-    // NaN passes, as jnp.maximum(x, 0) lets it
-    return (c < relu_cols && val < 0.f) ? 0.f : val;
-  }
+// One product  out = sum_t A_t @ W_t + bias  of the walk.  A_t: tile
+// src[t], K[t] columns; W_t: the row-major [K[t], N] block at woff[t]
+// (fp32 path).  Columns [0, out_cols) go to tile dst (relu on
+// c < relu_cols), columns [raw_col0, raw_col0 + raw_ncol), before any
+// relu, to raw[:, raw_dst + c - raw_col0].
+struct Prod {
+  int nterms;
+  int src[2], K[2];
+  long long woff[2];
+  int N, boff, dst, out_cols, relu_cols, raw_col0, raw_ncol, raw_dst;
 };
+struct Plan {
+  Prod p[MAX_PRODS];
+  int n;
+};
+
+// The walk of the packed layout above, in order; 0 for a layout the
+// kernels do not take.
+int build_plan(Plan* pl, int L, unsigned skip_mask, int in_p, int w_p,
+               int v_p, int h_p, int head) {
+  if (L < 1 || L > MAX_LAYERS || (skip_mask & 1u) || head < SPLIT ||
+      head > PLAIN || h_p > w_p)
+    return 0;
+  *pl = Plan{};
+  long long off = 0;
+  int boff = 0;
+  auto prod = [&](int N, int dst, int out_cols, int relu_cols) -> Prod& {
+    Prod& q = pl->p[pl->n++];
+    q.N = N; q.boff = boff; boff += N;
+    q.dst = dst; q.out_cols = out_cols; q.relu_cols = relu_cols;
+    return q;
+  };
+  auto term = [&](Prod& q, int src, int K) {
+    const int t = q.nterms++;
+    q.src[t] = src; q.K[t] = K; q.woff[t] = off;
+    off += (long long)K * q.N;
+  };
+  auto to_raw = [](Prod& q, int col0, int ncol, int dst) {
+    q.raw_col0 = col0; q.raw_ncol = ncol; q.raw_dst = dst;
+  };
+  int cur = T_X, curK = in_p, nxt = T_B0;
+  for (int i = 0; i < L; ++i) {
+    Prod& q = prod(w_p, nxt, w_p, w_p);
+    if ((skip_mask >> i) & 1u) {  // fed by the [x | h] concat
+      term(q, T_X, in_p);
+      term(q, cur, w_p);
+    } else {
+      term(q, cur, curK);
+    }
+    cur = nxt;
+    curK = w_p;
+    nxt = cur == T_B0 ? T_B1 : T_B0;
+  }
+  if (head == SPLIT) {
+    // feature | alpha; the features to nxt, alpha to raw[:, 3]
+    Prod& fa = prod(w_p + ALIGN, nxt, w_p, 0);
+    term(fa, cur, w_p);
+    to_raw(fa, w_p, 1, 3);
+    // views: relu(feature @ Wvf + v @ Wvv + bv) into the free buffer
+    Prod& hv = prod(h_p, cur, h_p, h_p);
+    term(hv, nxt, w_p);
+    term(hv, T_V, v_p);
+    Prod& rgb = prod(ALIGN, T_NONE, 0, 0);
+    term(rgb, cur, h_p);
+    to_raw(rgb, 0, 3, 0);
+  } else if (head == FOLDED) {
+    // relu(h @ Wfv + v @ Wvv + bfv) | alpha
+    Prod& t = prod(h_p + ALIGN, nxt, h_p, h_p);
+    term(t, cur, w_p);
+    term(t, T_V, v_p);
+    to_raw(t, h_p, 1, 3);
+    Prod& rgb = prod(ALIGN, T_NONE, 0, 0);
+    term(rgb, nxt, h_p);
+    to_raw(rgb, 0, 3, 0);
+  } else {
+    Prod& o = prod(ALIGN, T_NONE, 0, 0);
+    term(o, cur, w_p);
+    to_raw(o, 0, 4, 0);
+  }
+  return 1;
+}
 
 // ---------------------------------------------------------------- fp32 --
 
-// One pass over 32*J output columns starting at n0:
-//   out = A1 @ W1 + A2 @ W2 + bias   (A k-major [K][LDF] in shared memory)
-template <int J>
-__device__ __forceinline__ void fp32_pass(
-    const float* A1, int K1, const float* __restrict__ W1,
-    const float* A2, int K2, const float* __restrict__ W2,
-    int N, int n0, const float* __restrict__ bias, float* out,
-    const Epilogue& ep) {
-  const int tx = threadIdx.x & 31;
-  const int ty = threadIdx.x >> 5;  // warp ty owns points 8ty..8ty+7
-  float acc[8][J];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < J; ++j) acc[i][j] = 0.f;
-
-#pragma unroll 1
-  for (int s = 0; s < 2; ++s) {
-    const float* A = s ? A2 : A1;
-    const int K = s ? K2 : K1;
-    const float* W = s ? W2 : W1;
-    if (K == 0) continue;
-    const float* a_ptr = A + ty * 8;
-    const float* w_ptr = W + n0 + tx;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      float w[J];
-#pragma unroll
-      for (int j = 0; j < J; ++j) w[j] = __ldg(w_ptr + (size_t)k * N + 32 * j);
-      const float4 u = *reinterpret_cast<const float4*>(a_ptr + k * LDF);
-      const float4 q = *reinterpret_cast<const float4*>(a_ptr + k * LDF + 4);
-      const float a[8] = {u.x, u.y, u.z, u.w, q.x, q.y, q.z, q.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < J; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int c = n0 + tx + 32 * j;
-    const float bj = bias[c];
-    float v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      v[i] = acc[i][j] + bj;
-      ep.to_global(ty * 8 + i, c, v[i]);
-      v[i] = ep.relu(c, v[i]);
-    }
-    if (c < ep.n_smem) {
-      float* p = out + c * LDF + ty * 8;
-      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-    }
-  }
+// One launch per product: (point tiles, column tiles) of 128 x 128.
+__global__ void __launch_bounds__(FTHREADS, 2)
+fp32_kernel(const FOp op, long long n) {
+  sgemm_tile<true>(op, n);
 }
 
-// A whole layer: widest passes first (J = 8, 4, 2, 1 columns per thread),
-// so a narrow tail (the alpha slot, the rgb head) costs only its width.
-__device__ void fp32_dense(const float* A1, int K1, const float* W1,
-                           const float* A2, int K2, const float* W2, int N,
-                           const float* bias, float* out, const Epilogue& ep) {
-  int n0 = 0;
-  while (n0 < N) {
-    const int rem = (N - n0) / 32;
-    if (rem >= 8) {
-      fp32_pass<8>(A1, K1, W1, A2, K2, W2, N, n0, bias, out, ep);
-      n0 += 256;
-    } else if (rem >= 4) {
-      fp32_pass<4>(A1, K1, W1, A2, K2, W2, N, n0, bias, out, ep);
-      n0 += 128;
-    } else if (rem >= 2) {
-      fp32_pass<2>(A1, K1, W1, A2, K2, W2, N, n0, bias, out, ep);
-      n0 += 64;
-    } else {
-      fp32_pass<1>(A1, K1, W1, A2, K2, W2, N, n0, bias, out, ep);
-      n0 += 32;
+// The products of one chunk of n points; ws holds two [n, w_p] buffers.
+int launch_f32(const Plan& pl, const float* x, const float* v,
+               long long v_div, const float* w, const float* b, float* raw,
+               float* ws, long long n, int in_p, int w_p, int v_p,
+               cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      fp32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  float* bufs[2] = {ws, ws + n * w_p};
+  for (int i = 0; i < pl.n; ++i) {
+    const Prod& q = pl.p[i];
+    FOp o{};
+    o.nterms = q.nterms;
+    for (int t = 0; t < q.nterms; ++t) {
+      FTerm& ft = o.t[t];
+      const int s = q.src[t];
+      ft.a = s == T_X ? x : s == T_V ? v : bufs[s - T_B0];
+      ft.lda = s == T_X ? in_p : s == T_V ? v_p : w_p;
+      ft.a_div = s == T_V ? v_div : 1;
+      ft.K = q.K[t];
+      ft.b = w + q.woff[t];
+      ft.ldb = q.N;
     }
+    o.N = q.N;
+    o.bias = b + q.boff;
+    o.relu_cols = q.relu_cols;
+    o.out = q.dst == T_NONE ? nullptr : bufs[q.dst - T_B0];
+    o.out_ld = w_p;
+    o.out_cols = q.out_cols;
+    o.raw = raw;
+    o.raw_col0 = q.raw_col0;
+    o.raw_ncol = q.raw_ncol;
+    o.raw_dst = q.raw_dst;
+    const dim3 grid((unsigned)((n + FBM - 1) / FBM),
+                    (unsigned)((q.N + FBN - 1) / FBN));
+    fp32_kernel<<<grid, FTHREADS, F_SMEM, stream>>>(o, n);
+    const cudaError_t le = cudaGetLastError();
+    if (le != cudaSuccess) return (int)le;
   }
-}
-
-// dst[k][r] = src[(row0 + r) / div][k]: k-major copy of a row tile
-__device__ void fp32_stage(float* dst, const float* __restrict__ src,
-                           int cols, long long row0, long long div,
-                           int n_valid) {
-  for (int e = threadIdx.x; e < BM * cols; e += THREADS) {
-    const int r = e / cols;
-    const int k = e - r * cols;
-    dst[k * LDF + r] = (r < n_valid) ? src[((row0 + r) / div) * cols + k]
-                                     : 0.f;
-  }
+  return 0;
 }
 
 // ---------------------------------------------------------------- bf16 --
+
+constexpr int HBM = 128;                 // points per CTA
+constexpr int HCONS = 256;               // two consumer warpgroups
+constexpr int HTHREADS = HCONS + 32;     // and one producer warp
+constexpr int KC = 32;                   // k rows per slab: 64-byte rows
+constexpr int MAX_PASS = 256;            // widest wgmma N
+constexpr int NSTAGE = 8;
+constexpr int STAGE_BYTES = MAX_PASS * KC * 2;  // 16 KB
+constexpr int CHUNK_BYTES = HBM * KC * 2;  // 32 columns of a 128-row tile
+constexpr int CONSUMER_WARPS = HCONS / 32;
+
+// Runs f(c0, width, kept) over the column passes of product q in the
+// bf16 kernel's order: the columns that go to raw only ([out_cols, N): the
+// alpha column's block, the rgb or output block) 32 at a time first, then
+// the kept columns [0, out_cols) as one pass, the last to read the
+// product's inputs, so that its epilogue may overwrite them.
+template <typename F>
+__device__ __forceinline__ void for_each_pass(const Prod& q, F&& f) {
+  for (int c0 = q.out_cols; c0 < q.N; c0 += ALIGN) f(c0, ALIGN, false);
+  if (q.out_cols > 0) f(0, q.out_cols, true);
+}
+
+// byte offset of (row, col) in a 128-row tile of 32-column chunks, each
+// row 64 bytes in the 64-byte swizzle
+__device__ __forceinline__ uint32_t sw64(int row, int col) {
+  return (uint32_t)((col >> 5) * CHUNK_BYTES + row * 64 +
+                    ((((col >> 3) & 3) ^ ((row >> 1) & 3)) << 4) +
+                    (col & 7) * 2);
+}
+
+// wgmma shared-memory descriptor: K-major, 64-byte swizzle, 8-row groups
+// 512 bytes apart (stride byte offset); the leading byte offset is unused
+// for swizzled K-major operands.  addr: the operand's first row, its
+// atom 512-byte aligned (+32 bytes for the second k16 step of a slab).
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete; traps (an error
+// the wrapper reports) rather than hanging if it never does.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t spins = 0;; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 28)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// bytes global -> shared by the copy engine; completion on bar
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier of one consumer warpgroup (ids 1, 2; 0 is __syncthreads)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from touching an accumulator register across a
+// wgmma that is still in flight
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
@@ -191,305 +355,473 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return l | (h << 16);
 }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint2 b) {
+// No "memory" clobber: the epilogue's bias loads may move across these
+// stores (a clobber serialises every load behind every store).  The
+// stores stay ordered against the later fence.proxy.async, an asm
+// volatile too; nothing else reads the tile but wgmma.
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v));
+}
+
+// d[64 x N] += A[64 x 16] @ B[16 x N]: A and B from shared memory (K-major
+// descriptors), fp32 accumulators d, N / 2 a thread
+__device__ __forceinline__ void wgmma_n32(float* d, uint64_t da,
+                                          uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
 }
 
-// One warp tile: rows r0 .. r0 + 16*MT, columns c0 .. c0 + 32 of
-//   out = A1 @ W1 + A2 @ W2 + bias   (A row-major [BM][lda] bf16)
-template <int MT>
-__device__ __forceinline__ void bf16_tile(
-    const bf16* A1, int lda1, int K1, const uint2* __restrict__ W1,
-    const bf16* A2, int lda2, int K2, const uint2* __restrict__ W2,
-    int N, int r0, int c0, const float* __restrict__ bias, bf16* out,
-    int ldo, const Epilogue& ep) {
+__device__ __forceinline__ void wgmma_n64(float* d, uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n96(float* d, uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n160(float* d, uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n192(float* d, uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n224(float* d, uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %114, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111"
+      "}, %112, %113, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n256(float* d, uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int NP>
+__device__ __forceinline__ void wgmma_k16(float* d, uint64_t da,
+                                          uint64_t db) {
+  if constexpr (NP == 256) wgmma_n256(d, da, db);
+  else if constexpr (NP == 224) wgmma_n224(d, da, db);
+  else if constexpr (NP == 192) wgmma_n192(d, da, db);
+  else if constexpr (NP == 160) wgmma_n160(d, da, db);
+  else if constexpr (NP == 128) wgmma_n128(d, da, db);
+  else if constexpr (NP == 96) wgmma_n96(d, da, db);
+  else if constexpr (NP == 64) wgmma_n64(d, da, db);
+  else wgmma_n32(d, da, db);
+}
+
+// Shared-memory addresses of the CTA's tiles and barriers.
+// T_B0 and T_B1 (the fp32 path's two buffers) are one tile here.
+struct Smem {
+  uint32_t x, v, act, ring, full, empty;
+  __device__ __forceinline__ uint32_t tile(int t) const {
+    return t == T_X ? x : t == T_V ? v : act;
+  }
+};
+
+// One pass of NP output columns [c0, c0 + NP) of product q for warpgroup
+// wg (rows 64 wg .. + 64): the accumulators start at the bias, then every
+// k-slab of every term from the ring (slab: the ring's running slab
+// count, as the producer counts it), then the epilogue.  Each slab is
+// released once this warp's wgmma reads of it are done (wait_group 1
+// after the next slab's commit).  KEPT: the pass of the columns kept on
+// chip (c0 = 0, relu on all of them or none), written in place as bf16;
+// otherwise a pass of columns bound for raw only.
+template <int NP, bool KEPT>
+__device__ __forceinline__ void wg_pass(
+    const Prod& q, int c0, const Smem& sm, int& slab, int wg,
+    const float* __restrict__ bias, float* __restrict__ raw,
+    long long row0, long long n) {
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int NB = N / 8;
-  float acc[MT][4][4];
+  // accumulator fragment: warp w of the warpgroup holds rows 16 w + lane / 4
+  // (+ 8), columns 8 j + 2 (lane % 4) (+ 1)
+  float acc[NP / 2];
 #pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][nj][q] = 0.f;
-
+  for (int j = 0; j < NP / 8; ++j) {
+    const float2 b = __ldg(reinterpret_cast<const float2*>(
+        bias + c0 + 8 * j + 2 * (lane & 3)));
+    acc[4 * j] = acc[4 * j + 2] = b.x;
+    acc[4 * j + 1] = acc[4 * j + 3] = b.y;
+  }
+  const int first = slab;
 #pragma unroll 1
-  for (int s = 0; s < 2; ++s) {
-    const bf16* A = s ? A2 : A1;
-    const int lda = s ? lda2 : lda1;
-    const int K = s ? K2 : K1;
-    if (K == 0) continue;
-    const uint2* W = (s ? W2 : W1) + (size_t)(c0 / 8) * 32 + lane;
-#pragma unroll 2
-    for (int kb = 0; kb < K / 16; ++kb) {
-      uint2 b[4];
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj)
-        b[nj] = __ldg(W + ((size_t)kb * NB + nj) * 32);
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        const bf16* p = A + (r0 + mi * 16 + g) * lda + kb * 16 + 2 * t;
-        uint32_t a[4];
-        a[0] = *reinterpret_cast<const uint32_t*>(p);
-        a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * lda);
-        a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * lda + 8);
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) mma_bf16(acc[mi][nj], a, b[nj]);
+  for (int t = 0; t < q.nterms; ++t) {
+    const uint32_t a0 = sm.tile(q.src[t]) + wg * 64 * 64;
+    const int nk = q.K[t] / KC;
+#pragma unroll 1
+    for (int kc = 0; kc < nk; ++kc, ++slab) {
+      const int st = slab % NSTAGE;
+      mbar_wait(sm.full + 8 * st, (slab / NSTAGE) & 1);
+      const uint64_t da = sw64_desc(a0 + kc * CHUNK_BYTES);
+      const uint64_t db = sw64_desc(sm.ring + st * STAGE_BYTES);
+      wgmma_fence();
+      wgmma_k16<NP>(acc, da, db);
+      wgmma_k16<NP>(acc, da + 2, db + 2);  // +32 bytes: k 16 .. 31
+      wgmma_commit();
+      if (slab > first) {
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(sm.empty + 8 * ((slab - 1) % NSTAGE));
       }
     }
   }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) reg_fence(acc[i]);
+  if (lane == 0) mbar_arrive(sm.empty + 8 * ((slab - 1) % NSTAGE));
 
+  const int r_lo = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  if (!KEPT) {  // at most 8 columns from c0 on (raw_col0 = c0): j = 0
+    const int rc = c0 + 2 * (lane & 3) - q.raw_col0;
+    float* const out = raw + q.raw_dst + rc;
 #pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
+    for (int h = 0; h < 2; ++h) {
+      const long long p = row0 + r_lo + 8 * h;
+      if (p >= n) continue;
+      if (rc < q.raw_ncol) out[p * 4] = acc[2 * h];
+      if (rc + 1 < q.raw_ncol) out[p * 4 + 1] = acc[2 * h + 1];
+    }
+    return;
+  }
+  // in place: every warp of the warpgroup must be past its reads
+  wg_sync(wg);
+  // (r, 8 j + 2 (lane % 4)) in the 64-byte swizzle: 16-byte group j & 3
+  // of chunk j / 4, stored at group (j & 3) ^ ((r >> 1) & 3)
+  const uint32_t dst = sm.tile(q.dst) + (lane & 3) * 4;
+  const bool relu = q.relu_cols > 0;  // all kept columns or none
+  const __nv_bfloat162 zero = __float2bfloat162_rn(0.f);
 #pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      const int c = c0 + nj * 8 + 2 * t;  // columns c, c + 1
-      const float b0 = bias[c], b1 = bias[c + 1];
+  for (int j = 0; j < NP / 8; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = r0 + mi * 16 + g + 8 * h;
-        float v0 = acc[mi][nj][2 * h] + b0;
-        float v1 = acc[mi][nj][2 * h + 1] + b1;
-        ep.to_global(row, c, v0);
-        ep.to_global(row, c + 1, v1);
-        // n_smem and relu_cols are multiples of 32: c and c + 1 agree
-        if (c < ep.n_smem)
-          *reinterpret_cast<uint32_t*>(out + row * ldo + c) =
-              pack_bf16x2(ep.relu(c, v0), ep.relu(c + 1, v1));
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_lo + 8 * h;
+      __nv_bfloat162 v =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      // relu after rounding is rounding after relu; NaN passes, as
+      // jnp.maximum(x, 0) lets it
+      if (relu) v = __hmax2_nan(v, zero);
+      st_shared_u32(dst + (j >> 2) * CHUNK_BYTES + r * 64 +
+                        (((j & 3) ^ ((r >> 1) & 3)) << 4),
+                    *reinterpret_cast<const uint32_t*>(&v));
+    }
+}
+
+__global__ void __launch_bounds__(HTHREADS, 1)
+bf16_kernel(const __grid_constant__ Plan plan, const bf16* __restrict__ x,
+            const bf16* __restrict__ v, long long v_div,
+            const unsigned char* __restrict__ wstream,
+            const float* __restrict__ bbuf, float* __restrict__ raw,
+            long long n, int in_p, int w_p, int v_p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw_base = smem_addr(smem_raw);
+  const uint32_t base = (raw_base + 1023u) & ~1023u;  // swizzle atoms
+  unsigned char* gbase = smem_raw + (base - raw_base);
+  Smem sm;
+  sm.act = base;  // one activation tile, overwritten in place
+  sm.x = sm.act + HBM * w_p * 2;
+  sm.v = sm.x + HBM * in_p * 2;
+  sm.ring = sm.v + HBM * v_p * 2;
+  sm.full = sm.ring + NSTAGE * STAGE_BYTES;
+  sm.empty = sm.full + 8 * NSTAGE;
+  const long long row0 = (long long)blockIdx.x * HBM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(sm.full + 8 * s, 1);
+      mbar_init(sm.empty + 8 * s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {  // producer: the weight stream, in order
+    if (lane != 0) return;
+    int slab = 0;
+    long long off = 0;
+    for (int i = 0; i < plan.n; ++i) {
+      const Prod& q = plan.p[i];
+      for_each_pass(q, [&](int, int np, bool) {
+        const uint32_t bytes = (uint32_t)np * KC * 2;
+        for (int t = 0; t < q.nterms; ++t)
+          for (int kc = 0; kc < q.K[t] / KC; ++kc, ++slab) {
+            const int st = slab % NSTAGE;
+            mbar_wait(sm.empty + 8 * st, ((slab / NSTAGE) & 1) ^ 1);
+            mbar_expect_tx(sm.full + 8 * st, bytes);
+            bulk_copy(sm.ring + st * STAGE_BYTES, wstream + off, bytes,
+                      sm.full + 8 * st);
+            off += bytes;
+          }
+      });
+    }
+    // stay until the consumers have released the last stages
+    for (int k = 0; k < NSTAGE && slab > 0; ++k, ++slab)
+      mbar_wait(sm.empty + 8 * (slab % NSTAGE), ((slab / NSTAGE) & 1) ^ 1);
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64 wg .. + 64 of every tile
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  auto stage_rows = [&](uint32_t tile, const bf16* src, int cols,
+                        long long div) {
+    const int ch = cols / 8;
+    for (int e = tid; e < 64 * ch; e += 128) {
+      const int r = wg * 64 + e / ch;
+      const int c = (e % ch) * 8;
+      const long long p = row0 + r;
+      const bool ok = p < n;
+      const long long sr = ok ? (div == 1 ? p : p / div) : 0;
+      cp_async16(gbase + (tile - base) + sw64(r, c), src + sr * cols + c,
+                 ok);
+    }
+  };
+  stage_rows(sm.x, x, in_p, 1);
+  if (v_p > 0) stage_rows(sm.v, v, v_p, v_div);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  wg_sync(wg);
+
+  int slab = 0;
+#pragma unroll 1
+  for (int i = 0; i < plan.n; ++i) {
+    const Prod& q = plan.p[i];
+    const float* bias = bbuf + q.boff;
+    for_each_pass(q, [&](int c0, int np, bool kept) {
+      if (!kept) {
+        wg_pass<ALIGN, false>(q, c0, sm, slab, wg, bias, raw, row0, n);
+        return;
       }
+      switch (np) {
+#define PLNERF_PASS(NP)                                           \
+  case NP:                                                        \
+    wg_pass<NP, true>(q, c0, sm, slab, wg, bias, raw, row0, n); \
+    break;
+        PLNERF_PASS(256) PLNERF_PASS(224) PLNERF_PASS(192) PLNERF_PASS(160)
+        PLNERF_PASS(128) PLNERF_PASS(96) PLNERF_PASS(64) PLNERF_PASS(32)
+#undef PLNERF_PASS
+      }
+    });
+    if (q.dst != T_NONE) {  // the next product reads it through wgmma
+      fence_proxy_async();
+      wg_sync(wg);
     }
-}
-
-// A whole layer, spread over the 8 warps: 32-column groups of all 64 rows
-// while there are 8 groups per warp round, then the remaining groups cut
-// into 32-row (MT = 2) or 16-row (MT = 1) tiles so narrow layers and the
-// alpha slot still occupy every warp.
-__device__ void bf16_dense(const bf16* A1, int lda1, int K1, const uint2* W1,
-                           const bf16* A2, int lda2, int K2, const uint2* W2,
-                           int N, const float* bias, bf16* out, int ldo,
-                           const Epilogue& ep) {
-  const int warp = threadIdx.x >> 5;
-  const int groups = N / 32;
-  const int full = groups & ~7;
-  for (int it = warp; it < full; it += 8)
-    bf16_tile<4>(A1, lda1, K1, W1, A2, lda2, K2, W2, N, 0, it * 32, bias,
-                 out, ldo, ep);
-  const int rem = groups - full;
-  if (rem >= 4) {
-    for (int it = warp; it < rem * 2; it += 8)
-      bf16_tile<2>(A1, lda1, K1, W1, A2, lda2, K2, W2, N, (it & 1) * 32,
-                   (full + (it >> 1)) * 32, bias, out, ldo, ep);
-  } else if (rem > 0) {
-    for (int it = warp; it < rem * 4; it += 8)
-      bf16_tile<1>(A1, lda1, K1, W1, A2, lda2, K2, W2, N, (it & 3) * 16,
-                   (full + (it >> 2)) * 32, bias, out, ldo, ep);
   }
 }
 
-// dst[r][:] = src[(row0 + r) / div][:], 16 bytes at a time
-__device__ void bf16_stage(bf16* dst, int ldd, const bf16* __restrict__ src,
-                           int cols, long long row0, long long div,
-                           int n_valid) {
-  const int vec = cols / 8;
-  for (int e = threadIdx.x; e < BM * vec; e += THREADS) {
-    const int r = e / vec;
-    const int c = (e - r * vec) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_valid)
-      val = *reinterpret_cast<const uint4*>(src + ((row0 + r) / div) * cols +
-                                            c);
-    *reinterpret_cast<uint4*>(dst + r * ldd + c) = val;
-  }
-}
-
-// ------------------------------------------------------------- kernels --
-
-template <int HEAD>
-__global__ void __launch_bounds__(THREADS)
-fp32_kernel(const float* __restrict__ x, const float* __restrict__ v,
-            long long v_div, const float* __restrict__ wbuf,
-            const float* __restrict__ bbuf, float* __restrict__ raw,
-            long long n, int n_layers, unsigned skip_mask, int in_p,
-            int w_p, int v_p, int h_p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* buf0 = reinterpret_cast<float*>(smem_raw);
-  float* buf1 = buf0 + w_p * LDF;
-  float* xs = buf1 + w_p * LDF;
-  float* vs = xs + in_p * LDF;
-
-  const long long row0 = (long long)blockIdx.x * BM;
-  const int n_valid = (int)min((long long)BM, n - row0);
-  fp32_stage(xs, x, in_p, row0, 1, n_valid);
-  if (HEAD != PLAIN) fp32_stage(vs, v, v_p, row0, v_div, n_valid);
-  __syncthreads();
-
-  Epilogue ep{w_p, w_p, raw, row0, n_valid, 0, 0, 0};
-  const float* w = wbuf;
-  const float* b = bbuf;
-  const float* h = xs;
-  int hk = in_p;
-  float* outb = buf0;
-  for (int i = 0; i < n_layers; ++i) {
-    if ((skip_mask >> i) & 1u) {  // fed by the [x | h] concat
-      const float* wx = w;
-      w += (size_t)in_p * w_p;
-      fp32_dense(xs, in_p, wx, h, w_p, w, w_p, b, outb, ep);
-      w += (size_t)w_p * w_p;
-    } else {
-      fp32_dense(h, hk, w, nullptr, 0, nullptr, w_p, b, outb, ep);
-      w += (size_t)hk * w_p;
-    }
-    b += w_p;
-    __syncthreads();
-    h = outb;
-    hk = w_p;
-    outb = (outb == buf0) ? buf1 : buf0;
-  }
-  float* hbuf = const_cast<float*>(h);  // free once the first head ran
-
-  if (HEAD == SPLIT) {
-    const int nfa = w_p + ALIGN;  // feature | alpha; alpha to raw[:, 3]
-    ep = Epilogue{w_p, 0, raw, row0, n_valid, w_p, 1, 3};
-    fp32_dense(h, w_p, w, nullptr, 0, nullptr, nfa, b, outb, ep);
-    w += (size_t)w_p * nfa;
-    b += nfa;
-    __syncthreads();
-    const float* wvf = w;  // views: relu(feature @ Wvf + v @ Wvv + bv)
-    w += (size_t)w_p * h_p;
-    ep = Epilogue{h_p, h_p, raw, row0, n_valid, 0, 0, 0};
-    fp32_dense(outb, w_p, wvf, vs, v_p, w, h_p, b, hbuf, ep);
-    w += (size_t)v_p * h_p;
-    b += h_p;
-    __syncthreads();
-    ep = Epilogue{0, 0, raw, row0, n_valid, 0, 3, 0};
-    fp32_dense(hbuf, h_p, w, nullptr, 0, nullptr, ALIGN, b, nullptr, ep);
-  } else if (HEAD == FOLDED) {
-    const int nt = h_p + ALIGN;  // relu(h @ Wfv + v @ Wvv + bfv) | alpha
-    const float* wfa = w;
-    w += (size_t)w_p * nt;
-    ep = Epilogue{h_p, h_p, raw, row0, n_valid, h_p, 1, 3};
-    fp32_dense(h, w_p, wfa, vs, v_p, w, nt, b, outb, ep);
-    w += (size_t)v_p * nt;
-    b += nt;
-    __syncthreads();
-    ep = Epilogue{0, 0, raw, row0, n_valid, 0, 3, 0};
-    fp32_dense(outb, h_p, w, nullptr, 0, nullptr, ALIGN, b, nullptr, ep);
-  } else {
-    ep = Epilogue{0, 0, raw, row0, n_valid, 0, 4, 0};
-    fp32_dense(h, w_p, w, nullptr, 0, nullptr, ALIGN, b, nullptr, ep);
-  }
-}
-
-template <int HEAD>
-__global__ void __launch_bounds__(THREADS)
-bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ v,
-            long long v_div, const uint2* __restrict__ wbuf,
-            const float* __restrict__ bbuf, float* __restrict__ raw,
-            long long n, int n_layers, unsigned skip_mask, int in_p,
-            int w_p, int v_p, int h_p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldh = w_p + PADB, ldx = in_p + PADB, ldv = v_p + PADB;
-  bf16* buf0 = reinterpret_cast<bf16*>(smem_raw);
-  bf16* buf1 = buf0 + BM * ldh;
-  bf16* xs = buf1 + BM * ldh;
-  bf16* vs = xs + BM * ldx;
-
-  const long long row0 = (long long)blockIdx.x * BM;
-  const int n_valid = (int)min((long long)BM, n - row0);
-  bf16_stage(xs, ldx, x, in_p, row0, 1, n_valid);
-  if (HEAD != PLAIN) bf16_stage(vs, ldv, v, v_p, row0, v_div, n_valid);
-  __syncthreads();
-
-  // weight blocks: K * N bf16 = K * N / 4 uint2
-  Epilogue ep{w_p, w_p, raw, row0, n_valid, 0, 0, 0};
-  const uint2* w = wbuf;
-  const float* b = bbuf;
-  const bf16* h = xs;
-  int hk = in_p, ldin = ldx;
-  bf16* outb = buf0;
-  for (int i = 0; i < n_layers; ++i) {
-    if ((skip_mask >> i) & 1u) {
-      const uint2* wx = w;
-      w += (size_t)in_p * w_p / 4;
-      bf16_dense(xs, ldx, in_p, wx, h, ldh, w_p, w, w_p, b, outb, ldh, ep);
-      w += (size_t)w_p * w_p / 4;
-    } else {
-      bf16_dense(h, ldin, hk, w, nullptr, 0, 0, nullptr, w_p, b, outb, ldh,
-                 ep);
-      w += (size_t)hk * w_p / 4;
-    }
-    b += w_p;
-    __syncthreads();
-    h = outb;
-    hk = w_p;
-    ldin = ldh;
-    outb = (outb == buf0) ? buf1 : buf0;
-  }
-  bf16* hbuf = const_cast<bf16*>(h);
-
-  if (HEAD == SPLIT) {
-    const int nfa = w_p + ALIGN;
-    ep = Epilogue{w_p, 0, raw, row0, n_valid, w_p, 1, 3};
-    bf16_dense(h, ldh, w_p, w, nullptr, 0, 0, nullptr, nfa, b, outb, ldh, ep);
-    w += (size_t)w_p * nfa / 4;
-    b += nfa;
-    __syncthreads();
-    const uint2* wvf = w;
-    w += (size_t)w_p * h_p / 4;
-    ep = Epilogue{h_p, h_p, raw, row0, n_valid, 0, 0, 0};
-    bf16_dense(outb, ldh, w_p, wvf, vs, ldv, v_p, w, h_p, b, hbuf, ldh, ep);
-    w += (size_t)v_p * h_p / 4;
-    b += h_p;
-    __syncthreads();
-    ep = Epilogue{0, 0, raw, row0, n_valid, 0, 3, 0};
-    bf16_dense(hbuf, ldh, h_p, w, nullptr, 0, 0, nullptr, ALIGN, b, nullptr,
-               0, ep);
-  } else if (HEAD == FOLDED) {
-    const int nt = h_p + ALIGN;
-    const uint2* wfa = w;
-    w += (size_t)w_p * nt / 4;
-    ep = Epilogue{h_p, h_p, raw, row0, n_valid, h_p, 1, 3};
-    bf16_dense(h, ldh, w_p, wfa, vs, ldv, v_p, w, nt, b, outb, ldh, ep);
-    w += (size_t)v_p * nt / 4;
-    b += nt;
-    __syncthreads();
-    ep = Epilogue{0, 0, raw, row0, n_valid, 0, 3, 0};
-    bf16_dense(outb, ldh, h_p, w, nullptr, 0, 0, nullptr, ALIGN, b, nullptr,
-               0, ep);
-  } else {
-    ep = Epilogue{0, 0, raw, row0, n_valid, 0, 4, 0};
-    bf16_dense(h, ldh, w_p, w, nullptr, 0, 0, nullptr, ALIGN, b, nullptr, 0,
-               ep);
-  }
-}
-
-long long smem_bytes(int in_p, int w_p, int v_p, bool bf16_path) {
-  if (bf16_path)
-    return (long long)BM * (2 * (w_p + PADB) + in_p + PADB + v_p + PADB) * 2;
-  return (long long)(2 * w_p + in_p + v_p) * LDF * 4;
-}
-
-template <typename KernelFn, typename T, typename WT>
-int launch(KernelFn kern, const void* x, const void* v, long long v_div,
-           const void* w, const void* b, void* raw, long long n,
-           int n_layers, unsigned skip_mask, int in_p, int w_p, int v_p,
-           int h_p, size_t smem, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned grid = (unsigned)((n + BM - 1) / BM);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(v), v_div,
-      static_cast<const WT*>(w), static_cast<const float*>(b),
-      static_cast<float*>(raw), n, n_layers, skip_mask, in_p, w_p, v_p, h_p);
-  return (int)cudaGetLastError();
+long long smem_bf16(int in_p, int w_p, int v_p) {
+  return 1024LL + 2LL * HBM * (w_p + in_p + v_p) +
+         (long long)NSTAGE * STAGE_BYTES + 16LL * NSTAGE;
 }
 
 }  // namespace
@@ -497,37 +829,53 @@ int launch(KernelFn kern, const void* x, const void* v, long long v_div,
 extern "C" {
 
 // Shared memory one CTA needs, in bytes (the wrapper checks it against
-// the device's opt-in limit before launching).
+// the device's opt-in limit before launching).  v_p = 0: no views.
 long long plnerf_fused_mlp_fwd_smem(int in_p, int w_p, int v_p,
                                     int use_bf16) {
-  return smem_bytes(in_p, w_p, v_p, use_bf16 != 0);
+  return use_bf16 ? smem_bf16(in_p, w_p, v_p) : (long long)F_SMEM;
 }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Workspace bytes for one call of n points: fp32, two activation
+// buffers [n, w_p]; bf16, none.
+long long plnerf_fused_mlp_fwd_workspace(long long n, int w_p,
+                                         int use_bf16) {
+  return use_bf16 ? 0 : 2LL * n * w_p * 4;
+}
+
+// Launches on `stream` and returns cudaGetLastError() of the first launch
+// that fails (0 on success).  v_p = 0 and v = null for the plain head.
 int plnerf_fused_mlp_fwd(const void* x, const void* v, long long v_div,
-                         const void* w, const void* b, void* raw,
+                         const void* w, const void* b, void* raw, void* ws,
                          long long n, int n_layers, unsigned skip_mask,
                          int in_p, int w_p, int v_p, int h_p, int head,
                          int use_bf16, void* stream) {
   if (n <= 0) return 0;
+  Plan pl;
   if (in_p % ALIGN || w_p % ALIGN || v_p % ALIGN || h_p % ALIGN ||
-      v_div < 1 || head < SPLIT || head > PLAIN)
+      (use_bf16 && w_p > MAX_PASS) || v_div < 1 ||
+      (head != PLAIN && v_p == 0) ||
+      !build_plan(&pl, n_layers, skip_mask, in_p, w_p, v_p, h_p, head))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)smem_bytes(in_p, w_p, v_p, use_bf16 != 0);
-#define PLNERF_LAUNCH(K, T, WT)                                           \
-  return launch<decltype(&K), T, WT>(&K, x, v, v_div, w, b, raw, n,       \
-                                     n_layers, skip_mask, in_p, w_p, v_p, \
-                                     h_p, smem, s)
-  if (use_bf16) {
-    if (head == SPLIT) PLNERF_LAUNCH(bf16_kernel<SPLIT>, bf16, uint2);
-    if (head == FOLDED) PLNERF_LAUNCH(bf16_kernel<FOLDED>, bf16, uint2);
-    PLNERF_LAUNCH(bf16_kernel<PLAIN>, bf16, uint2);
+  if (!use_bf16) {
+    if ((n + FBM - 1) / FBM > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    return launch_f32(pl, static_cast<const float*>(x),
+                      static_cast<const float*>(v), v_div,
+                      static_cast<const float*>(w),
+                      static_cast<const float*>(b), static_cast<float*>(raw),
+                      static_cast<float*>(ws), n, in_p, w_p, v_p, s);
   }
-  if (head == SPLIT) PLNERF_LAUNCH(fp32_kernel<SPLIT>, float, float);
-  if (head == FOLDED) PLNERF_LAUNCH(fp32_kernel<FOLDED>, float, float);
-  PLNERF_LAUNCH(fp32_kernel<PLAIN>, float, float);
-#undef PLNERF_LAUNCH
+  const long long grid = (n + HBM - 1) / HBM;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int smem = (int)smem_bf16(in_p, w_p, v_p);
+  cudaError_t e = cudaFuncSetAttribute(
+      bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  bf16_kernel<<<(unsigned)grid, HTHREADS, smem, s>>>(
+      pl, static_cast<const bf16*>(x), static_cast<const bf16*>(v), v_div,
+      static_cast<const unsigned char*>(w), static_cast<const float*>(b),
+      static_cast<float*>(raw), n, in_p, w_p, v_p);
+  return (int)cudaGetLastError();
 }
 
 const char* plnerf_cuda_error_string(int code) {

@@ -18,11 +18,13 @@ N-merged, alpha in the column right after the feature block.  The folded
 schedule (``fold_heads``) uses the exact fold ``Wfv = Wf @ Wv1[:W]``,
 ``bfv = bf @ Wv1[:W] + bv`` computed in fp32 before any cast, N-merged
 with the alpha column; its view block spans the same N.  The bf16
-forward kernel (tensor cores, ``mma.sync``) reads each block in mma
-fragment order (``mma_fragments``, applied by ``PackedMLP.flat``); the
-backward kernel reads every block row-major in either dtype and
-transposes them itself; the plain versions read the same blocks as
-``[K, N]`` matrices.
+forward kernel (tensor cores, ``wgmma``) reads the blocks as one stream
+of shared-memory slab images in the order it consumes them
+(``wgmma_stream``, applied by ``PackedMLP.flat``); the fp32 forward and
+the backward read every block row-major (the backward transposes them
+itself); the plain versions read the same blocks as ``[K, N]``
+matrices.  The fp32 forward walks the points in chunks of at most
+``FWD_CHUNK`` (``fwd_chunks``), which bounds its activation workspace.
 
 Topology rules kept from the JAX wrapper: softplus10 is applied outside
 the kernel, a final-layer skip goes to the unfused ``apply_mlp``, any
@@ -49,6 +51,12 @@ from . import build
 
 ALIGN = 32
 SPLIT, FOLDED, PLAIN = 0, 1, 2
+# points per fp32 forward launch sequence: two fp32 activation buffers of
+# FWD_CHUNK x w_p (4 GB at w_p = 256) whatever the request's size
+FWD_CHUNK = 1 << 21
+# the bf16 forward's k-slab (rows of one shared-memory image) and its
+# widest column pass (csrc/fused_mlp_fwd.cu KC, MAX_PASS)
+SLAB_K, MAX_PASS = 32, 256
 KERNEL = "fused_mlp_fwd"
 BWD_KERNEL = "fused_mlp_bwd"
 
@@ -81,23 +89,85 @@ class PackedMLP:
     biases: List[torch.Tensor]
 
     def flat(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The kernel's weight buffer (fp32 blocks row-major, bf16 blocks in
-        mma fragment order) and its bias buffer."""
-        order = mma_fragments if self.dtype == torch.bfloat16 else \
-            (lambda w: w.reshape(-1))
-        return (torch.cat([order(w) for w in self.weights]),
-                torch.cat([b.reshape(-1) for b in self.biases]))
+        """The forward kernel's weight buffer (fp32 blocks row-major, bf16
+        the ``wgmma_stream``, gathered by one index per layout) and its
+        bias buffer."""
+        w = torch.cat([w.reshape(-1) for w in self.weights])
+        if self.dtype == torch.bfloat16:
+            w = w[_stream_index(self, w.device)]
+        return w, torch.cat([b.reshape(-1) for b in self.biases])
 
 
-def mma_fragments(w: torch.Tensor) -> torch.Tensor:
-    """A [K, N] block in mma.sync m16n8k16 B-fragment order: per 16-row k
-    block and 8-column n block (n innermost), lane 4g + t holds
-    W[k0][n], W[k0+1][n], W[k0+8][n], W[k0+9][n], k0 = 16kb + 2t,
-    n = 8nb + g.  K and N are multiples of 32 here."""
-    K, N = w.shape
-    # k = 16 kb + 8 h + 2 t + e, n = 8 nb + g  ->  order (kb, nb, g, t, h, e)
-    return w.reshape(K // 16, 2, 4, 2, N // 8, 8).permute(
-        0, 4, 5, 2, 1, 3).reshape(-1)
+def _passes(n: int, kept: int) -> List[Tuple[int, int]]:
+    """(first column, width) of the bf16 kernel's column passes over a
+    product of ``n`` columns whose first ``kept`` stay on chip
+    (csrc/fused_mlp_fwd.cu ``for_each_pass``): the columns that go only to
+    raw, 32 at a time, then the kept ones as one pass (at most
+    ``MAX_PASS`` wide)."""
+    out = [(c0, ALIGN) for c0 in range(kept, n, ALIGN)]
+    return out + ([(0, kept)] if kept else [])
+
+
+_STREAM_INDEX: dict = {}
+
+
+def _stream_index(p: "PackedMLP", device: torch.device) -> torch.Tensor:
+    """Positions in the row-major block buffer of the ``wgmma_stream``'s
+    elements, per layout and device (built once, from element ids)."""
+    key = (p.head, p.n_layers, p.skip_mask, p.in_p, p.w_p, p.v_p, p.h_p,
+           str(device))
+    if key not in _STREAM_INDEX:
+        ids, off = [], 0
+        for w in p.weights:
+            ids.append(torch.arange(off, off + w.numel(),
+                                    dtype=torch.float64).reshape(w.shape))
+            off += w.numel()
+        _STREAM_INDEX[key] = wgmma_stream(dataclasses.replace(
+            p, weights=ids)).long().to(device)
+    return _STREAM_INDEX[key]
+
+
+def _products(p: "PackedMLP") -> List[Tuple[List[int], int, int]]:
+    """(indices of the weight blocks summed, output columns, columns kept
+    on chip) of every product of the forward, in the order the kernels run
+    them (csrc/fused_mlp_fwd.cu ``build_plan``)."""
+    walk, hb = _layer_blocks(p)
+    prods = [([bh] if bx is None else [bx, bh], p.w_p, p.w_p)
+             for bx, bh in walk]
+    if p.head == SPLIT:
+        return prods + [([hb], p.w_p + ALIGN, p.w_p),
+                        ([hb + 1, hb + 2], p.h_p, p.h_p), ([hb + 3], ALIGN, 0)]
+    if p.head == FOLDED:
+        return prods + [([hb, hb + 1], p.h_p + ALIGN, p.h_p),
+                        ([hb + 2], ALIGN, 0)]
+    return prods + [([hb], ALIGN, 0)]
+
+
+def wgmma_image(w: torch.Tensor) -> torch.Tensor:
+    """The shared-memory image of one k-slab ``w`` [32, NP] as the bf16
+    kernel's wgmma reads its B operand: K-major (W^T, NP rows of 32 values,
+    64 bytes), in the 64-byte swizzle: the 16-byte group g (values
+    8g .. 8g + 7) of row n stored at group position g ^ ((n >> 1) & 3)."""
+    k, n = w.shape
+    rows = w.t().reshape(n, k // 8, 8)
+    g = torch.arange(k // 8, device=w.device)
+    swz = g[None, :] ^ ((torch.arange(n, device=w.device)[:, None] >> 1) & 3)
+    return rows.gather(1, swz[:, :, None].expand(n, k // 8, 8)).reshape(-1)
+
+
+def wgmma_stream(p: "PackedMLP") -> torch.Tensor:
+    """Every weight block as the bf16 forward kernel streams it: for each
+    product, each column pass (``_passes``), each summed block, each 32-row
+    k-slab, its ``wgmma_image``, in that order.  A permutation of the
+    blocks."""
+    out = []
+    for blocks, n, kept in _products(p):
+        for c0, width in _passes(n, kept):
+            for b in blocks:
+                w = p.weights[b]
+                for k0 in range(0, w.shape[0], SLAB_K):
+                    out.append(wgmma_image(w[k0:k0 + SLAB_K, c0:c0 + width]))
+    return torch.cat(out)
 
 
 def _wb(layer: torch.nn.Linear) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -223,16 +293,38 @@ def forward_plain(p: PackedMLP, x: torch.Tensor, v: Optional[torch.Tensor],
     return (mm(h, wo) + bo)[:, :4]
 
 
+def fwd_chunks(n: int, v_div: int) -> List[Tuple[int, int]]:
+    """(first point, points) of each launch sequence of the fp32 forward:
+    at most ``FWD_CHUNK`` points, a whole number of view rows (``v_div``
+    points each) unless one view row is longer, the last one ragged."""
+    step = max(1, FWD_CHUNK // v_div) * v_div
+    return [(r0, min(step, n - r0)) for r0 in range(0, n, step)]
+
+
+def forward_chunked(p: PackedMLP, x: torch.Tensor, v: Optional[torch.Tensor],
+                    v_div: int = 1) -> torch.Tensor:
+    """The fp32 kernel's schedule in plain PyTorch: the per-layer product
+    sequence of ``forward_plain`` on each of ``fwd_chunks``, each chunk
+    reading its points' rows of x and its own view rows of v."""
+    out = []
+    for r0, cn in fwd_chunks(x.shape[0], v_div):
+        vc = None if v is None else v[r0 // v_div:]
+        out.append(forward_plain(p, x[r0:r0 + cn], vc, v_div))
+    return torch.cat(out) if out else forward_plain(p, x, v, v_div)
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load(KERNEL)
     fn = lib.plnerf_fused_mlp_fwd
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, L, P, P, P, L, I, ctypes.c_uint, I, I, I, I, I,
-                       I, P]
+        fn.argtypes = [P, P, L, P, P, P, P, L, I, ctypes.c_uint, I, I, I, I,
+                       I, I, P]
         fn.restype = ctypes.c_int
         lib.plnerf_fused_mlp_fwd_smem.argtypes = [I, I, I, I]
         lib.plnerf_fused_mlp_fwd_smem.restype = L
+        lib.plnerf_fused_mlp_fwd_workspace.argtypes = [L, I, I]
+        lib.plnerf_fused_mlp_fwd_workspace.restype = L
         lib.plnerf_cuda_error_string.argtypes = [I]
         lib.plnerf_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -248,7 +340,9 @@ def _check(t: torch.Tensor, name: str, cols: int, dtype, device) -> None:
 
 def forward_cuda(p: PackedMLP, x: torch.Tensor, v: Optional[torch.Tensor],
                  v_div: int = 1) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream; raw [N, 4] fp32."""
+    """Launch the CUDA kernels on the current stream; raw [N, 4] fp32.
+    bf16: one launch of the fused walk; fp32: the per-layer products of
+    each of ``fwd_chunks`` in turn, on one workspace."""
     global launches
     dev = x.device
     if dev.type != "cuda":
@@ -262,6 +356,8 @@ def forward_cuda(p: PackedMLP, x: torch.Tensor, v: Optional[torch.Tensor],
         if v_div < 1 or v.shape[0] * v_div < n:
             raise ValueError(f"v has {v.shape[0]} rows for {n} points at "
                              f"{v_div} per row")
+    else:
+        v, v_div = None, 1
     wbuf, bbuf = p.flat()
     if wbuf.device != dev:
         raise ValueError(f"weights on {wbuf.device}, inputs on {dev}")
@@ -270,20 +366,28 @@ def forward_cuda(p: PackedMLP, x: torch.Tensor, v: Optional[torch.Tensor],
         return raw
     lib = _library()
     bf16 = int(p.dtype == torch.bfloat16)
-    v_p = p.v_p if p.head != PLAIN else ALIGN
+    v_p = p.v_p if p.head != PLAIN else 0
     smem = lib.plnerf_fused_mlp_fwd_smem(p.in_p, p.w_p, v_p, bf16)
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
+    if smem > limit or (bf16 and p.w_p > MAX_PASS):
         raise ValueError(f"fused MLP tile needs {smem} B of shared memory, "
                          f"the device allows {limit} B (netwidth too large)")
+    chunks = [(0, n)] if bf16 else fwd_chunks(n, v_div)
+    ws = torch.empty(lib.plnerf_fused_mlp_fwd_workspace(
+        chunks[0][1], p.w_p, bf16), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.plnerf_fused_mlp_fwd(
-        x.data_ptr(), v.data_ptr() if p.head != PLAIN else None, v_div,
-        wbuf.data_ptr(), bbuf.data_ptr(), raw.data_ptr(), n, p.n_layers,
-        p.skip_mask, p.in_p, p.w_p, v_p, p.h_p, p.head, bf16, stream)
-    if rc != 0:
-        msg = lib.plnerf_cuda_error_string(rc).decode()
-        raise RuntimeError(f"fused_mlp_fwd launch failed: {msg} ({rc})")
+    esize = x.element_size()
+    for r0, cn in chunks:
+        rc = lib.plnerf_fused_mlp_fwd(
+            x.data_ptr() + r0 * p.in_p * esize,
+            None if v is None else v.data_ptr() + (r0 // v_div) * v_p * esize,
+            v_div, wbuf.data_ptr(), bbuf.data_ptr(),
+            raw.data_ptr() + r0 * 16, ws.data_ptr() if ws.numel() else None,
+            cn, p.n_layers, p.skip_mask, p.in_p, p.w_p, v_p, p.h_p, p.head,
+            bf16, stream)
+        if rc != 0:
+            msg = lib.plnerf_cuda_error_string(rc).decode()
+            raise RuntimeError(f"fused_mlp_fwd launch failed: {msg} ({rc})")
     launches += 1
     return raw
 

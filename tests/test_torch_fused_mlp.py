@@ -3,6 +3,8 @@ the JAX package: the weight packing against ``_padded_weights``, the
 plain PyTorch version of the kernel against the Pallas kernel in
 interpret mode and against ``apply_mlp``, and (on a CUDA device only) the
 hand-written kernel against the plain version."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -171,27 +173,85 @@ def test_fused_query_network_per_ray_views(fold):
     np.testing.assert_allclose(got, ref, atol=2e-5, rtol=2e-5)
 
 
-def test_mma_fragment_order():
-    """bf16 blocks reach the tensor-core kernel in mma.sync m16n8k16
-    B-fragment order: lane 4g + t of block (kb, nb) holds W[k0][n],
-    W[k0+1][n], W[k0+8][n], W[k0+9][n], k0 = 16kb + 2t, n = 8nb + g."""
-    K, N = 64, 96
-    w = torch.arange(K * N, dtype=torch.float32).reshape(K, N)
-    flat = fused_mlp.mma_fragments(w)
-    assert sorted(flat.tolist()) == w.reshape(-1).tolist()   # a permutation
-    for kb, nb, lane in [(0, 0, 0), (1, 2, 5), (3, 11, 31), (2, 7, 18)]:
-        g, tq = lane // 4, lane % 4
-        k0, n = 16 * kb + 2 * tq, 8 * nb + g
-        base = ((kb * (N // 8) + nb) * 32 + lane) * 4
-        assert flat[base:base + 4].tolist() == [
-            w[k0, n], w[k0 + 1, n], w[k0 + 8, n], w[k0 + 9, n]]
+def _sw64(n, k):
+    """Element offset of B[n][k] in a K-major slab image of 32-value rows
+    (64 bytes) in the wgmma 64-byte swizzle: byte address bits [4, 6) XOR
+    bits [7, 9) (CUTLASS Swizzle<2, 4, 3>)."""
+    addr = n * 64 + k * 2
+    return (addr ^ (((addr >> 7) & 3) << 4)) // 2
+
+
+def test_wgmma_stream_order():
+    """bf16 blocks reach the wgmma kernel as one stream of shared-memory
+    slab images: per product, column pass (the columns for raw only, then
+    the columns kept on chip as one pass), block and 32-row k-slab, the
+    slab's [32, NP] values transposed into NP rows of 32 in the 64-byte
+    swizzle.  A permutation of the blocks; named elements land where the
+    wgmma layout puts them."""
     p = fused_mlp.pack_weights(torch_model({}, np_params({})), ModelConfig(),
                                torch.bfloat16)
+    ids, off = [], 0
+    for w in p.weights:                         # every element its own id
+        ids.append(torch.arange(off, off + w.numel(),
+                                dtype=torch.float64).reshape(w.shape))
+        off += w.numel()
+    q = dataclasses.replace(p, weights=ids)
+    flat = fused_mlp.wgmma_stream(q)
+    assert torch.equal(flat.sort().values, torch.arange(off,
+                                                        dtype=torch.float64))
+    starts = np.cumsum([0] + [w.numel() for w in ids])
+    w0, waf = ids[0], ids[-4]                   # [64, 256], [256, 288]
+    for k, n in [(0, 0), (1, 5), (9, 2), (40, 130), (63, 255)]:
+        pos = (k // 32) * 256 * 32 + _sw64(n, k % 32)   # one 256-wide pass
+        assert flat[pos] == w0[k, n], (k, n)
+    base = starts[len(ids) - 4]                 # Waf: the alpha pass first
+    for k, n in [(0, 256), (37, 256), (255, 287), (100, 270)]:
+        pos = base + (k // 32) * 32 * 32 + _sw64(n - 256, k % 32)
+        assert flat[pos] == waf[k, n], (k, n)
+    base += 256 * 32                            # then the 256 features
+    for k, n in [(0, 0), (33, 7), (255, 255), (130, 64)]:
+        pos = base + (k // 32) * 256 * 32 + _sw64(n, k % 32)
+        assert flat[pos] == waf[k, n], (k, n)
     wbuf, bbuf = p.flat()
     assert wbuf.dtype == torch.bfloat16
-    assert wbuf.numel() == sum(x.numel() for x in p.weights)
-    assert torch.equal(wbuf[:p.weights[0].numel()],
-                       fused_mlp.mma_fragments(p.weights[0]))
+    assert torch.equal(wbuf, fused_mlp.wgmma_stream(p))
+    assert bbuf.numel() == sum(b.numel() for b in p.biases)
+
+
+@pytest.mark.parametrize("head", ["split", "folded", "plain"])
+def test_fp32_schedule_matches_pallas_interpret(head, monkeypatch):
+    """The fp32 kernel's schedule in plain PyTorch (``forward_chunked``:
+    the per-layer products over chunks of whole rays) against the Pallas
+    kernel: 13 rays x 7 samples at ``FWD_CHUNK`` = 35 points, three chunks
+    with a ragged last one, each reading its own view rows."""
+    monkeypatch.setattr(fused_mlp, "FWD_CHUNK", 35)
+    kw = dict(netdepth=4, netwidth=64, skips=(2,), multires=4,
+              multires_views=2)
+    if head == "plain":
+        kw.update(use_viewdirs=False, output_ch=4)
+    fold = head == "folded"
+    params = np_params(kw)
+    cfg, jcfg = ModelConfig(**kw), JModelConfig(**kw)
+    R, S = 13, 7
+    rng = np.random.default_rng(5)
+    pe = rng.normal(size=(R, S, cfg.input_ch)).astype(np.float32)
+    vch = cfg.input_ch_views + cfg.input_ch_cam
+    ve = rng.normal(size=(R, 1, vch)).astype(np.float32)
+    jve = (jnp.asarray(np.broadcast_to(ve, (R, S, vch)).reshape(-1, vch))
+           if cfg.use_viewdirs else None)
+    ref = np.asarray(jfused.apply(params, jnp.asarray(pe.reshape(R * S, -1)),
+                                  jve, jcfg, tile=128, interpret=True,
+                                  fold_heads=fold))
+    with torch.no_grad():
+        p, x, v, v_div = fused_mlp.prepare(
+            torch_model(kw, params), t(pe),
+            t(ve) if cfg.use_viewdirs else None, cfg, fold_heads=fold)
+        assert v_div == (S if cfg.use_viewdirs else 1)
+        assert fused_mlp.fwd_chunks(x.shape[0], v_div) == [
+            (0, 35), (35, 35), (70, 21)]
+        raw = fused_mlp.forward_chunked(p, x, v, v_div)
+        got = mlp.softplus10_density(raw, cfg).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-5, rtol=2e-5)
 
 
 def test_forward_cuda_refuses_cpu_tensors():

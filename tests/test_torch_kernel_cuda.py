@@ -63,6 +63,87 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype, tol, case):
     torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
 
 
+FWD_HEADS = {"split": (dict(), False), "folded": (dict(), True),
+             "plain": (dict(use_viewdirs=False, output_ch=4), False)}
+
+
+def _fwd_inputs(head, dtype, dev, R, S):
+    """Full-width (8x256) packed MLP and inputs of R rays x S samples,
+    per-ray views (v_div = S) for the viewdirs heads."""
+    kw, fold = FWD_HEADS[head]
+    cfg = ModelConfig(**kw)
+    g = torch.Generator(device=dev).manual_seed(R * 1000 + S)
+    m = NeRF(cfg, g, device=dev)
+    pe = embed(torch.randn(R, S, 3, generator=g, device=dev), cfg.multires,
+               cfg.pi_bands)
+    ve = None
+    if cfg.use_viewdirs:
+        vd = torch.nn.functional.normalize(
+            torch.randn(R, 3, generator=g, device=dev), dim=-1)
+        ve = embed(vd, cfg.multires_views, cfg.pi_bands)[:, None, :]
+    return fused_mlp.prepare(m, pe, ve, cfg, dtype, fold)
+
+
+# (rays, samples): 333 points, three 128-point tiles (an odd count) and a
+# ragged last one; one point; 385 points (four tiles, one point in the
+# last) with 77 samples per view row, which no tile boundary follows
+FWD_EDGE_SIZES = [(3, 111), (1, 1), (5, 77)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("head", list(FWD_HEADS))
+@pytest.mark.parametrize("R,S", FWD_EDGE_SIZES,
+                         ids=[f"{r}x{s}" for r, s in FWD_EDGE_SIZES])
+def test_cuda_forward_at_tile_edges(cuda_device, dtype, tol, head, R, S):
+    """The full-width forward against its plain version where the point
+    tiles and the per-ray views end raggedly."""
+    with torch.no_grad():
+        p, x, v, v_div = _fwd_inputs(head, dtype, cuda_device, R, S)
+        assert x.shape[0] == R * S and v_div == (1 if head == "plain" else S)
+        before = fused_mlp.launches
+        got = fused_mlp.forward_cuda(p, x, v, v_div)
+        torch.cuda.synchronize()
+        assert fused_mlp.launches == before + 1
+        ref = fused_mlp.forward_plain(p, x, v, v_div)
+    assert torch.isfinite(got).all()
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((got - ref).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("head", list(FWD_HEADS))
+def test_cuda_forward_fp32_across_chunks(cuda_device, head, monkeypatch):
+    """The fp32 forward's launch sequences over chunks of whole view rows:
+    at 1,000 points per chunk, 29 rays x 111 samples run as chunks of 999,
+    999, 999 and 222 points; one launch counted per call."""
+    monkeypatch.setattr(fused_mlp, "FWD_CHUNK", 1000)
+    with torch.no_grad():
+        p, x, v, v_div = _fwd_inputs(head, torch.float32, cuda_device, 29,
+                                     111)
+        if head != "plain":
+            assert fused_mlp.fwd_chunks(x.shape[0], v_div)[-1] == (2997, 222)
+        before = fused_mlp.launches
+        got = fused_mlp.forward_cuda(p, x, v, v_div)
+        torch.cuda.synchronize()
+        assert fused_mlp.launches == before + 1
+        ref = fused_mlp.forward_plain(p, x, v, v_div)
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((got - ref).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("head", list(FWD_HEADS))
+def test_cuda_forward_is_deterministic(cuda_device, dtype, head):
+    """No atomics, a fixed order of every sum: two calls bit-identical."""
+    with torch.no_grad():
+        p, x, v, v_div = _fwd_inputs(head, dtype, cuda_device, 11, 97)
+        a = fused_mlp.forward_cuda(p, x, v, v_div)
+        b = fused_mlp.forward_cuda(p, x, v, v_div)
+    assert torch.equal(a, b)
+
+
 def _inputs(cfg, fold, dtype, dev, R=37, S=29):
     g = torch.Generator(device=dev).manual_seed(0)
     m = NeRF(cfg, g, device=dev)
