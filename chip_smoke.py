@@ -23,10 +23,14 @@ Phases, one line each, then the result line:
            (tolerance 1e-5 x max|ref| without a bf16 recast between dots,
            2e-2 x max|ref| with one); then the probe path: every experiment of
            plnerf_torch.tools.dot_decompose (A shapes, B mixed, D row tile,
-           E merged, C the real bf16 forward) and plnerf_torch.tools.
-           mosaic_probe at 2,629,632 rows, with the kernels' launch
-           counters set to 0 before and read after; the decomposition; and
-           each kernel's plain-version and cuBLAS times beside the bound.
+           E merged, C the real bf16 forward), plnerf_torch.tools.
+           mosaic_probe and shape (256, 256) x13 at every row tile it takes
+           at 2,629,632 rows, with the kernels' launch counters set to 0
+           before and read after; the decomposition (A's predicted walk
+           beside C, both on wgmma, and beside B, still mma.sync); and
+           each kernel's plain-version and cuBLAS times beside the bound
+           (cuBLAS bf16 sums in fp32: resolve_device turns its
+           reduced-precision reductions off).
 4. bwd     the fused MLP backward kernel against its plain PyTorch version
            on the card: 8x256 viewdirs MLP at 65,537 points (one ray, a
            ragged last tile) and at the coarse (1024 x 128) and fine
@@ -177,6 +181,8 @@ def phase_env():
     log("env", card=card_line(), torch=torch.__version__,
         cuda=torch.version.cuda, kernels_built=names, build_s=build_s,
         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        allow_bf16_reduced_precision_reduction=(
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction),
         ptxas={name: build.ptxas_info(name) for name in names},
         dynamic_smem_8x256=smem)
 
@@ -332,7 +338,7 @@ def _probe_checks(dev) -> dict:
         for k, m in shapes:
             x, ws = dd.inputs(n, k, [(k, m)] * reps, dev, seed=k + m)
             ref = dp.shape_plain(x, ws)
-            for tile in dp.TILES:
+            for tile in dp.SHAPE_TILES:
                 hold("shape", f"shape_{k}x{m}_t{tile}",
                      dp.shape_cuda(x, ws, tile), ref, sums)
         x, ws = dd.inputs(n, 128, dd.MIXED_SHAPES, dev, seed=1)
@@ -350,7 +356,7 @@ def _probe_checks(dev) -> dict:
         x, ws = mp.inputs(n, dev, seed=3)
         for variant in dp.VARIANTS:
             ref = dp.mosaic_plain(x, ws, variant)
-            for tile in dp.TILES:
+            for tile in dp.mosaic_tiles(variant):
                 hold("mosaic", f"mosaic_{variant}_t{tile}",
                      dp.mosaic_cuda(x, ws, tile, variant), ref,
                      sums if variant == "independent" else recast)
@@ -425,25 +431,38 @@ def phase_probes(dev):
         res.update(D=dd.experiment_tiles(n, dev, res["B"]),
                    E=dd.experiment_merged(n, dev, tile, res["B"]),
                    C=dd.experiment_real(n, dev),
-                   mosaic=mp.experiment(n, dev))
+                   mosaic=mp.experiment(n, dev),
+                   shape_tiles=[dd.run_shape(256, 256, dd.REPS, t, n, dev)
+                                for t in dp.SHAPE_TILES])
     launches = dict(dp.launches)              # probe path ends here
     fwd_launches = fused_mlp.launches
     if min(launches.values()) < 1 or fwd_launches < 1:
         raise AssertionError(f"the probe path launched no kernel: {launches}"
                              f", fused forward {fwd_launches}")
 
-    shape_r = next(r for r in res["A"]["shapes"] if r["shape"] == [256, 256])
+    # the shape kernel at 256 rows per CTA, the tile its A/B kept (every
+    # tile's time is in probe_decomposition); mosaic chained at the
+    # forward's tile
+    shape_r = res["shape_tiles"][-1]
     scratch = {(r["operand"], r["tile"]): r["ms"] for r in res["E"]["merged"]}
     chained = next(r for r in res["mosaic"]
                    if r["tile"] == tile and r["variant"] == "chained")
     real = {r["heads"]: r["ms"] for r in res["C"]["forward"]}
+    walk = res["A"]["predicted_walk_ms"]
     log("probe_decomposition", card=card_line(), rows=n, tile=tile,
-        predicted_walk_ms_from_shapes=res["A"]["predicted_walk_ms"],
+        predicted_walk_ms_from_shapes=walk,
+        real_forward_bf16_ms=real,
+        predicted_over_real={h: walk / ms for h, ms in real.items()},
         mixed_ms=res["B"]["ms"], mixed_tflop_per_s=res["B"]["tflop_per_s"],
+        predicted_over_mixed=walk / res["B"]["ms"],
         merged_scratch_ms=scratch[("scratch", tile)],
         merged_like_for_like_ms={f"{o}_t{t}": ms
                                  for (o, t), ms in scratch.items()},
-        real_forward_bf16_ms=real)
+        shape_256x256_ms_by_tile={r["tile"]: r["ms"]
+                                  for r in res["shape_tiles"]},
+        note="A (the per-shape sum) and C (the real bf16 forward) run the "
+             "same wgmma product code (wgmma_core.cuh); B, the mixed walk, "
+             "still runs mma.sync")
     log("probe_time", card=card_line(), rows=n, experiments=res)
 
     cases = {   # kernel: (its ms, shapes, x width, out width, plain)
@@ -456,8 +475,6 @@ def phase_probes(dev):
                    lambda x, ws: dp.mosaic_plain(x, ws, "chained")),
     }
     entries = []
-    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     for name, (ms, shapes, k_in, n_out, plain) in cases.items():
         x, ws = dd.inputs(n, k_in, shapes, dev)
         with torch.no_grad():
@@ -473,14 +490,14 @@ def phase_probes(dev):
             "library_ms": library_ms})
         del x, ws
         torch.cuda.empty_cache()
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
     log("probe_kernels", card=card_line(), rows=n, tile=tile,
-        phase_s=time.perf_counter() - t0,
-        note="ms: shape (256, 256) x13, mixed, merged scratch and mosaic "
-             "chained at the row tile; max_abs_err: the worst case of "
-             "probe_check at the same rows; library: for shape one GEMM "
-             "[N, 13 x 256] @ [13 x 256, 256], else a torch.matmul / addmm "
-             "chain, bf16 in and out, fp32 sums", kernels=entries)
+        shape_tile=shape_r["tile"], phase_s=time.perf_counter() - t0,
+        note="ms: shape (256, 256) x13 at shape_tile, mixed, merged scratch "
+             "and mosaic chained at the row tile, shape and mosaic "
+             "including the pack of their weights; max_abs_err: the worst "
+             "case of probe_check at the same rows; library: for shape one "
+             "GEMM [N, 13 x 256] @ [13 x 256, 256], else a torch.matmul / "
+             "addmm chain, bf16 in and out, fp32 sums", kernels=entries)
     return launches, fwd_launches, entries
 
 

@@ -17,7 +17,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means the current CUDA device; raises without CUDA.
 
     On a CUDA device float32 matmuls are pinned to true fp32 (no TF32),
-    the counterpart of the JAX package's ``Precision.HIGHEST``.
+    the counterpart of the JAX package's ``Precision.HIGHEST``, and bf16
+    matmuls sum in fp32 (no reduced-precision reductions in cuBLAS), as
+    the JAX package's bf16 dots do.
     """
     if device is None:
         if not torch.cuda.is_available():
@@ -30,6 +32,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             raise RuntimeError(f"device {device} requested but CUDA is "
                                "not available")
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return device

@@ -13,6 +13,13 @@ other.  Every entry point takes a row tile (rows per CTA, the TPU's
 ``T``) and raises on a row count that is not a multiple of it: the TPU
 grid ``N // T`` leaves such a tail unwritten.
 
+The shape and mosaic kernels run on ``wgmma`` and read their weights as
+one stream of shared-memory slab images (``probe_stream``, the layout of
+the bf16 forward's ``fused_mlp.wgmma_image``), packed by one gather at
+every call: callers hand over raw ``[K, n]`` weights, so the pack is part
+of the kernel's time.  mixed and merged still read the raw weights
+(``mma.sync``).
+
 The plain versions multiply bf16 operands in fp32 (``torch.matmul`` on the
 operands cast to fp32, exact products) and round to bf16 exactly where the
 TPU kernel bodies do, summing in the same order.
@@ -20,14 +27,16 @@ TPU kernel bodies do, summing in the same order.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from . import build
+from .fused_mlp import SLAB_K, wgmma_image
 
 KERNEL = "dot_probe"
-TILES = (64, 128)          # rows per CTA
+TILES = (64, 128)          # rows per CTA: mixed, merged, mosaic chained / mlp
+SHAPE_TILES = (64, 128, 256)  # shape and mosaic independent (the shape code)
 CONCAT_TILES = (64,)       # [T, 384] concat operand: 304 KB of smem at 128
 WIDTHS = (128, 256, 384)
 MAX_REPS = 13              # weights of the shape probe, at most
@@ -66,6 +75,53 @@ def cost(rows: int, shapes: Sequence[Tuple[int, int]], k_in: int,
     nbytes = 2.0 * (rows * k_in + sum(k * n for k, n in shapes)) \
         + 4.0 * rows * n_out
     return flops, nbytes
+
+
+def mosaic_tiles(variant: str) -> Tuple[int, ...]:
+    """Row tiles of a mosaic variant: independent runs the shape code."""
+    return SHAPE_TILES if variant == "independent" else TILES
+
+
+def pass_width(tile: int) -> int:
+    """The widest column pass (wgmma N) of the shape and mosaic kernels at
+    a row tile: 256, or 128 at the 256-row tile (four consumer warpgroups,
+    64 accumulators a thread)."""
+    return 128 if tile == 256 else 256
+
+
+def _passes(n: int, np_max: int) -> List[Tuple[int, int]]:
+    """(first column, width) of the column passes over n output columns."""
+    return [(c0, min(np_max, n - c0)) for c0 in range(0, n, np_max)]
+
+
+def probe_stream(ws: Sequence[torch.Tensor], tile: int) -> torch.Tensor:
+    """The weights ``ws`` (each [K, n]) as the shape and mosaic kernels
+    stream them at row tile ``tile``: for each column pass, each weight,
+    each 32-row k-slab, the slab's ``wgmma_image`` (W^T rows of 64 bytes
+    in the 64-byte swizzle), in that order.  A permutation of the weights'
+    elements."""
+    out = []
+    for c0, width in _passes(ws[0].shape[1], pass_width(tile)):
+        for w in ws:
+            for k0 in range(0, w.shape[0], SLAB_K):
+                out.append(wgmma_image(w[k0:k0 + SLAB_K, c0:c0 + width]))
+    return torch.cat(out)
+
+
+_STREAM_INDEX: Dict[tuple, torch.Tensor] = {}
+
+
+def pack_stream(ws: Sequence[torch.Tensor], tile: int) -> torch.Tensor:
+    """``probe_stream(ws, tile)`` by one gather from the stacked weights,
+    its index built once per layout and device from element ids."""
+    reps, (k, n) = len(ws), tuple(ws[0].shape)
+    key = (reps, k, n, pass_width(tile), str(ws[0].device))
+    if key not in _STREAM_INDEX:
+        ids = torch.arange(reps * k * n, dtype=torch.float64).reshape(
+            reps, k, n)
+        _STREAM_INDEX[key] = probe_stream(list(ids), tile).long().to(
+            ws[0].device)
+    return torch.stack(list(ws)).reshape(-1)[_STREAM_INDEX[key]]
 
 
 # ------------------------------------------------------------ plain --
@@ -134,10 +190,10 @@ def _library() -> ctypes.CDLL:
     if lib.plnerf_probe_shape.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         PP = ctypes.POINTER(ctypes.c_void_p)
-        lib.plnerf_probe_shape.argtypes = [P, PP, I, I, I, P, L, I, P]
+        lib.plnerf_probe_shape.argtypes = [P, P, I, I, I, P, L, I, P]
         lib.plnerf_probe_mixed.argtypes = [P, PP, P, L, I, P]
         lib.plnerf_probe_merged.argtypes = [P, PP, I, P, L, I, P]
-        lib.plnerf_probe_mosaic.argtypes = [P, PP, I, P, L, I, P]
+        lib.plnerf_probe_mosaic.argtypes = [P, P, I, P, L, I, P]
         for fn in (lib.plnerf_probe_shape, lib.plnerf_probe_mixed,
                    lib.plnerf_probe_merged, lib.plnerf_probe_mosaic):
             fn.restype = ctypes.c_int
@@ -168,7 +224,7 @@ def _prepare(name: str, x: torch.Tensor, ws: Sequence[torch.Tensor],
              shapes: Sequence[Tuple[int, int]], n_out: int, tile: int,
              tiles=TILES):
     """Checks x, the weights and the tile; returns (out [rows, n_out]
-    fp32, the weights' device pointers as a C array, the stream)."""
+    fp32, the stream)."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"{name}_cuda needs CUDA tensors, got {dev}")
@@ -179,8 +235,12 @@ def _prepare(name: str, x: torch.Tensor, ws: Sequence[torch.Tensor],
     for i, (w, s) in enumerate(zip(ws, shapes)):
         _check(w, f"w[{i}]", s, dev)
     out = torch.empty(x.shape[0], n_out, dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws])
-    return out, ptrs, torch.cuda.current_stream(dev).cuda_stream
+    return out, torch.cuda.current_stream(dev).cuda_stream
+
+
+def _pointers(ws: Sequence[torch.Tensor]):
+    """The weights' device pointers as a C array (mixed, merged)."""
+    return (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws])
 
 
 def _count(name: str, rc: int) -> None:
@@ -204,28 +264,31 @@ def _shape_of(ws: Sequence[torch.Tensor]) -> Tuple[int, int]:
 def shape_cuda(x: torch.Tensor, ws: Sequence[torch.Tensor],
                tile: int) -> torch.Tensor:
     k, n = _shape_of(ws)
-    out, ptrs, stream = _prepare("shape", x, ws, [(k, n)] * len(ws), n, tile)
+    out, stream = _prepare("shape", x, ws, [(k, n)] * len(ws), n, tile,
+                           SHAPE_TILES)
+    w = pack_stream(ws, tile)
     _count("shape", _library().plnerf_probe_shape(
-        x.data_ptr(), ptrs, len(ws), k, n, out.data_ptr(), x.shape[0], tile,
-        stream))
+        x.data_ptr(), w.data_ptr(), len(ws), k, n, out.data_ptr(),
+        x.shape[0], tile, stream))
     return out
 
 
 def mixed_cuda(x: torch.Tensor, ws: Sequence[torch.Tensor],
                tile: int) -> torch.Tensor:
-    out, ptrs, stream = _prepare("mixed", x, ws, MIXED_SHAPES, 256, tile)
+    out, stream = _prepare("mixed", x, ws, MIXED_SHAPES, 256, tile)
     _count("mixed", _library().plnerf_probe_mixed(
-        x.data_ptr(), ptrs, out.data_ptr(), x.shape[0], tile, stream))
+        x.data_ptr(), _pointers(ws), out.data_ptr(), x.shape[0], tile,
+        stream))
     return out
 
 
 def merged_cuda(x: torch.Tensor, ws: Sequence[torch.Tensor], tile: int,
                 use_concat: bool = False) -> torch.Tensor:
-    out, ptrs, stream = _prepare("merged", x, ws, MERGED_SHAPES, 256, tile,
-                                 CONCAT_TILES if use_concat else TILES)
+    out, stream = _prepare("merged", x, ws, MERGED_SHAPES, 256, tile,
+                           CONCAT_TILES if use_concat else TILES)
     _count("merged", _library().plnerf_probe_merged(
-        x.data_ptr(), ptrs, int(use_concat), out.data_ptr(), x.shape[0],
-        tile, stream))
+        x.data_ptr(), _pointers(ws), int(use_concat), out.data_ptr(),
+        x.shape[0], tile, stream))
     return out
 
 
@@ -234,9 +297,11 @@ def mosaic_cuda(x: torch.Tensor, ws: Sequence[torch.Tensor], tile: int,
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} not in {VARIANTS}")
     shapes = [(MOSAIC_WIDTH, MOSAIC_WIDTH)] * MOSAIC_DEPTH
-    out, ptrs, stream = _prepare("mosaic", x, ws, shapes, MOSAIC_WIDTH, tile)
+    out, stream = _prepare("mosaic", x, ws, shapes, MOSAIC_WIDTH, tile,
+                           mosaic_tiles(variant))
+    w = pack_stream(ws, tile)
     _count("mosaic", _library().plnerf_probe_mosaic(
-        x.data_ptr(), ptrs, VARIANTS.index(variant), out.data_ptr(),
+        x.data_ptr(), w.data_ptr(), VARIANTS.index(variant), out.data_ptr(),
         x.shape[0], tile, stream))
     return out
 
@@ -253,7 +318,7 @@ def _on_cpu(x: torch.Tensor, tile: int, tiles=TILES) -> bool:
 def run_shape(x: torch.Tensor, ws: Sequence[torch.Tensor],
               tile: int) -> torch.Tensor:
     """out[N, n] = sum_i x @ ws[i]: x [N, K] bf16, ws[i] [K, n] bf16."""
-    if _on_cpu(x, tile):
+    if _on_cpu(x, tile, SHAPE_TILES):
         _shape_of(ws)
         return shape_plain(x, ws)
     return shape_cuda(x, ws, tile)
@@ -283,6 +348,6 @@ def run_mosaic(x: torch.Tensor, ws: Sequence[torch.Tensor], tile: int,
     """13 [T, 256] @ [256, 256] dots: x [N, 256], out [N, 256]."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} not in {VARIANTS}")
-    if _on_cpu(x, tile):
+    if _on_cpu(x, tile, mosaic_tiles(variant)):
         return mosaic_plain(x, ws, variant)
     return mosaic_cuda(x, ws, tile, variant)

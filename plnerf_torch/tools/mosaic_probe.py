@@ -6,11 +6,13 @@
 
 Kernels that do nothing but 13 [T, 256] @ [256, 256] bf16 dots per row
 tile (fp32 sums) on one weight set, at N = 8192 x 321 rows to match the
-NeRF forward's work, at every row tile the kernel takes.  Variants: (a)
+NeRF forward's work, at every row tile the kernel takes (independent,
+the shape kernel at (256, 256) x 13, also at 256).  Variants: (a)
 ``chained``, a dependency chain like the MLP's; (b) ``independent``, 13
 dots of x summed; (c) ``mlp``, chained with +0.01 and relu between dots
 (the MLP's per-layer op).  On the TPU the weights were resident in VMEM;
-here each CTA streams them from L2 through shared memory.
+here each CTA streams them from L2 through shared memory.  Times include
+the wrapper's pack of the weights into the kernel's stream.
 
 ``experiment(n_rows, device)`` returns one dict per tile and variant.  On
 a CUDA device times are CUDA-event medians; with ``device="cpu"`` the
@@ -32,7 +34,6 @@ from . import dot_decompose
 N = 8192 * 321
 D = dot_probe.MOSAIC_DEPTH      # dots per tile pass (~ the MLP's count)
 W = dot_probe.MOSAIC_WIDTH
-TILES = dot_probe.TILES
 
 
 def inputs(n_rows: int, device: torch.device, seed: int = 0):
@@ -49,8 +50,10 @@ def experiment(n_rows: int, device: DeviceLike) -> List[dict]:
     x, ws = inputs(n_rows, device)
     flops = 2.0 * n_rows * W * W * D
     out = []
-    for tile in TILES:
+    for tile in dot_probe.SHAPE_TILES:
         for variant in dot_probe.VARIANTS:
+            if tile not in dot_probe.mosaic_tiles(variant):
+                continue
             ms = timed_ms(lambda: run(x, ws, variant, tile), device,
                           5 if device.type == "cuda" else 1)
             out.append({"tile": tile, "variant": variant, "ms": ms,

@@ -120,6 +120,113 @@ def test_mosaic_matches_tpu_kernel(variant):
            SUMS if variant == "independent" else RECAST)
 
 
+def _shape_schedule(x, ws):
+    """shape_kernel's summation order: one fp32 accumulator over every
+    32-row k-slab of every weight, in stream order."""
+    acc = torch.zeros(x.shape[0], ws[0].shape[1])
+    for w in ws:
+        for k0 in range(0, w.shape[0], 32):
+            acc = acc + torch.matmul(x[:, k0:k0 + 32].float(),
+                                     w[k0:k0 + 32].float())
+    return acc
+
+
+def _mosaic_schedule(x, ws, variant):
+    """mosaic_kernel's order for chained and mlp: each dot's accumulators
+    start at 0 (chained) or 0.01 (mlp), sum its 32-row k-slabs in fp32,
+    round to bf16 and, for mlp, take max(v, 0) after the rounding; the
+    last dot's result stays fp32 (mlp: max(v, 0))."""
+    if variant == "independent":
+        return _shape_schedule(x, ws)
+    start = 0.01 if variant == "mlp" else 0.0
+    h = x
+    for i, w in enumerate(ws):
+        acc = torch.full((x.shape[0], w.shape[1]), start)
+        for k0 in range(0, w.shape[0], 32):
+            acc = acc + torch.matmul(h[:, k0:k0 + 32].float(),
+                                     w[k0:k0 + 32].float())
+        if variant == "mlp":
+            acc = torch.where(acc < 0, torch.zeros_like(acc), acc)
+        h = acc if i + 1 == len(ws) else acc.to(torch.bfloat16)
+    return h
+
+
+@pytest.mark.parametrize("k,n", SHAPES, ids=[f"{k}x{n}" for k, n in SHAPES])
+def test_shape_schedule_matches_plain_and_tpu_kernel(k, n):
+    x, ws, jx, jws = _inputs(k, [(k, n)] * 13, seed=k + n)
+    got = _shape_schedule(x, ws)
+    _close(got, dot_probe.shape_plain(x, ws).numpy(), SUMS)
+    _close(got, _pallas(JDD.make_shape_kernel(k, n, 13), jx, jws, n), SUMS)
+
+
+@pytest.mark.parametrize("variant", dot_probe.VARIANTS)
+def test_mosaic_schedule_matches_plain_and_tpu_kernel(variant):
+    x, ws, jx, jws = _inputs(256, [(256, 256)] * 13, seed=3)
+    tol = SUMS if variant == "independent" else RECAST
+    got = _mosaic_schedule(x, ws, variant)
+    _close(got, dot_probe.mosaic_plain(x, ws, variant).numpy(), tol)
+    _close(got, _pallas(JMP.make_kernel(variant), jx, jws, 256), tol)
+
+
+def _sw64(n, k):
+    """Element offset of B[n][k] in a K-major slab image of 32-value rows
+    (64 bytes) in the wgmma 64-byte swizzle: byte address bits [4, 6) XOR
+    bits [7, 9) (CUTLASS Swizzle<2, 4, 3>)."""
+    addr = n * 64 + k * 2
+    return (addr ^ (((addr >> 7) & 3) << 4)) // 2
+
+
+@pytest.mark.parametrize("tile", dot_probe.SHAPE_TILES)
+@pytest.mark.parametrize("k,n", [(256, 256), (128, 384), (384, 128)],
+                         ids=["256x256", "128x384", "384x128"])
+def test_probe_stream_order(tile, k, n):
+    """The shape and mosaic kernels read their weights as one stream of
+    slab images: per column pass (256 columns, 128 at tile 256; n = 384 as
+    256 + 128), weight and 32-row k-slab, the slab's [32, NP] values
+    transposed into NP rows of 32 in the 64-byte swizzle.  Named elements
+    land where the kernel reads them, and the one-gather pack agrees."""
+    reps = 3
+    ids = torch.arange(reps * k * n, dtype=torch.float64).reshape(reps, k, n)
+    flat = dot_probe.probe_stream(list(ids), tile)
+    assert torch.equal(flat.sort().values, torch.arange(reps * k * n,
+                                                        dtype=torch.float64))
+    np_max = 128 if tile == 256 else 256
+    for i, kk, nn in [(0, 0, 0), (0, 1, 5), (1, 33, 2), (2, k - 1, n - 1),
+                      (1, 100, n // 2 + 3), (2, 31, min(130, n - 1))]:
+        c0 = nn // np_max * np_max
+        width = min(np_max, n - c0)
+        pos = (c0 * k * reps                        # earlier passes
+               + (i * (k // 32) + kk // 32) * width * 32
+               + _sw64(nn - c0, kk % 32))
+        assert flat[pos] == ids[i, kk, nn], (i, kk, nn)
+    ws = [torch.randn(k, n).to(torch.bfloat16) for _ in range(reps)]
+    assert torch.equal(dot_probe.pack_stream(ws, tile),
+                       dot_probe.probe_stream(ws, tile))
+
+
+def test_row_tile_256():
+    """Tile 256 (four consumer warpgroups) is a tile of shape and mosaic
+    independent, which run the shape code; chained and mlp keep 64 and
+    128 (their activation tile is overwritten in place, so a layer's 256
+    columns must sit in registers: 128 a thread, too many for 544
+    threads).  Ragged rows raise at tile 256 as at every tile."""
+    x, ws = dot_decompose.inputs(512, 256, [(256, 256)] * 13, "cpu")
+    assert torch.equal(dot_probe.run_shape(x, ws, 256),
+                       dot_probe.shape_plain(x, ws))
+    assert torch.equal(mosaic_probe.run(x, ws, "independent", 256),
+                       dot_probe.shape_plain(x, ws))
+    for variant in ("chained", "mlp"):
+        with pytest.raises(ValueError, match="row tile 256"):
+            mosaic_probe.run(x, ws, variant, 256)
+    with pytest.raises(ValueError, match="multiple of the row tile"):
+        dot_probe.run_shape(x[:384], ws, 256)
+    with pytest.raises(ValueError, match="multiple of the row tile"):
+        mosaic_probe.run(x[:384], ws, "independent", 256)
+    with pytest.raises(ValueError, match="row tile 256"):
+        dot_probe.run_mixed(*dot_decompose.inputs(
+            512, 128, dot_probe.MIXED_SHAPES, "cpu"), 256)
+
+
 def _broken_mlp_chain(x, ws, bias, no_relu_at):
     h = x
     for i, w in enumerate(ws):
@@ -202,5 +309,8 @@ def test_dot_decompose_runs_on_cpu():
 def test_mosaic_probe_runs_on_cpu():
     out = mosaic_probe.main(["--device", "cpu", "--rows", "256"])
     assert [(r["tile"], r["variant"]) for r in out] == [
-        (t, v) for t in dot_probe.TILES for v in dot_probe.VARIANTS]
+        (t, v) for t in dot_probe.SHAPE_TILES for v in dot_probe.VARIANTS
+        if t in dot_probe.mosaic_tiles(v)]
+    assert [(r["tile"], r["variant"]) for r in out][-1] == \
+        (256, "independent")
     assert all(r["ms"] > 0 for r in out)

@@ -277,6 +277,36 @@ def test_cuda_autograd_matches_cpu(cuda_device, fold):
         _assert_rel_l2(a.cpu(), b, 1e-4, f"grad {i}")
 
 
+@pytest.mark.parametrize("reduced", [True, False],
+                         ids=["reduced_on", "reduced_off"])
+def test_cuda_apply_mlp_bf16_matches_cpu(cuda_device, reduced):
+    """The unfused bf16 MLP (``apply_mlp``: cuBLAS bf16 hidden layers) on
+    the card against the CPU at the bf16 tolerance, 2e-2 x max(1,
+    max|raw|), with cuBLAS allowed and not allowed to reduce bf16 sums in
+    reduced precision; ``resolve_device`` turns it off."""
+    from plnerf_torch.core.mlp import apply_mlp
+    from plnerf_torch.device import resolve_device
+
+    resolve_device(cuda_device)
+    matmul = torch.backends.cuda.matmul
+    assert not matmul.allow_bf16_reduced_precision_reduction
+    cfg = ModelConfig()
+    m, pe, ve, _ = _inputs(cfg, False, torch.float32, cuda_device, R=64,
+                           S=64)
+    mc = NeRF(cfg, torch.Generator().manual_seed(0), device="cpu")
+    mc.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+    matmul.allow_bf16_reduced_precision_reduction = reduced
+    try:
+        with torch.no_grad():
+            ref = apply_mlp(mc, pe.cpu(), ve.cpu(), cfg, torch.bfloat16)
+            got = apply_mlp(m, pe, ve, cfg, torch.bfloat16)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = False
+    ref, got = ref.float(), got.float().cpu()
+    err = float((got - ref).abs().max())
+    assert err <= 2e-2 * max(1.0, float(ref.abs().max())), err
+
+
 # ------------------------------------------------ dot-walk probes --
 
 PROBE_SHAPES = [(128, 256), (256, 256), (256, 384), (256, 128), (128, 128),
@@ -295,7 +325,7 @@ def _probe_inputs(dev, k, shapes, rows=256):
 #        tolerance x max|ref|, row tiles)
 PROBES = {
     **{f"shape_{k}x{n}": (k, [(k, n)] * 13, dot_probe.shape_cuda,
-                          dot_probe.shape_plain, 1e-5, dot_probe.TILES)
+                          dot_probe.shape_plain, 1e-5, dot_probe.SHAPE_TILES)
        for k, n in PROBE_SHAPES},
     "mixed": (128, dot_probe.MIXED_SHAPES, dot_probe.mixed_cuda,
               dot_probe.mixed_plain, 2e-2, dot_probe.TILES),
@@ -308,20 +338,17 @@ PROBES = {
                        lambda x, ws, t, v=v: dot_probe.mosaic_cuda(x, ws, t,
                                                                    v),
                        lambda x, ws, v=v: dot_probe.mosaic_plain(x, ws, v),
-                       1e-5 if v == "independent" else 2e-2, dot_probe.TILES)
+                       1e-5 if v == "independent" else 2e-2,
+                       dot_probe.mosaic_tiles(v))
        for v in dot_probe.VARIANTS},
 }
 PROBE_CASES = [(name, tile) for name, case in PROBES.items()
                for tile in case[5]]
 
 
-@pytest.mark.parametrize("name,tile", PROBE_CASES,
-                         ids=[f"{n}_t{t}" for n, t in PROBE_CASES])
-def test_cuda_probe_matches_plain_and_repeats(cuda_device, name, tile):
-    """Each probe kernel against its plain version at 256 rows, and two
-    calls bit-identical (no atomics, a fixed summation order)."""
+def _hold_probe(name, tile, rows):
     k, shapes, kernel, plain, tol, _ = PROBES[name]
-    x, ws = _probe_inputs(cuda_device, k, shapes)
+    x, ws = _probe_inputs(torch.device("cuda"), k, shapes, rows)
     key = name.split("_")[0]
     before = dot_probe.launches[key]
     got = kernel(x, ws, tile)
@@ -332,6 +359,30 @@ def test_cuda_probe_matches_plain_and_repeats(cuda_device, name, tile):
     assert torch.equal(got, again)
     err = float((got - ref).abs().max())
     assert err <= tol * float(ref.abs().max()), err
+
+
+@pytest.mark.parametrize("name,tile", PROBE_CASES,
+                         ids=[f"{n}_t{t}" for n, t in PROBE_CASES])
+def test_cuda_probe_matches_plain_and_repeats(cuda_device, name, tile):
+    """Each probe kernel against its plain version at 256 rows, and two
+    calls bit-identical (no atomics, a fixed summation order)."""
+    _hold_probe(name, tile, 256)
+
+
+# more CTAs than one wave on 132 SMs at every tile (one CTA per SM)
+WAVE_ROWS = 256 * 140
+WAVE_CASES = [(name, tile) for name in ("shape_256x256", "shape_384x128",
+                                        "mosaic_chained", "mosaic_mlp",
+                                        "mosaic_independent")
+              for tile in PROBES[name][5]]
+
+
+@pytest.mark.parametrize("name,tile", WAVE_CASES,
+                         ids=[f"{n}_t{t}" for n, t in WAVE_CASES])
+def test_cuda_probe_past_one_wave(cuda_device, name, tile):
+    """The wgmma probes at 35,840 rows (140 to 560 CTAs): every CTA's
+    rows, ring and barriers, against the plain version, twice."""
+    _hold_probe(name, tile, WAVE_ROWS)
 
 
 @pytest.mark.parametrize("name", list(PROBES))
