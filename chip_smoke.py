@@ -27,7 +27,7 @@ Phases, one line each, then the result line:
            mosaic_probe and shape (256, 256) x13 at every row tile it takes
            at 2,629,632 rows, with the kernels' launch counters set to 0
            before and read after; the decomposition (A's predicted walk
-           beside C, both on wgmma, and beside B, still mma.sync); and
+           beside B and C, all three on one wgmma product code); and
            each kernel's plain-version and cuBLAS times beside the bound
            (cuBLAS bf16 sums in fp32: resolve_device turns its
            reduced-precision reductions off).
@@ -460,9 +460,8 @@ def phase_probes(dev):
                                  for (o, t), ms in scratch.items()},
         shape_256x256_ms_by_tile={r["tile"]: r["ms"]
                                   for r in res["shape_tiles"]},
-        note="A (the per-shape sum) and C (the real bf16 forward) run the "
-             "same wgmma product code (wgmma_core.cuh); B, the mixed walk, "
-             "still runs mma.sync")
+        note="A (the per-shape sum), B (the mixed walk) and C (the real "
+             "bf16 forward) run one wgmma product code (wgmma_core.cuh)")
     log("probe_time", card=card_line(), rows=n, experiments=res)
 
     cases = {   # kernel: (its ms, shapes, x width, out width, plain)

@@ -13,12 +13,12 @@ other.  Every entry point takes a row tile (rows per CTA, the TPU's
 ``T``) and raises on a row count that is not a multiple of it: the TPU
 grid ``N // T`` leaves such a tail unwritten.
 
-The shape and mosaic kernels run on ``wgmma`` and read their weights as
-one stream of shared-memory slab images (``probe_stream``, the layout of
-the bf16 forward's ``fused_mlp.wgmma_image``), packed by one gather at
-every call: callers hand over raw ``[K, n]`` weights, so the pack is part
-of the kernel's time.  mixed and merged still read the raw weights
-(``mma.sync``).
+All four kernels run on ``wgmma`` and read their weights as one stream
+of shared-memory slab images (the layout of the bf16 forward's
+``fused_mlp.wgmma_image``) in the order they consume them:
+``probe_stream`` for shape and mosaic, ``walk_stream`` for mixed and
+merged, each packed by one cached gather at every call.  Callers hand
+over raw ``[K, n]`` weights, so the pack is part of the kernel's time.
 
 The plain versions multiply bf16 operands in fp32 (``torch.matmul`` on the
 operands cast to fp32, exact products) and round to bf16 exactly where the
@@ -37,7 +37,7 @@ from .fused_mlp import SLAB_K, wgmma_image
 KERNEL = "dot_probe"
 TILES = (64, 128)          # rows per CTA: mixed, merged, mosaic chained / mlp
 SHAPE_TILES = (64, 128, 256)  # shape and mosaic independent (the shape code)
-CONCAT_TILES = (64,)       # [T, 384] concat operand: 304 KB of smem at 128
+CONCAT_TILES = (64,)       # x, h and cat tiles: 192 KB of smem at 128
 WIDTHS = (128, 256, 384)
 MAX_REPS = 13              # weights of the shape probe, at most
 # the forward's 13-dot walk (tools/dot_decompose.py run_mixed)
@@ -108,20 +108,65 @@ def probe_stream(ws: Sequence[torch.Tensor], tile: int) -> torch.Tensor:
     return torch.cat(out)
 
 
+# The walks' column passes in the kernels' order (csrc/dot_probe.cu WALK):
+# (weights summed into one accumulator, first column, width, out column
+# or None for a pass kept in the activation tile as bf16).  A product's
+# columns bound for out (the head's alpha block) go before its kept pass.
+# mixed's skip and views layers are two-term products taken h term first,
+# so that each reads the tile's columns 0..383 ([h | x]) as merged's one
+# [T, 384] product does.
+_LAYERS = [((i,), 0, 256, None) for i in range(5)]
+WALKS = {
+    "mixed": _LAYERS + [((6, 5), 0, 256, None), ((7,), 0, 256, None),
+                        ((8,), 0, 256, None), ((9,), 256, 128, 128),
+                        ((9,), 0, 256, None), ((10, 11), 0, 128, None),
+                        ((12,), 0, 128, 0)],
+    "merged": _LAYERS + [((5,), 0, 256, None), ((6,), 0, 256, None),
+                         ((7,), 0, 256, None), ((8,), 256, 128, 128),
+                         ((8,), 0, 256, None), ((9,), 0, 128, None),
+                         ((10,), 0, 128, 0)],
+}
+
+
+def walk_stream(ws: Sequence[torch.Tensor], walk: str) -> torch.Tensor:
+    """The weights ``ws`` of walk ``walk`` ("mixed" or "merged") as its
+    kernel streams them: for each pass of ``WALKS[walk]``, each weight
+    summed, each 32-row k-slab, the ``wgmma_image`` of the slab's columns
+    of the pass, in that order.  The same at every row tile (no pass is
+    wider than 256 columns).  A permutation of the weights' elements."""
+    out = []
+    for terms, c0, width, _ in WALKS[walk]:
+        for i in terms:
+            for k0 in range(0, ws[i].shape[0], SLAB_K):
+                out.append(wgmma_image(ws[i][k0:k0 + SLAB_K, c0:c0 + width]))
+    return torch.cat(out)
+
+
 _STREAM_INDEX: Dict[tuple, torch.Tensor] = {}
 
 
-def pack_stream(ws: Sequence[torch.Tensor], tile: int) -> torch.Tensor:
-    """``probe_stream(ws, tile)`` by one gather from the stacked weights,
-    its index built once per layout and device from element ids."""
-    reps, (k, n) = len(ws), tuple(ws[0].shape)
-    key = (reps, k, n, pass_width(tile), str(ws[0].device))
+def _gather(ws: Sequence[torch.Tensor], key: tuple, layout) -> torch.Tensor:
+    """``layout(ws)`` by one gather from the weights laid end to end, its
+    index built once per ``key`` and device from element ids."""
+    key = key + (str(ws[0].device),)
     if key not in _STREAM_INDEX:
-        ids = torch.arange(reps * k * n, dtype=torch.float64).reshape(
-            reps, k, n)
-        _STREAM_INDEX[key] = probe_stream(list(ids), tile).long().to(
-            ws[0].device)
-    return torch.stack(list(ws)).reshape(-1)[_STREAM_INDEX[key]]
+        ids = torch.arange(sum(w.numel() for w in ws), dtype=torch.float64)
+        parts = ids.split([w.numel() for w in ws])
+        _STREAM_INDEX[key] = layout(
+            [p.reshape(w.shape) for p, w in zip(parts, ws)]).long().to(
+                ws[0].device)
+    return torch.cat([w.reshape(-1) for w in ws])[_STREAM_INDEX[key]]
+
+
+def pack_stream(ws: Sequence[torch.Tensor], tile: int) -> torch.Tensor:
+    """``probe_stream(ws, tile)`` by one gather."""
+    return _gather(ws, ("probe", len(ws), *ws[0].shape, pass_width(tile)),
+                   lambda p: probe_stream(p, tile))
+
+
+def pack_walk(ws: Sequence[torch.Tensor], walk: str) -> torch.Tensor:
+    """``walk_stream(ws, walk)`` by one gather."""
+    return _gather(ws, ("walk", walk), lambda p: walk_stream(p, walk))
 
 
 # ------------------------------------------------------------ plain --
@@ -189,10 +234,9 @@ def _library() -> ctypes.CDLL:
     lib = build.load(KERNEL)
     if lib.plnerf_probe_shape.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        PP = ctypes.POINTER(ctypes.c_void_p)
         lib.plnerf_probe_shape.argtypes = [P, P, I, I, I, P, L, I, P]
-        lib.plnerf_probe_mixed.argtypes = [P, PP, P, L, I, P]
-        lib.plnerf_probe_merged.argtypes = [P, PP, I, P, L, I, P]
+        lib.plnerf_probe_mixed.argtypes = [P, P, L, P, L, I, P]
+        lib.plnerf_probe_merged.argtypes = [P, P, L, I, P, L, I, P]
         lib.plnerf_probe_mosaic.argtypes = [P, P, I, P, L, I, P]
         for fn in (lib.plnerf_probe_shape, lib.plnerf_probe_mixed,
                    lib.plnerf_probe_merged, lib.plnerf_probe_mosaic):
@@ -238,11 +282,6 @@ def _prepare(name: str, x: torch.Tensor, ws: Sequence[torch.Tensor],
     return out, torch.cuda.current_stream(dev).cuda_stream
 
 
-def _pointers(ws: Sequence[torch.Tensor]):
-    """The weights' device pointers as a C array (mixed, merged)."""
-    return (ctypes.c_void_p * len(ws))(*[w.data_ptr() for w in ws])
-
-
 def _count(name: str, rc: int) -> None:
     if rc != 0:
         msg = _library().plnerf_probe_error_string(rc).decode()
@@ -276,9 +315,10 @@ def shape_cuda(x: torch.Tensor, ws: Sequence[torch.Tensor],
 def mixed_cuda(x: torch.Tensor, ws: Sequence[torch.Tensor],
                tile: int) -> torch.Tensor:
     out, stream = _prepare("mixed", x, ws, MIXED_SHAPES, 256, tile)
+    w = pack_walk(ws, "mixed")
     _count("mixed", _library().plnerf_probe_mixed(
-        x.data_ptr(), _pointers(ws), out.data_ptr(), x.shape[0], tile,
-        stream))
+        x.data_ptr(), w.data_ptr(), w.numel() * 2, out.data_ptr(),
+        x.shape[0], tile, stream))
     return out
 
 
@@ -286,9 +326,10 @@ def merged_cuda(x: torch.Tensor, ws: Sequence[torch.Tensor], tile: int,
                 use_concat: bool = False) -> torch.Tensor:
     out, stream = _prepare("merged", x, ws, MERGED_SHAPES, 256, tile,
                            CONCAT_TILES if use_concat else TILES)
+    w = pack_walk(ws, "merged")
     _count("merged", _library().plnerf_probe_merged(
-        x.data_ptr(), _pointers(ws), int(use_concat), out.data_ptr(),
-        x.shape[0], tile, stream))
+        x.data_ptr(), w.data_ptr(), w.numel() * 2, int(use_concat),
+        out.data_ptr(), x.shape[0], tile, stream))
     return out
 
 

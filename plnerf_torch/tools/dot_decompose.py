@@ -31,7 +31,9 @@ Experiments, at N_ROWS = 8192 x 321 rows unless ``--rows``:
 
 If B ~= sum(A) ~= C, the gap to the bound is the per-shape rate of the
 product code; if B >> sum(A), switching between shapes costs; if C >> B,
-what the real kernel adds (bias, relu, heads, stores) costs.
+what the real kernel adds (bias, relu, heads, stores) costs.  A, B, C and
+E run one product code (``wgmma``, ``kernels/csrc/wgmma_core.cuh``), so
+they compare like with like.
 
 Dropped from the TPU tool, with no counterpart here: the SIGALRM watchdog
 (its ``bench``), which skipped an experiment when the TPU's remote relay

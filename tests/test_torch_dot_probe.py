@@ -11,6 +11,7 @@ independent), 2e-2 where it rounds to bf16 between dots (one flipped
 rounding moves a value by 2^-8 and travels down the chain)."""
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
@@ -168,6 +169,61 @@ def test_mosaic_schedule_matches_plain_and_tpu_kernel(variant):
     _close(got, _pallas(JMP.make_kernel(variant), jx, jws, 256), tol)
 
 
+def _walk_schedule(x, ws, walk):
+    """walk_kernel's order: one [rows, 384] bf16 activation tile, h in
+    columns 0..255 and x in 256..383 (the first pass reads x, every other
+    pass the tile from column 0); each pass of ``WALKS[walk]`` sums every
+    32-row k-slab of its weights, in stream order, into one fp32
+    accumulator; a kept pass rounds to bf16 into the tile's first
+    columns, in place; the alpha block and rgb go to out as fp32.  concat
+    copies h and x unchanged, so both operand modes share this order."""
+    tile = torch.zeros(x.shape[0], 384, dtype=torch.bfloat16)
+    tile[:, 256:] = x
+    out = torch.zeros(x.shape[0], 256)
+    for p, (terms, c0, width, out_col) in enumerate(dot_probe.WALKS[walk]):
+        col = 256 if p == 0 else 0
+        acc = torch.zeros(x.shape[0], width)
+        for i in terms:
+            w = ws[i]
+            for k0 in range(0, w.shape[0], 32):
+                acc = acc + torch.matmul(
+                    tile[:, col + k0:col + k0 + 32].float(),
+                    w[k0:k0 + 32, c0:c0 + width].float())
+            col += w.shape[0]
+        if out_col is None:
+            tile[:, :width] = acc.to(torch.bfloat16)
+        else:
+            out[:, out_col:out_col + width] = acc
+    return out
+
+
+WALK_SHAPES = {"mixed": dot_probe.MIXED_SHAPES,
+               "merged": dot_probe.MERGED_SHAPES}
+SCRATCH = [pltpu.VMEM((TILE, 384), jnp.bfloat16)]
+# case: (walk, seed, TPU kernel, its scratch, plain version)
+WALK_CASES = {
+    "mixed": ("mixed", 1, lambda: JDD.make_mixed_kernel(), (),
+              dot_probe.mixed_plain),
+    "merged_scratch": ("merged", 2, lambda: JDD.make_merged_kernel(False),
+                       SCRATCH, dot_probe.merged_plain),
+    "merged_concat": ("merged", 2, lambda: JDD.make_merged_kernel(True),
+                      SCRATCH, dot_probe.merged_plain),
+}
+
+
+@pytest.mark.parametrize("case", list(WALK_CASES))
+def test_walk_schedule_matches_plain_and_tpu_kernel(case):
+    """The walk kernels sum a two-term product (mixed's skip and views) in
+    one accumulator, h term first, where the TPU kernel adds two dots:
+    another fp32 order, held within the recast tolerance."""
+    walk, seed, kernel, scratch, plain = WALK_CASES[case]
+    shapes = WALK_SHAPES[walk]
+    x, ws, jx, jws = _inputs(128, shapes, seed)
+    got = _walk_schedule(x, ws, walk)
+    _close(got, plain(x, ws).numpy(), RECAST)
+    _close(got, _pallas(kernel(), jx, jws, 256, scratch), RECAST)
+
+
 def _sw64(n, k):
     """Element offset of B[n][k] in a K-major slab image of 32-value rows
     (64 bytes) in the wgmma 64-byte swizzle: byte address bits [4, 6) XOR
@@ -202,6 +258,67 @@ def test_probe_stream_order(tile, k, n):
     ws = [torch.randn(k, n).to(torch.bfloat16) for _ in range(reps)]
     assert torch.equal(dot_probe.pack_stream(ws, tile),
                        dot_probe.probe_stream(ws, tile))
+
+
+WALK_ELEMENTS = {  # (weight, k row, column) named in the layout test
+    "mixed": [(0, 0, 0), (0, 127, 255), (3, 200, 31), (6, 33, 2),
+              (5, 100, 200), (9, 5, 300), (9, 255, 0), (10, 40, 127),
+              (11, 127, 64), (12, 127, 127)],
+    "merged": [(0, 0, 0), (4, 255, 128), (5, 300, 17), (5, 383, 255),
+               (8, 31, 383), (8, 200, 255), (9, 383, 1), (10, 64, 100)],
+}
+
+
+@pytest.mark.parametrize("tile", dot_probe.TILES)
+@pytest.mark.parametrize("walk", list(dot_probe.WALKS))
+def test_walk_stream_order(walk, tile):
+    """mixed and merged read their weights as one stream: per pass of
+    ``WALKS[walk]`` (none wider than the tile's widest pass, so the stream
+    is the same at both tiles), weight and 32-row k-slab, the slab's
+    [32, width] values transposed into width rows of 32 in the 64-byte
+    swizzle.  Named elements land where the kernel reads them, and the
+    one-gather pack agrees."""
+    shapes = WALK_SHAPES[walk]
+    assert max(p[2] for p in dot_probe.WALKS[walk]) <= \
+        dot_probe.pass_width(tile)
+    sizes = [k * n for k, n in shapes]
+    ids = [p.reshape(s) for p, s in zip(
+        torch.arange(sum(sizes), dtype=torch.float64).split(sizes), shapes)]
+    flat = dot_probe.walk_stream(ids, walk)
+    assert torch.equal(flat.sort().values,
+                       torch.arange(sum(sizes), dtype=torch.float64))
+    assert flat.numel() * 2 == 1376256   # csrc/dot_probe.cu walk_bytes()
+    for i, kk, nn in WALK_ELEMENTS[walk]:
+        pos = 0
+        for terms, c0, width, _ in dot_probe.WALKS[walk]:
+            if i in terms and c0 <= nn < c0 + width:
+                pos += sum(shapes[t][0] for t in terms[:terms.index(i)]) \
+                    * width
+                pos += kk // 32 * width * 32 + _sw64(nn - c0, kk % 32)
+                break
+            pos += sum(shapes[t][0] for t in terms) * width
+        assert flat[pos] == ids[i][kk, nn], (i, kk, nn)
+    ws = [torch.randn(*s).to(torch.bfloat16) for s in shapes]
+    assert torch.equal(dot_probe.pack_walk(ws, walk),
+                       dot_probe.walk_stream(ws, walk))
+
+
+def test_walk_table_matches_the_kernel_source():
+    """``WALKS`` mirrors csrc/dot_probe.cu's WALK, pass by pass: the A
+    operand (x for the first pass, then h, or [h | x] for 384 columns),
+    its 32-column chunks, the width and the out column (-1: kept)."""
+    with open(os.path.join(REPO, "plnerf_torch", "kernels", "csrc",
+                           "dot_probe.cu")) as f:
+        src = f.read()
+    rows = [(s, int(c), int(n), int(o)) for s, c, n, o in re.findall(
+        r"\{SRC_(\w+), (\d+), (\d+), (-?\d+)\}", src)]
+    for walk, shapes in WALK_SHAPES.items():
+        want = []
+        for p, (terms, _, width, out_col) in enumerate(dot_probe.WALKS[walk]):
+            k = sum(shapes[t][0] for t in terms)
+            want.append(("X" if p == 0 else "CAT" if k == 384 else "H",
+                         k // 32, width, -1 if out_col is None else out_col))
+        assert rows == want, walk
 
 
 def test_row_tile_256():

@@ -372,16 +372,17 @@ def test_cuda_probe_matches_plain_and_repeats(cuda_device, name, tile):
 # more CTAs than one wave on 132 SMs at every tile (one CTA per SM)
 WAVE_ROWS = 256 * 140
 WAVE_CASES = [(name, tile) for name in ("shape_256x256", "shape_384x128",
-                                        "mosaic_chained", "mosaic_mlp",
-                                        "mosaic_independent")
+                                        "mixed", "merged_scratch",
+                                        "merged_concat", "mosaic_chained",
+                                        "mosaic_mlp", "mosaic_independent")
               for tile in PROBES[name][5]]
 
 
 @pytest.mark.parametrize("name,tile", WAVE_CASES,
                          ids=[f"{n}_t{t}" for n, t in WAVE_CASES])
 def test_cuda_probe_past_one_wave(cuda_device, name, tile):
-    """The wgmma probes at 35,840 rows (140 to 560 CTAs): every CTA's
-    rows, ring and barriers, against the plain version, twice."""
+    """The probes at 35,840 rows (140 to 560 CTAs): every CTA's rows, ring
+    and barriers, against the plain version, twice."""
     _hold_probe(name, tile, WAVE_ROWS)
 
 
@@ -396,3 +397,26 @@ def test_cuda_probe_refuses_ragged_rows_and_wrong_dtype(cuda_device, name):
         kernel(x.float(), ws, tiles[0])
     with pytest.raises(ValueError, match="bfloat16"):
         kernel(x, [w.half() for w in ws], tiles[0])
+
+
+@pytest.mark.parametrize("walk", ["mixed", "merged"])
+def test_cuda_walk_refuses_a_stream_of_the_wrong_length(cuda_device, walk):
+    """The mixed and merged launchers take the stream's length and refuse
+    any but the walk's (the kernel would read past it or stop short);
+    the right length launches."""
+    shapes = dot_probe.MIXED_SHAPES if walk == "mixed" else \
+        dot_probe.MERGED_SHAPES
+    x, ws = _probe_inputs(cuda_device, 128, shapes)
+    w = dot_probe.pack_walk(ws, walk)
+    out = torch.empty(x.shape[0], 256, device=cuda_device)
+    lib = dot_probe._library()
+    launch = lib.plnerf_probe_mixed if walk == "mixed" else \
+        (lambda x_, w_, n, *rest: lib.plnerf_probe_merged(x_, w_, n, 0,
+                                                          *rest))
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for nbytes in (w.numel() * 2 - 8192, w.numel() * 2 + 16, 0):
+        assert launch(x.data_ptr(), w.data_ptr(), nbytes, out.data_ptr(),
+                      x.shape[0], 64, stream) != 0, nbytes
+    assert launch(x.data_ptr(), w.data_ptr(), w.numel() * 2, out.data_ptr(),
+                  x.shape[0], 64, stream) == 0
+    torch.cuda.synchronize()
