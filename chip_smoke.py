@@ -67,6 +67,21 @@ Phases, one line each, then the result line:
            batch (256 rays, perturb off) on the card (kernels) and on the
            CPU (plain versions), and the card's first step with the
            unfused MLP: step-1 grads and per-step losses.
+9. driver  the port's PL-NeRF driver, ``plnerf_torch.cli.run_plnerf.main``
+           with ``--config configs/blender_linear.txt`` at full width, on a
+           Blender-layout scene it writes first with the port's own code
+           (``transforms_{train,val,test}.json`` and RGBA pngs of the numpy
+           sphere, 8 / 1 / 2 views at 400x400, the lego camera_angle_x):
+           train 300 steps (precrop and constant-quadrature boundaries cut
+           to 50 / 100, checkpoints and val renders every 150), resume to
+           400, test from the step-400 checkpoint and test the fresh init
+           (``--no_reload``).  The kernels' launch counters are set to 0
+           before each run and read after: every train step launches the
+           forward and the backward kernel twice each, eval adds forward
+           launches only (two per chunk).  Checks the checkpoints, the
+           resume, a falling loss, metrics.txt and a held-out PSNR above
+           the fresh init's; logs ms per step (from metrics.jsonl), s per
+           test image, checkpoint save / load s, PSNR / SSIM.
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -104,7 +119,20 @@ PRECROP_STEPS, CONSTANT_STEPS, TRAIN_STEPS, BF16_STEPS = 30, 60, 90, 20
 PROBE_ROWS = 8192 * 321            # the TPU probes' N
 # probe kernel vs plain version, scaled by max|ref|: fp32 sums only
 # (shape, independent) or a bf16 recast between dots (the rest)
+# the card's eval_det render against the CPU's on the same weights and rays
+REFERENCE_TOL = {"rgb_map": 1e-3, "acc_map": 1e-3, "depth_map": 1e-2,
+                 "rgb0": 1e-3, "depth0": 1e-2}
 PROBE_TOLERANCE = {"sums": 1e-5, "recast": 2e-2}
+# the driver phase: a Blender-layout sphere scene, cut-down cadences
+DRIVER_VIEWS = {"train": 8, "val": 1, "test": 2}
+DRIVER_SIZE = 400
+LEGO_CAMERA_ANGLE_X = 0.6911112070083618
+DRIVER_STEPS, DRIVER_RESUME_STEPS = 300, 400
+DRIVER_PRINT = 50
+DRIVER_TRAIN = ["--precrop_iters", "50", "--constant_init", "100",
+                "--i_print", str(DRIVER_PRINT), "--i_weights", "150",
+                "--i_img", "150",
+                "--i_testset", "1000000", "--i_video", "1000000"]
 PROBE_REPLACES = {"shape": "tools/dot_decompose.py:89",     # make_shape_kernel
                   "mixed": "tools/dot_decompose.py:161",    # make_mixed_kernel
                   "merged": "tools/dot_decompose.py:230",   # make_merged_kernel
@@ -631,14 +659,19 @@ def phase_reference(dev):
         det.params_c.to("cpu"), det.params_f.to("cpu"), det.mcfg, det.rcfg,
         chunk=512, device="cpu")
     cpu = cpu_srv.render_rays(rays.cpu())
-    tol = {"rgb_map": 1e-3, "acc_map": 1e-3, "depth_map": 1e-2,
-           "rgb0": 1e-3, "depth0": 1e-2}
+    errs = _card_vs_cpu(gpu, cpu)
+    log("reference", rays=512, max_abs_err=errs, tolerance=REFERENCE_TOL)
+
+
+def _card_vs_cpu(card: dict, cpu: dict) -> dict:
+    """Max abs errors of the card's maps against the CPU's, held to
+    ``REFERENCE_TOL``."""
     errs = {}
-    for k, lim in tol.items():
-        errs[k] = float(np.abs(gpu[k] - cpu[k]).max())
+    for k, lim in REFERENCE_TOL.items():
+        errs[k] = float(np.abs(card[k] - cpu[k]).max())
         if errs[k] > lim:
             raise AssertionError(f"{k}: card vs CPU {errs[k]} > {lim}")
-    log("reference", rays=512, max_abs_err=errs, tolerance=tol)
+    return errs
 
 
 def bwd_flops_per_point(cfg, head: int) -> int:
@@ -1014,8 +1047,246 @@ def phase_train_reference(dev):
                              f"{cpu['losses']}")
 
 
+def write_sphere_scene(scene_dir: str, size: int, views: dict) -> None:
+    """A Blender-layout scene of the numpy sphere: ``transforms_{split}.
+    json`` and RGBA pngs in straight alpha (the sphere's colour, alpha its
+    opacity), so compositing over white gives the white-background render.
+    Train views ring the sphere; val and test views sit between them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from plnerf_torch.data.png import write_png
+    from plnerf_torch.data.synthetic import (pose_spherical_np,
+                                             render_sphere_image)
+    from plnerf_torch.utils.misc import to8b
+
+    focal = 0.5 * size / np.tan(0.5 * LEGO_CAMERA_ANGLE_X)
+    color = np.array([0.8, 0.3, 0.2], np.float32)
+    rng = np.random.default_rng(0)
+    jobs = []
+    for k, (split, n) in enumerate(views.items()):
+        thetas = np.linspace(-180, 180, n, endpoint=False) + 360 / 16 * k
+        frames = []
+        for i, theta in enumerate(thetas):
+            c2w = pose_spherical_np(theta, rng.uniform(-40, -20), 4.0)
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": c2w.tolist()})
+            jobs.append((os.path.join(scene_dir, split, f"r_{i}.png"), c2w))
+        os.makedirs(os.path.join(scene_dir, split), exist_ok=True)
+        with open(os.path.join(scene_dir, f"transforms_{split}.json"),
+                  "w") as f:
+            json.dump({"camera_angle_x": LEGO_CAMERA_ANGLE_X,
+                       "frames": frames}, f)
+
+    def render(job):
+        path, c2w = job
+        rgb = render_sphere_image(c2w, size, size, focal, color=color,
+                                  white_bkgd=False)
+        alpha = np.clip(rgb[..., :1] / color[0], 0.0, 1.0)
+        rgba = np.concatenate([np.broadcast_to(color, rgb.shape), alpha], -1)
+        write_png(path, to8b(rgba))
+
+    # numpy releases the interpreter lock in the render's large ops; each
+    # 400x400 render holds ~2 GB of intermediates
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+        list(ex.map(render, jobs))
+
+
+def _records(exp: str, key: str) -> dict:
+    """{step: record} of the metrics.jsonl records holding ``key``."""
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        return {r["step"]: r for r in map(json.loads, f) if key in r}
+
+
+def _driver_view(argv, state, stride: int = 8) -> dict:
+    """One test view of ``state`` through the driver's eval configs with
+    ``--eval_det``: rendered whole on the card (the kernel on), and at
+    every ``stride``-th pixel of each axis on the CPU with the same weights
+    (the kernel's plain version); the two held to ``REFERENCE_TOL``."""
+    import copy
+
+    from plnerf_torch.cli import config, run_plnerf
+    from plnerf_torch.cli.datasets import load_dataset
+    from plnerf_torch.core import rays as raysmod
+    from plnerf_torch.core.render import make_ray_batch
+    from plnerf_torch.eval import images as EI
+    from plnerf_torch.eval import metrics as Mx
+
+    args = config.resolve_args(config.config_parser().parse_args(
+        argv + ["--eval_det"]))
+    mcfg, rcfg, setup = run_plnerf.build_configs(args)
+    rcfg = run_plnerf.eval_render_config(args, rcfg)
+    if rcfg.perturb or not rcfg.use_fused_mlp:
+        raise AssertionError(f"eval config {rcfg}")
+    bundle = load_dataset(args)
+    data, vi = bundle.data, int(bundle.i_test[0])
+    t = time.perf_counter()
+    card = EI.render_image(state.params_coarse, state.params_fine,
+                           data.poses[vi], data.hwf, data.K, mcfg, rcfg,
+                           near=bundle.near, far=bundle.far,
+                           chunk=args.chunk, mcfg_fine=setup.mcfg_fine)
+    card_s = time.perf_counter() - t
+    H, W = card["rgb_map"].shape[:2]
+    c2w = torch.as_tensor(np.asarray(data.poses[vi], np.float32)[:3, :4])
+    ro, rd = raysmod.get_rays(H, W, np.asarray(data.K), c2w)
+    packed, _ = make_ray_batch(ro, rd, bundle.near, bundle.far,
+                               rcfg.use_viewdirs)
+    rays = packed.reshape(H, W, -1)[::stride, ::stride]
+    t = time.perf_counter()
+    cpu = EI.render_chunks(
+        copy.deepcopy(state.params_coarse).to("cpu"),
+        copy.deepcopy(state.params_fine).to("cpu"),
+        rays.reshape(-1, rays.shape[-1]), mcfg, rcfg, 4096, 0,
+        tuple(REFERENCE_TOL), mcfg_fine=setup.mcfg_fine)
+    cpu_s = time.perf_counter() - t
+    n = rays.shape[0] * rays.shape[1]
+    cpu = {k: v.numpy().reshape(n, -1) for k, v in cpu.items()}
+    sub = {k: card[k][::stride, ::stride].reshape(n, -1)
+           for k in REFERENCE_TOL}
+    gt = np.asarray(data.images[vi])
+    return {"view": vi, "card_pixels": H * W, "cpu_pixels": n,
+            "max_abs_err": _card_vs_cpu(sub, cpu),
+            "tolerance": REFERENCE_TOL,
+            "psnr_card": Mx.mse2psnr(float(np.mean(
+                (card["rgb_map"] - gt) ** 2))),
+            "psnr0_card": Mx.mse2psnr(float(np.mean(
+                (card["rgb0"] - gt) ** 2))),
+            "card_s": card_s, "cpu_s": cpu_s}
+
+
+def phase_driver(dev, bare_step_ms=None):
+    """Returns (forward launches, backward launches) of the driver's runs."""
+    import shutil
+    import tempfile
+
+    from plnerf_torch.checkpoint import io as ckio
+    from plnerf_torch.cli import run_plnerf
+    from plnerf_torch.kernels import fused_mlp
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="plnerf_driver_")
+    try:
+        data, ckpt = os.path.join(root, "data"), os.path.join(root, "ckpt")
+        t0 = time.perf_counter()
+        write_sphere_scene(os.path.join(data, "sphere"), DRIVER_SIZE,
+                           DRIVER_VIEWS)
+        scene_s = time.perf_counter() - t0
+        config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "configs", "blender_linear.txt")
+        where = ["--ckpt_dir", ckpt, "--expname", "smoke", "--data_dir", data,
+                 "--scene_id", "sphere"]
+        exp = os.path.join(ckpt, "smoke")
+        eval_chunks = -(-DRIVER_SIZE * DRIVER_SIZE // R_CHUNK)
+        launches, runs = {}, {}
+
+        def run(name, argv):
+            """One call of the driver's entry point, its launches and s."""
+            torch.cuda.synchronize()
+            fused_mlp.launches = fused_mlp.bwd_launches = 0   # path starts
+            t = time.perf_counter()
+            out = run_plnerf.main(argv)
+            torch.cuda.synchronize()
+            runs[name] = time.perf_counter() - t
+            launches[name] = {"fused_mlp_fwd": fused_mlp.launches,  # ends
+                              "fused_mlp_bwd": fused_mlp.bwd_launches}
+            return out
+
+        def expect(name, fwd, bwd):
+            got = launches[name]
+            if (got["fused_mlp_fwd"], got["fused_mlp_bwd"]) != (fwd, bwd):
+                raise AssertionError(f"driver {name}: launches {got}, "
+                                     f"expected {fwd} / {bwd}")
+
+        train = ["--config", config, "--task", "train"] + where + DRIVER_TRAIN
+        state = run("train", train + ["--num_iterations", str(DRIVER_STEPS)])
+        # two val renders (i_img at 150, 300), two launches per chunk each
+        expect("train", 2 * DRIVER_STEPS + 2 * 2 * eval_chunks,
+               2 * DRIVER_STEPS)
+        state = run("resume", train + ["--num_iterations",
+                                       str(DRIVER_RESUME_STEPS)])
+        resumed = DRIVER_RESUME_STEPS - DRIVER_STEPS
+        expect("resume", 2 * resumed, 2 * resumed)      # started at 300
+        ckpts = [os.path.basename(p) for p in ckio.list_checkpoints(exp)]
+        if state.step != DRIVER_RESUME_STEPS or ckpts != [
+                "000150.ckpt", "000300.ckpt", "000400.ckpt"]:
+            raise AssertionError(f"step {state.step}, checkpoints {ckpts}")
+        recs = _records(exp, "train/loss")
+        losses = {k: r["train/loss"] for k, r in recs.items()}
+        if not (np.isfinite(list(losses.values())).all()
+                and losses[DRIVER_RESUME_STEPS] < losses[50]):
+            raise AssertionError(f"loss did not fall: {losses}")
+
+        test = ["--task", "test", "--white_bkgd"] + where
+        n_test = DRIVER_VIEWS["test"]
+        scores = {}
+        for name, extra in (("test", []), ("test_init", ["--no_reload"])):
+            mm = run(name, test + extra)
+            expect(name, 2 * n_test * eval_chunks, 0)
+            result_dir, = [d for d in os.listdir(exp)
+                           if d.startswith("test_images_")]
+            with open(os.path.join(exp, result_dir, "metrics.txt")) as f:
+                text = f.read()
+            if "psnr: " not in text or "ssim: " not in text:
+                raise AssertionError(f"metrics.txt: {text!r}")
+            scores[name] = {k: mm.get(k) for k in ("psnr", "ssim")}
+        if not scores["test"]["psnr"] > scores["test_init"]["psnr"]:
+            raise AssertionError(f"held-out PSNR {scores}")
+        view = _driver_view(test, state)
+
+        # checkpoint save and load of the step-400 state, on their own
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = ckio.save_checkpoint(os.path.join(root, "timed"), state.step,
+                                    state.state_dict())
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ckio.restore_checkpoint(path, state, dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+
+        # each i_print window's time: its steps over its steps_per_sec
+        window_s = {k: DRIVER_PRINT / r["train/steps_per_sec"]
+                    for k, r in recs.items()}
+        fwd = sum(v["fused_mlp_fwd"] for v in launches.values())
+        bwd = sum(v["fused_mlp_bwd"] for v in launches.values())
+        log("driver", card=card_line(), scene={
+            "views": DRIVER_VIEWS, "size": DRIVER_SIZE, "write_s": scene_s},
+            config="configs/blender_linear.txt", steps=DRIVER_RESUME_STEPS,
+            resumed_from=DRIVER_STEPS, checkpoints=ckpts,
+            train_loss=losses, train_psnr={k: r["train/psnr"]
+                                           for k, r in recs.items()},
+            val_psnr={k: r["val/psnr"]
+                      for k, r in _records(exp, "val/psnr").items()},
+            ms_per_step=1e3 * sum(window_s.values()) / DRIVER_RESUME_STEPS,
+            ms_per_step_by_window={k: 1e3 * v / DRIVER_PRINT
+                                   for k, v in window_s.items()},
+            ms_per_step_wall=1e3 * (runs["train"] + runs["resume"])
+            / DRIVER_RESUME_STEPS,
+            bare_step_ms_train_phase=bare_step_ms,
+            s_per_test_image=runs["test"] / n_test, run_s=runs,
+            ckpt_save_s=save_s, ckpt_load_s=load_s,
+            ckpt_bytes=os.path.getsize(path),
+            psnr_init=scores["test_init"]["psnr"],
+            ssim_init=scores["test_init"]["ssim"],
+            psnr_400=scores["test"]["psnr"], ssim_400=scores["test"]["ssim"],
+            view_check=view,
+            launches=launches, launches_per_train_step={
+                "fused_mlp_fwd": 2.0, "fused_mlp_bwd": 2.0},
+            phase_s=time.perf_counter() - t_phase,
+            note="ms_per_step: the i_print windows' times, from "
+                 "metrics.jsonl's steps_per_sec, summed over all 400 steps "
+                 "(val renders and checkpoint saves included); "
+                 "ms_per_step_wall: the train and resume calls' wall time "
+                 "over the steps (scene load, init and the last save "
+                 "too); s per test image: the test task's wall time "
+                 "(scene and checkpoint load, renders, SSIM, png writes) "
+                 "over its images")
+        return fwd, bwd
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 PHASES = ("kernel", "probes", "bwd", "slice", "reference", "train",
-          "train_reference")
+          "train_reference", "driver")
 
 
 def main(argv=None) -> int:
@@ -1047,7 +1318,8 @@ def main(argv=None) -> int:
         if only:
             fns = dict(zip(PHASES, (
                 phase_kernel, phase_probes, phase_bwd_kernel, phase_slice,
-                phase_reference, phase_train, phase_train_reference)))
+                phase_reference, phase_train, phase_train_reference,
+                phase_driver)))
             for name in only:
                 fns[name](dev)
             return 0
@@ -1056,13 +1328,16 @@ def main(argv=None) -> int:
         bwd_err, bwd_t = phase_bwd_kernel(dev)
         launches = phase_slice(dev)
         phase_reference(dev)
-        train_fwd, train_bwd, _ = phase_train(dev)
+        train_fwd, train_bwd, train_summary = phase_train(dev)
         phase_train_reference(dev)
+        driver_fwd, driver_bwd = phase_driver(
+            dev, train_summary["ms_per_step_fp32"])
     except Exception:
         traceback.print_exc()
         return 1
     if (launches < 1 or train_fwd < 1 or train_bwd < 1 or probe_fwd < 1
-            or min(probe_launches.values()) < 1):
+            or min(probe_launches.values()) < 1 or driver_fwd < 1
+            or driver_bwd < 1):
         print("chip_smoke: a main path launched no kernel", file=sys.stderr)
         return 1
     # the training path runs folded heads in fp32
@@ -1071,13 +1346,13 @@ def main(argv=None) -> int:
         "name": "fused_mlp_fwd", "route": "cuda",
         "source": "plnerf_torch/kernels/csrc/fused_mlp_fwd.cu",
         "replaces": KERNEL_REPLACES,
-        "launches": launches + train_fwd + probe_fwd,
+        "launches": launches + train_fwd + probe_fwd + driver_fwd,
         "max_abs_err": err, "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]}, {
         "name": "fused_mlp_bwd", "route": "cuda",
         "source": "plnerf_torch/kernels/csrc/fused_mlp_bwd.cu",
-        "replaces": BWD_REPLACES, "launches": train_bwd,
+        "replaces": BWD_REPLACES, "launches": train_bwd + driver_bwd,
         "max_abs_err": bwd_err, "ms": bt["kernel_ms"],
         "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"],
         "bound_by": bt["bound_by"], "library_ms": bt["library_ms"]}]

@@ -1,0 +1,1 @@
+"""cli modules of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,413 @@
+"""PL-NeRF driver, ``train`` and ``test`` (port of
+``plnerf/cli/run_plnerf.py``, the reference ``run_plnerf.py`` CLI):
+
+    python -m plnerf_torch.cli.run_plnerf --config configs/blender_linear.txt \\
+        --task train|test [--device cpu] ...
+
+* ``train``: two-Adam NVS training with the constant-quadrature warm-up,
+  the precrop, both ray-batching policies (one image per step, or the
+  shuffled ray pool), periodic checkpoints, val renders and test sets.
+* ``test``: held-out views, PSNR / SSIM -> pngs and metrics.txt.
+
+Runs on the CUDA device unless ``--device cpu`` is given, and raises where
+there is none.  Not ported yet, each refused with ``SystemExit`` naming
+its ROADMAP item: the ``test_fixed_dist`` / ``test_samples_error`` /
+``video`` tasks and ``--render_only`` (A8), ``export_serving`` (A13),
+``--occ_grid`` (A10), ``--profile`` (A17), ``--lpips_weights`` (A14); the
+llff and DTU datasets (A7b, ``cli/datasets.py``).
+
+Differences from the JAX driver:
+
+* ``--use_kernel`` (for ``--use_pallas``): AUTO turns the fused CUDA MLP
+  kernels on, with folded heads, whenever the device is CUDA, for training
+  and for eval, in fp32 and bf16: on the H100 they beat the unfused
+  library MLP in both passes (PERF.md).  The JAX driver turns its Pallas
+  kernel on only for TPU bf16 training and strips it at eval.  On the CPU
+  AUTO means off; ``--use_kernel`` there runs the kernels' plain versions.
+* One step per loop iteration: ``--steps_per_dispatch`` (the JAX
+  driver's scan of N steps in one program, whose only other effect is to
+  round the cadences to windows of N) is parsed for config parity and
+  refused above 1.  Cadences fire on the iterations where the JAX driver's
+  fire at N = 1.
+* Randomness comes from one ``torch.Generator`` seeded ``--seed``.  A
+  resumed run reseeds it from ``--seed``, as the JAX driver draws from a
+  fresh ``PRNGKey(seed)`` (run_plnerf.py:438): it does not continue the
+  interrupted run's stream.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..checkpoint import io as ckio
+from ..core.config import ModelConfig, RenderConfig
+from ..device import make_generator, resolve_device
+from ..eval import images as EI
+from ..eval import metrics as Mx
+from ..train import batching
+from ..train.step import TrainSetup, init_state, make_train_step
+from ..utils.logging import MetricsLogger
+from .config import config_parser, resolve_args
+from .datasets import DatasetBundle, load_dataset
+
+
+def _resolve_kernel(args, device: torch.device) -> bool:
+    """--use_kernel tri-state: True / False honour the explicit flag; None
+    (AUTO, the default) is on exactly when the device is CUDA."""
+    explicit = getattr(args, "use_kernel", None)
+    if explicit is not None:
+        return bool(explicit)
+    return device.type == "cuda"
+
+
+def build_configs(args, vanilla: bool = False):
+    device = resolve_device(getattr(args, "device", None))
+    mcfg = ModelConfig(
+        netdepth=args.netdepth, netwidth=args.netwidth,
+        use_viewdirs=args.use_viewdirs, multires=args.multires,
+        multires_views=args.multires_views, i_embed=args.i_embed,
+        sigma_bias_init=getattr(args, "sigma_bias_init", 0.0),
+    )
+    mcfg_fine = None
+    if (args.netdepth_fine != args.netdepth
+            or args.netwidth_fine != args.netwidth):
+        mcfg_fine = dataclasses.replace(mcfg, netdepth=args.netdepth_fine,
+                                        netwidth=args.netwidth_fine)
+    kernel = _resolve_kernel(args, device)
+    rcfg = RenderConfig(
+        n_samples=args.N_samples, n_importance=args.N_importance,
+        mode=args.mode,
+        color_mode=args.color_mode, lindisp=args.lindisp,
+        perturb=args.perturb > 0.0, use_viewdirs=args.use_viewdirs,
+        white_bkgd=args.white_bkgd, raw_noise_std=args.raw_noise_std,
+        farcolorfix=getattr(args, "farcolorfix", False),
+        zero_tol=args.zero_tol, epsilon=args.epsilon,
+        mlp_dtype=getattr(args, "mlp_dtype", "float32"),
+        # the folded-head schedule is the kernel being on
+        use_fused_mlp=kernel, fused_fold_heads=kernel,
+        remat_mlp=getattr(args, "remat", False),
+    )
+    setup = TrainSetup(
+        mcfg=mcfg, mcfg_fine=mcfg_fine, rcfg=rcfg, lrate=args.lrate,
+        coarse_lrate=args.coarse_lrate, lrate_decay=args.lrate_decay,
+        joint_optimizer=vanilla,
+        accum_chunks=max(1, getattr(args, "grad_accum", 1)),
+    )
+    return mcfg, rcfg, setup
+
+
+def exp_dir(args) -> str:
+    return os.path.join(args.ckpt_dir, args.expname)
+
+
+def restore_or_init(args, setup: TrainSetup, device: torch.device):
+    """Returns ``(state, start)``: a fresh state seeded ``--seed``, restored
+    from ``--ft_path`` or, unless ``--no_reload``, the experiment's latest
+    checkpoint when there is one."""
+    state = init_state(make_generator(args.seed, device), setup, device)
+    path = args.ft_path
+    if not path and not args.no_reload:
+        path = ckio.latest_checkpoint(exp_dir(args))
+    if path and os.path.exists(path):
+        ckio.restore_checkpoint(path, state, device)
+        print(f"Resumed from {path} at step {state.step}")
+        return state, state.step
+    return state, 0
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+# Dead-coarse advisory: sigma0_pos_frac reads exactly 0.0 when every raw
+# coarse density is negative, so relu kills every density gradient and the
+# coarse geometry can never recover (the JAX package's "dead-coarse
+# anatomy", BASELINE.md).  Healthy coarse nets read ~0.15 in-volume.  The
+# grace window clears init transients and the constant_init warm window.
+DEAD_COARSE_POS_FRAC = 1e-3
+DEAD_COARSE_GRACE = 3000
+
+
+def _dead_coarse_advisory(m: dict, step: int, warned: bool,
+                          mode: str) -> bool:
+    """Print a loud one-time advisory when the coarse density head has
+    gone fully negative (the dead-relu trap)."""
+    frac = m.get("sigma0_pos_frac")
+    if (warned or frac is None or frac >= DEAD_COARSE_POS_FRAC
+            or step <= DEAD_COARSE_GRACE):
+        return warned
+    print("=" * 72)
+    print(f"WARNING: the COARSE density head is dead at iter {step}: "
+          f"{frac:.1%} of its raw densities are positive, so relu zeroes "
+          "every density gradient and the coarse geometry cannot recover.")
+    if mode == "constant":
+        print("In constant mode this is the paper's zero-gradient trap: "
+              "the coarse has NO live gradient, importance sampling "
+              "degrades to quasi-uniform, and fine-level quality can "
+              "suffer badly.")
+    else:
+        print("In linear mode color gradients survive through the forced "
+              "far-boundary interval (the coarse renders a billboard "
+              "pinned at far), but every importance sample collapses "
+              "into that final interval: hierarchical sampling is "
+              "contributing nothing.")
+    print("Mitigations: RESTART with --raw_noise_std 1e0 (the reference's "
+          "own llff recipe) or with a different --seed; resuming a dead "
+          "run does not save it.  In linear mode, never set "
+          "--constant_init 0: the constant warm-up protects the coarse.")
+    print("=" * 72)
+    return True
+
+
+def _refuse_training_videos(args, start: int) -> None:
+    """A video render inside the run (``i_video`` firing before its end)
+    needs the render_path task (ROADMAP A8)."""
+    first = (start // args.i_video + 1) * args.i_video
+    if first < args.num_iterations:
+        raise SystemExit(f"--i_video {args.i_video} fires at iter {first}: "
+                         "videos are not ported yet (ROADMAP A8)")
+
+
+def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
+                 mcfg: ModelConfig, rcfg: RenderConfig):
+    """The train loop; returns the final ``TrainState``."""
+    device = resolve_device(args.device)
+    data = bundle.data
+    state, start = restore_or_init(args, setup, device)
+    _refuse_training_videos(args, start)
+    logger = MetricsLogger(exp_dir(args))
+
+    use_batching = not args.no_batching
+    n_rand = args.N_rand
+    n_iters = args.num_iterations
+    g = make_generator(args.seed, device)
+    near, far = bundle.near, bundle.far
+    # one step function per quadrature phase (constant_init on / off)
+    steps = {ci: make_train_step(dataclasses.replace(
+        setup, rcfg=dataclasses.replace(rcfg, constant_init=ci)))
+        for ci in (True, False)}
+
+    ev_chunk = training_eval_chunk(args, 0)   # no_batching: no pool
+    if use_batching:
+        t_pool = time.time()
+        pool = torch.as_tensor(batching.build_ray_pool(
+            np.asarray(data.images, np.float32), np.asarray(data.poses),
+            data.K, bundle.i_train, seed=args.seed), device=device)
+        if pool.shape[0] < n_rand:
+            raise ValueError(f"the ray pool holds {pool.shape[0]} rays, "
+                             f"fewer than --N_rand {n_rand}")
+        print(f"[pool] built {pool.shape[0]:,} rays in "
+              f"{time.time() - t_pool:.1f} s")
+        ev_chunk = training_eval_chunk(args, pool.numel() * 4)
+        i_batch = 0
+    else:
+        # on the device once, before the loop
+        images = torch.as_tensor(np.asarray(data.images, np.float32),
+                                 device=device)
+        poses = torch.as_tensor(np.asarray(data.poses, np.float32)[:, :3, :4],
+                                device=device)
+        K = torch.as_tensor(np.asarray(data.K, np.float32), device=device)
+        i_train = torch.as_tensor(np.asarray(bundle.i_train), device=device)
+
+    t0 = time.time()
+    steps_since_print = 0
+    dead_warned = False
+    for i in range(start + 1, n_iters + 1):
+        # the phases of step i, as the reference picks them
+        step_fn = steps[i < args.constant_init and rcfg.mode == "linear"]
+        if use_batching:
+            rays, target = batching.pool_batch(
+                pool, i_batch, n_rand, near, far, rcfg.use_viewdirs)
+            i_batch += n_rand
+        else:
+            rays, target, _ = batching.sample_one_image_batch(
+                images, poses, K, i_train, g, n_rand, near, far,
+                rcfg.use_viewdirs, i < args.precrop_iters, args.precrop_frac)
+        state, metrics = step_fn(state, {"rays": rays, "target": target}, g)
+        if use_batching and pool.shape[0] - i_batch < n_rand:
+            # every full batch of the epoch is consumed before the
+            # reshuffle (run_plnerf.py:1244-1248 of the reference)
+            pool = pool[torch.randperm(pool.shape[0], generator=g,
+                                       device=device)]
+            i_batch = 0
+        steps_since_print += 1
+
+        if i % args.i_print == 0:
+            m = {k: float(v) for k, v in metrics.items()}   # host sync
+            m["steps_per_sec"] = steps_since_print / max(
+                time.time() - t0, 1e-9)
+            t0 = time.time()
+            steps_since_print = 0
+            logger.scalars(i, m, prefix="train/")
+            print(f"[TRAIN] Iter: {i} Loss: {m['loss']:.5f} "
+                  f"PSNR: {m['psnr']:.2f} ({m['steps_per_sec']:.1f} it/s)")
+            dead_warned = _dead_coarse_advisory(m, i, dead_warned,
+                                                args.mode)
+            if args.debug:
+                bad = [k for k, v in m.items() if not np.isfinite(v)]
+                if bad:
+                    raise FloatingPointError(
+                        f"[Numerical Fail] non-finite metrics at iter {i}: "
+                        f"{bad} (reference DEBUG scan, run_plnerf.py:754)")
+
+        if i % args.i_weights == 0:
+            path = ckio.save_checkpoint(exp_dir(args), state.step,
+                                        state.state_dict())
+            print("Saved checkpoint at", path)
+
+        if i % args.i_img == 0 and len(bundle.i_val) > 0:
+            vi = int(bundle.i_val[(i // args.i_img) % len(bundle.i_val)])
+            out = _oom_retry(lambda c: EI.render_image(
+                state.params_coarse, state.params_fine, data.poses[vi],
+                data.hwf, data.K, mcfg, EI.test_render_config(rcfg),
+                near=near, far=far, chunk=c, ndc=bundle.ndc,
+                mcfg_fine=setup.mcfg_fine), ev_chunk)
+            val_mse = float(np.mean(
+                (out["rgb_map"] - np.asarray(data.images[vi])) ** 2))
+            logger.scalars(i, {"mse": val_mse, "psnr": Mx.mse2psnr(val_mse)},
+                           prefix="val/")
+            logger.image(i, "val/rgb", np.clip(out["rgb_map"], 0, 1))
+
+        if i % args.i_testset == 0 and i < n_iters:
+            _oom_retry(lambda c: run_test(
+                args, bundle, mcfg, rcfg, state=state, suffix=f"_{i:06d}",
+                setup=setup, chunk=c), ev_chunk)
+
+    path = ckio.save_checkpoint(exp_dir(args), state.step, state.state_dict())
+    print("Saved checkpoint at", path)
+    logger.close()
+    print("Training complete.")
+    return state
+
+
+# ---------------------------------------------------------------------------
+# eval
+# ---------------------------------------------------------------------------
+
+def training_eval_chunk(args, pool_bytes: int) -> int:
+    """Ray chunk for in-training eval renders (i_img / i_testset).  These
+    share device memory with the resident ray pool and the train state; an
+    explicit --eval_chunk always wins, otherwise the default chunk is
+    shrunk to 8192 once the pool passes 1 GB (the post-training eval task
+    never shrinks: no pool is resident there)."""
+    ev = getattr(args, "eval_chunk", None)
+    if ev:
+        return ev
+    if pool_bytes > 1e9 and args.chunk > 8192:
+        print(f"[eval] shrinking in-training eval chunk {args.chunk} -> "
+              f"8192 (ray pool holds {pool_bytes / 1e9:.1f} GB of device "
+              "memory; override with --eval_chunk)")
+        return 8192
+    return args.chunk
+
+
+def _oom_retry(render_fn, chunk: int, min_chunk: int = 1024):
+    """Run ``render_fn(chunk)``, halving the chunk while the device runs
+    out of memory, down to ``min_chunk``."""
+    while True:
+        try:
+            return render_fn(chunk)
+        except torch.cuda.OutOfMemoryError:
+            if chunk <= min_chunk:
+                raise
+        # outside the handler, so the failed attempt's tensors are freed
+        chunk = max(min_chunk, chunk // 2)
+        torch.cuda.empty_cache()
+        print(f"[eval] out of device memory: retrying at chunk {chunk}")
+
+
+def eval_render_config(args, rcfg: RenderConfig) -> RenderConfig:
+    """Eval-task RenderConfig: the reference quirk (perturb forced back to
+    True at test, run_plnerf.py:497-499, ``test_render_config``), then
+    --eval_det, which must come after it.  The kernel setting is kept."""
+    ov = {"perturb": False} if getattr(args, "eval_det", False) else {}
+    return EI.test_render_config(rcfg, **ov)
+
+
+def run_test(args, bundle, mcfg, rcfg, state=None, suffix: str = "",
+             setup=None, chunk=None):
+    """Render and score the test split; writes the images and metrics.txt
+    and returns the ``MeanTracker``."""
+    if state is None:
+        state, start = restore_or_init(args, setup, resolve_device(args.device))
+        if start == 0 and not args.no_reload:
+            print("WARNING: no checkpoint found — evaluating fresh init")
+    mean_metrics, res = EI.render_images_with_metrics(
+        state.params_coarse, state.params_fine, bundle.data, bundle.i_test,
+        mcfg, eval_render_config(args, rcfg), chunk=chunk or args.chunk,
+        near=bundle.near, far=bundle.far, ndc=bundle.ndc,
+        mcfg_fine=setup.mcfg_fine if setup else None,
+    )
+    result_dir = os.path.join(
+        exp_dir(args),
+        f"test_images_{args.mode}_{args.N_samples}_{args.N_importance}"
+        f"{args.scene_id}{suffix}",
+    )
+    EI.write_images_with_metrics(res, mean_metrics, result_dir)
+    return mean_metrics
+
+
+# ---------------------------------------------------------------------------
+
+def _refuse_unported(args) -> None:
+    if args.task in ("test_fixed_dist", "test_samples_error", "video") \
+            or args.render_only:
+        raise SystemExit(f"--task {args.task} / --render_only: not ported "
+                         "yet (ROADMAP A8)")
+    if args.task == "export_serving":
+        raise SystemExit("--task export_serving: not ported yet (ROADMAP "
+                         "A13)")
+    if args.occ_grid:
+        raise SystemExit("--occ_grid: the occupancy grid is not ported yet "
+                         "(ROADMAP A10)")
+    if args.profile:
+        raise SystemExit("--profile: not ported yet (ROADMAP A17; "
+                         "plnerf_torch.tools.profile_step profiles a step)")
+    if args.lpips_weights:
+        raise SystemExit("--lpips_weights: LPIPS is not ported yet "
+                         "(ROADMAP A14)")
+    if args.steps_per_dispatch > 1:
+        raise SystemExit(f"--steps_per_dispatch {args.steps_per_dispatch}: "
+                         "the port runs one step per loop iteration; only 1 "
+                         "is accepted")
+    if args.task not in ("train", "test"):
+        raise SystemExit(f"Unknown task {args.task}")
+
+
+def run(args, vanilla: bool = False):
+    """Run ``args.task``; returns the final ``TrainState`` (train) or the
+    test metrics' ``MeanTracker`` (test)."""
+    _refuse_unported(args)
+    if args.task != "train":
+        # eval-time sample-budget override; mutating args keeps rcfg and
+        # the test_images_<mode>_<Ns>_<Ni> result-dir naming consistent
+        if getattr(args, "eval_N_samples", None):
+            args.N_samples = args.eval_N_samples
+        if getattr(args, "eval_N_importance", None):
+            args.N_importance = args.eval_N_importance
+    mcfg, rcfg, setup = build_configs(args, vanilla=vanilla)
+    bundle = load_dataset(args)
+    if args.task == "train":
+        return run_training(args, bundle, setup, mcfg, rcfg)
+    return run_test(args, bundle, mcfg, rcfg, setup=setup)
+
+
+def main(argv=None, vanilla: bool = False):
+    """Parse ``argv``; before anything is read or written, resolve the
+    device (raises without CUDA unless ``--device cpu``) and refuse what is
+    not ported; then run (which checks the args.json-merged flags again)."""
+    args = config_parser().parse_args(argv)
+    resolve_device(args.device)
+    _refuse_unported(args)
+    args = resolve_args(args)
+    if vanilla:
+        args.constant_init = 0  # vanilla has no warmup
+    return run(args, vanilla=vanilla)
+
+
+if __name__ == "__main__":
+    main()

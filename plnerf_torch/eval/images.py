@@ -1,13 +1,20 @@
-"""Full-image rendering (port of ``render_image`` and
-``test_render_config`` from ``plnerf/eval/images.py``), single device.
+"""Full-image rendering, metric evaluation and result writers (port of
+``render_image``, ``test_render_config``, ``render_images_with_metrics``
+and ``write_images_with_metrics`` from ``plnerf/eval/images.py``), single
+device.
 
 A Python loop over fixed-size ray chunks replaces the JAX package's
 ``lax.map``; chunk ``i`` draws from a generator seeded ``seed + i``.
+Images are written with ``data/png.py``, metrics computed on the host
+(``eval/metrics.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import math
+import os
+import time
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -16,7 +23,10 @@ from ..core import rays as raysmod
 from ..core import render
 from ..core.config import ModelConfig, RenderConfig
 from ..core.mlp import NeRF
+from ..data.png import write_png
 from ..device import make_generator, module_device
+from ..utils.misc import MeanTracker, to8b, to16b
+from . import metrics as M
 
 # keys returned to the host per pixel
 _IMAGE_KEYS = ("rgb_map", "disp_map", "acc_map", "depth_map", "rgb0", "depth0")
@@ -82,3 +92,81 @@ def test_render_config(rcfg: RenderConfig, **overrides) -> RenderConfig:
     kw = dict(raw_noise_std=0.0, perturb=True, retraw=False)
     kw.update(overrides)
     return dataclasses.replace(rcfg, **kw)
+
+
+def render_images_with_metrics(
+    params_c: NeRF, params_f: Optional[NeRF], dataset,
+    indices: Sequence[int], mcfg: ModelConfig, rcfg: RenderConfig,
+    chunk: int = 32768, near: Optional[float] = None,
+    far: Optional[float] = None, ndc: bool = False, seed: int = 0,
+    verbose: bool = True, mcfg_fine: Optional[ModelConfig] = None):
+    """Render the held-out views ``indices`` of ``dataset`` (a
+    ``SceneData``) and aggregate their metrics (reference
+    run_plnerf.py:284-363): per image img_loss, PSNR and SSIM of the fine
+    pass, img_loss0 and PSNR0 of the coarse.  Returns ``(MeanTracker,
+    res)``, ``res`` holding the stacked rgbs / target_rgbs / depths (/ far)
+    and the coarse rgbs0 / depths0 for the writers.
+
+    Image ``n`` renders with the seeds ``seed + n * n_chunks + i`` of its
+    chunks ``i``, so no two chunks share a stream.  LPIPS is not ported
+    (ROADMAP A14): its row in the metrics is a note.  The depth-supervision
+    datasets' depth RMSE waits for their loaders (ROADMAP A9)."""
+    near = dataset.near if near is None else near
+    far = dataset.far if far is None else far
+    if near is None or far is None:
+        raise ValueError("near/far must come from dataset or caller")
+    H, W = int(dataset.hwf[0]), int(dataset.hwf[1])
+    n_chunks = math.ceil(H * W / chunk)
+
+    mean_metrics = MeanTracker()
+    res = {"rgbs": [], "target_rgbs": [], "depths": [], "rgbs0": [],
+           "depths0": []}
+    indices = [int(i) for i in np.asarray(indices)]
+    for n, img_idx in enumerate(indices):
+        t0 = time.time()
+        target = np.asarray(dataset.images[img_idx], np.float32)
+        out = render_image(params_c, params_f, dataset.poses[img_idx],
+                           dataset.hwf, dataset.K, mcfg, rcfg,
+                           seed=seed + n * n_chunks, near=near, far=far,
+                           chunk=chunk, ndc=ndc, mcfg_fine=mcfg_fine)
+        rgb = np.clip(out["rgb_map"], 0.0, 1.0)
+        img_loss = float(np.mean((out["rgb_map"] - target) ** 2))
+        psnr = M.mse2psnr(img_loss)
+        metrics = {"img_loss": img_loss, "psnr": psnr,
+                   "ssim": M.ssim(rgb, target)}
+        res["rgbs"].append(rgb)
+        res["target_rgbs"].append(target)
+        res["depths"].append(out["depth_map"] / far)
+        if "rgb0" in out:
+            img_loss0 = float(np.mean((out["rgb0"] - target) ** 2))
+            metrics.update({"img_loss0": img_loss0,
+                            "psnr0": M.mse2psnr(img_loss0)})
+            res["rgbs0"].append(np.clip(out["rgb0"], 0, 1))
+            res["depths0"].append(out["depth0"] / far)
+        mean_metrics.add(metrics)
+        if verbose:
+            print(f"Render image {n + 1}/{len(indices)} "
+                  f"PSNR: {psnr:.2f} ({time.time() - t0:.1f}s)")
+
+    res = {k: np.stack(v, 0) for k, v in res.items() if v}
+    mean_metrics.note("lpips", "UNAVAILABLE (no weights file: LPIPS is not "
+                      "ported yet, ROADMAP A14)")
+    return mean_metrics, res
+
+
+def write_images_with_metrics(images: Dict[str, np.ndarray],
+                              mean_metrics: MeanTracker,
+                              result_dir: str) -> None:
+    """Write ``{n}_rgb.png``, ``{n}_gt.png``, 16-bit ``{n}_d.png`` and
+    ``metrics.txt`` (reference run_plnerf.py:365-386)."""
+    os.makedirs(result_dir, exist_ok=True)
+    for n in range(images["rgbs"].shape[0]):
+        write_png(os.path.join(result_dir, f"{n}_rgb.png"),
+                  to8b(images["rgbs"][n]))
+        write_png(os.path.join(result_dir, f"{n}_gt.png"),
+                  to8b(images["target_rgbs"][n]))
+        write_png(os.path.join(result_dir, f"{n}_d.png"),
+                  to16b(images["depths"][n]))
+    with open(os.path.join(result_dir, "metrics.txt"), "w") as f:
+        mean_metrics.print(f)
+    mean_metrics.print()

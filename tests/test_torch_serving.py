@@ -145,23 +145,30 @@ def _port_modules():
 
 
 def test_port_imports_neither_jax_nor_plnerf():
+    """Nor ``tools``, ``cv2``, ``imageio`` or ``PIL``."""
     mods = [m for _, m in _port_modules()]
     assert {"plnerf_torch.kernels.fused_mlp", "plnerf_torch.kernels.dot_probe",
             "plnerf_torch.tools.dot_decompose",
-            "plnerf_torch.utils.profile"} <= set(mods)
+            "plnerf_torch.utils.profile", "plnerf_torch.cli.run_plnerf",
+            "plnerf_torch.cli.run_vanilla", "plnerf_torch.cli.config",
+            "plnerf_torch.cli.datasets", "plnerf_torch.data.blender",
+            "plnerf_torch.data.common", "plnerf_torch.data.png",
+            "plnerf_torch.checkpoint.io", "plnerf_torch.eval.metrics",
+            "plnerf_torch.utils.logging"} <= set(mods)
+    # JAX, the JAX package and its tools, and the image libraries the JAX
+    # package reads and writes with (none is on the card's machine)
+    banned = ("jax", "plnerf", "tools", "cv2", "imageio", "PIL")
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "bad = sorted(k for k in sys.modules if k == 'jax' or "
-            "k.startswith('jax.') or k == 'plnerf' or "
-            "k.startswith('plnerf.') or k == 'tools' or "
-            "k.startswith('tools.'))\n"
+            f"bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            f"{banned!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
-    pat = re.compile(r"^\s*(import|from)\s+(jax|plnerf|tools)(\.|\s|$)",
-                     re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(%s)(\.|\s|$)"
+                     % "|".join(banned), re.M)
     for rel, _ in _port_modules():
         with open(os.path.join(REPO, rel)) as f:
             assert not pat.search(f.read()), rel
