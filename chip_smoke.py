@@ -75,19 +75,43 @@ Phases, one line each, then the result line:
            train 300 steps (precrop and constant-quadrature boundaries cut
            to 50 / 100, checkpoints and val renders every 150), resume to
            400, test from the step-400 checkpoint and test the fresh init
-           (``--no_reload``).  The kernels' launch counters are set to 0
-           before each run and read after: every train step launches the
-           forward and the backward kernel twice each, eval adds forward
-           launches only (two per chunk).  Checks the checkpoints, the
-           resume, a falling loss, metrics.txt and a held-out PSNR above
-           the fresh init's; logs ms per step (from metrics.jsonl), s per
-           test image, checkpoint save / load s, PSNR / SSIM.
+           (``--no_reload``), then ``--task test_fixed_dist`` from the
+           step-400 checkpoint on a blender_fixeddist layout of the sphere
+           it writes (``transforms_radius{d}_test.json``, one 400x400 view
+           at each distance of ``FIXED_DIST_NEAR``).  The kernels' launch
+           counters are set to 0 before each run and read after: every
+           train step launches the forward and the backward kernel twice
+           each, eval adds forward launches only (two per chunk).  Checks
+           the checkpoints, the resume, a falling loss, metrics.txt, a
+           held-out PSNR above the fresh init's and the four fixed-dist
+           result folders; logs ms per step (from metrics.jsonl), s per
+           test image, checkpoint save / load s, PSNR / SSIM, and PSNR and
+           s per image at each distance.
+10. llff   the driver on ``configs/llff_linear.txt`` at full width (two
+           8x256 MLPs, 128 + 64 samples, ``raw_noise_std`` 1, NDC rays,
+           the shuffled pool of every training ray), on an LLFF-layout
+           scene written with the port's ``make_llff_fixture`` at the
+           geometry ``factor = 8`` reads from a published scene: 20 views
+           (fern's count), ``images_8/`` PNGs at 378x504 and a
+           ``poses_bounds.npy`` whose hwf is the full 3024 x 4032, so the
+           loader's factor path runs with no minify.  Train 300 steps
+           (constant quadrature cut to 100, ``i_print`` 50, val render and
+           checkpoint at 150 and 300) on the 17 training views, test the 3
+           held-out views (llffhold 8: views 0, 8, 16) and the fresh init,
+           then ``--task test_samples_error --eval_det``.  Launches counted
+           as in the driver phase.  Checks a falling loss, a held-out PSNR
+           above the fresh init's, the pool (12 columns, 17 x 378 x 504
+           rows), a finite ``metrics_expecteddepth.txt``, and one held-out
+           view with ``--eval_det`` rendered whole on the card against every
+           8th pixel on the CPU (``REFERENCE_TOL``, and ``pred_hyp`` at the
+           depth tolerance 1e-2); logs ms per step, pool build s, s per
+           test image, PSNR / SSIM and the importance-sampling error.
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without CUDA, without the repository beside it, or on any failure.
-``--only bwd,train`` runs the build and the named phases alone and prints
-no result lines.
+``--only bwd,train`` (or ``--only llff``) runs the build and the named
+phases alone and prints no result lines.
 """
 from __future__ import annotations
 
@@ -133,6 +157,18 @@ DRIVER_TRAIN = ["--precrop_iters", "50", "--constant_init", "100",
                 "--i_print", str(DRIVER_PRINT), "--i_weights", "150",
                 "--i_img", "150",
                 "--i_testset", "1000000", "--i_video", "1000000"]
+# the driver phase's fixed-distance sweep: one test view per distance
+FIXED_DIST_VIEWS = 1
+# the llff phase: the forward-facing fixture at the geometry factor 8 reads
+# from a published nerf_llff_data scene (fern: 20 views at 3024 x 4032);
+# 128 samples per ray (the fixture's 640 take ~40 s per view on one core)
+LLFF_VIEWS, LLFF_FACTOR, LLFF_HW, LLFF_MARCH = 20, 8, (378, 504), 128
+LLFF_STEPS, LLFF_PRINT = 300, 50
+LLFF_TRAIN = ["--constant_init", "100", "--i_print", str(LLFF_PRINT),
+              "--i_weights", "150", "--i_img", "150",
+              "--i_testset", "1000000", "--i_video", "1000000"]
+# pred_hyp, a depth along the ray, at the depth maps' tolerance
+HYP_TOL = dict(REFERENCE_TOL, pred_hyp=1e-2)
 PROBE_REPLACES = {"shape": "tools/dot_decompose.py:89",     # make_shape_kernel
                   "mixed": "tools/dot_decompose.py:161",    # make_mixed_kernel
                   "merged": "tools/dot_decompose.py:230",   # make_merged_kernel
@@ -663,11 +699,11 @@ def phase_reference(dev):
     log("reference", rays=512, max_abs_err=errs, tolerance=REFERENCE_TOL)
 
 
-def _card_vs_cpu(card: dict, cpu: dict) -> dict:
+def _card_vs_cpu(card: dict, cpu: dict, tol=REFERENCE_TOL) -> dict:
     """Max abs errors of the card's maps against the CPU's, held to
-    ``REFERENCE_TOL``."""
+    ``tol``."""
     errs = {}
-    for k, lim in REFERENCE_TOL.items():
+    for k, lim in tol.items():
         errs[k] = float(np.abs(card[k] - cpu[k]).max())
         if errs[k] > lim:
             raise AssertionError(f"{k}: card vs CPU {errs[k]} > {lim}")
@@ -1047,38 +1083,23 @@ def phase_train_reference(dev):
                              f"{cpu['losses']}")
 
 
-def write_sphere_scene(scene_dir: str, size: int, views: dict) -> None:
-    """A Blender-layout scene of the numpy sphere: ``transforms_{split}.
-    json`` and RGBA pngs in straight alpha (the sphere's colour, alpha its
-    opacity), so compositing over white gives the white-background render.
-    Train views ring the sphere; val and test views sit between them."""
+def _write_sphere_pngs(size: int, jobs) -> None:
+    """Render the numpy sphere for each (path, c2w) of ``jobs`` at size x
+    size with the lego camera_angle_x, as RGBA pngs in straight alpha (the
+    sphere's colour, alpha its opacity), so compositing over white gives
+    the white-background render."""
     from concurrent.futures import ThreadPoolExecutor
 
     from plnerf_torch.data.png import write_png
-    from plnerf_torch.data.synthetic import (pose_spherical_np,
-                                             render_sphere_image)
+    from plnerf_torch.data.synthetic import render_sphere_image
     from plnerf_torch.utils.misc import to8b
 
     focal = 0.5 * size / np.tan(0.5 * LEGO_CAMERA_ANGLE_X)
     color = np.array([0.8, 0.3, 0.2], np.float32)
-    rng = np.random.default_rng(0)
-    jobs = []
-    for k, (split, n) in enumerate(views.items()):
-        thetas = np.linspace(-180, 180, n, endpoint=False) + 360 / 16 * k
-        frames = []
-        for i, theta in enumerate(thetas):
-            c2w = pose_spherical_np(theta, rng.uniform(-40, -20), 4.0)
-            frames.append({"file_path": f"./{split}/r_{i}",
-                           "transform_matrix": c2w.tolist()})
-            jobs.append((os.path.join(scene_dir, split, f"r_{i}.png"), c2w))
-        os.makedirs(os.path.join(scene_dir, split), exist_ok=True)
-        with open(os.path.join(scene_dir, f"transforms_{split}.json"),
-                  "w") as f:
-            json.dump({"camera_angle_x": LEGO_CAMERA_ANGLE_X,
-                       "frames": frames}, f)
 
     def render(job):
         path, c2w = job
+        os.makedirs(os.path.dirname(path), exist_ok=True)
         rgb = render_sphere_image(c2w, size, size, focal, color=color,
                                   white_bkgd=False)
         alpha = np.clip(rgb[..., :1] / color[0], 0.0, 1.0)
@@ -1091,18 +1112,68 @@ def write_sphere_scene(scene_dir: str, size: int, views: dict) -> None:
         list(ex.map(render, jobs))
 
 
+def _write_frames(scene_dir: str, json_name: str, frames) -> None:
+    with open(os.path.join(scene_dir, json_name), "w") as f:
+        json.dump({"camera_angle_x": LEGO_CAMERA_ANGLE_X,
+                   "frames": frames}, f)
+
+
+def write_sphere_scene(scene_dir: str, size: int, views: dict) -> None:
+    """A Blender-layout scene of the numpy sphere: ``transforms_{split}.
+    json`` and RGBA pngs.  Train views ring the sphere; val and test views
+    sit between them."""
+    from plnerf_torch.data.synthetic import pose_spherical_np
+
+    rng = np.random.default_rng(0)
+    jobs = []
+    for k, (split, n) in enumerate(views.items()):
+        thetas = np.linspace(-180, 180, n, endpoint=False) + 360 / 16 * k
+        frames = []
+        for i, theta in enumerate(thetas):
+            c2w = pose_spherical_np(theta, rng.uniform(-40, -20), 4.0)
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": c2w.tolist()})
+            jobs.append((os.path.join(scene_dir, split, f"r_{i}.png"), c2w))
+        os.makedirs(scene_dir, exist_ok=True)
+        _write_frames(scene_dir, f"transforms_{split}.json", frames)
+    _write_sphere_pngs(size, jobs)
+
+
+def write_fixed_dist_scene(scene_dir: str, size: int, dists, n: int) -> None:
+    """The blender_fixeddist layout of the numpy sphere: ``n`` test views
+    at radius 4 x d for each distance d (``radius_{d}_test/r_i.png`` and
+    ``transforms_radius{d}_test.json``)."""
+    from plnerf_torch.data.synthetic import pose_spherical_np
+
+    jobs = []
+    os.makedirs(scene_dir, exist_ok=True)
+    for d in dists:
+        frames = []
+        for i, theta in enumerate(np.linspace(-180, 180, n, endpoint=False)
+                                  + 15.0):
+            c2w = pose_spherical_np(theta, -30.0, 4.0 * d)
+            rel = f"radius_{d}_test/r_{i}"
+            frames.append({"file_path": "./" + rel,
+                           "transform_matrix": c2w.tolist()})
+            jobs.append((os.path.join(scene_dir, rel + ".png"), c2w))
+        _write_frames(scene_dir, f"transforms_radius{d}_test.json", frames)
+    _write_sphere_pngs(size, jobs)
+
+
 def _records(exp: str, key: str) -> dict:
     """{step: record} of the metrics.jsonl records holding ``key``."""
     with open(os.path.join(exp, "metrics.jsonl")) as f:
         return {r["step"]: r for r in map(json.loads, f) if key in r}
 
 
-def _driver_view(argv, state, stride: int = 8) -> dict:
+def _driver_view(argv, state, stride: int = 8, hyp: bool = False) -> dict:
     """One test view of ``state`` through the driver's eval configs with
     ``--eval_det``: rendered whole on the card (the kernel on), and at
     every ``stride``-th pixel of each axis on the CPU with the same weights
-    (the kernel's plain version); the two held to ``REFERENCE_TOL``."""
+    (the kernel's plain version); the two held to ``REFERENCE_TOL`` (with
+    ``hyp``, ``pred_hyp`` too, at ``HYP_TOL``).  NDC rays for LLFF."""
     import copy
+    import dataclasses
 
     from plnerf_torch.cli import config, run_plnerf
     from plnerf_torch.cli.datasets import load_dataset
@@ -1117,40 +1188,95 @@ def _driver_view(argv, state, stride: int = 8) -> dict:
     rcfg = run_plnerf.eval_render_config(args, rcfg)
     if rcfg.perturb or not rcfg.use_fused_mlp:
         raise AssertionError(f"eval config {rcfg}")
+    rcfg = dataclasses.replace(rcfg, compute_pred_hyp=hyp)
+    tol = HYP_TOL if hyp else REFERENCE_TOL
     bundle = load_dataset(args)
     data, vi = bundle.data, int(bundle.i_test[0])
     t = time.perf_counter()
     card = EI.render_image(state.params_coarse, state.params_fine,
                            data.poses[vi], data.hwf, data.K, mcfg, rcfg,
                            near=bundle.near, far=bundle.far,
-                           chunk=args.chunk, mcfg_fine=setup.mcfg_fine)
+                           chunk=args.chunk, ndc=bundle.ndc,
+                           mcfg_fine=setup.mcfg_fine, keep_hyp=hyp)
     card_s = time.perf_counter() - t
     H, W = card["rgb_map"].shape[:2]
     c2w = torch.as_tensor(np.asarray(data.poses[vi], np.float32)[:3, :4])
     ro, rd = raysmod.get_rays(H, W, np.asarray(data.K), c2w)
     packed, _ = make_ray_batch(ro, rd, bundle.near, bundle.far,
-                               rcfg.use_viewdirs)
+                               rcfg.use_viewdirs, bundle.ndc, H, W,
+                               float(data.hwf[2]))
     rays = packed.reshape(H, W, -1)[::stride, ::stride]
     t = time.perf_counter()
     cpu = EI.render_chunks(
         copy.deepcopy(state.params_coarse).to("cpu"),
         copy.deepcopy(state.params_fine).to("cpu"),
         rays.reshape(-1, rays.shape[-1]), mcfg, rcfg, 4096, 0,
-        tuple(REFERENCE_TOL), mcfg_fine=setup.mcfg_fine)
+        tuple(REFERENCE_TOL), mcfg_fine=setup.mcfg_fine, keep_hyp=hyp)
     cpu_s = time.perf_counter() - t
     n = rays.shape[0] * rays.shape[1]
     cpu = {k: v.numpy().reshape(n, -1) for k, v in cpu.items()}
-    sub = {k: card[k][::stride, ::stride].reshape(n, -1)
-           for k in REFERENCE_TOL}
+    sub = {k: card[k][::stride, ::stride].reshape(n, -1) for k in tol}
     gt = np.asarray(data.images[vi])
     return {"view": vi, "card_pixels": H * W, "cpu_pixels": n,
-            "max_abs_err": _card_vs_cpu(sub, cpu),
-            "tolerance": REFERENCE_TOL,
+            "max_abs_err": _card_vs_cpu(sub, cpu, tol), "tolerance": tol,
             "psnr_card": Mx.mse2psnr(float(np.mean(
                 (card["rgb_map"] - gt) ** 2))),
             "psnr0_card": Mx.mse2psnr(float(np.mean(
                 (card["rgb0"] - gt) ** 2))),
             "card_s": card_s, "cpu_s": cpu_s}
+
+
+def _driver_runs():
+    """(run, expect, launches, runs): ``run(name, argv)`` calls the driver's
+    entry point, the kernels' launch counters set to 0 just before and read
+    just after into ``launches[name]``, its seconds into ``runs[name]``;
+    ``expect(name, fwd, bwd)`` holds a run's launches."""
+    from plnerf_torch.cli import run_plnerf
+    from plnerf_torch.kernels import fused_mlp
+
+    launches, runs = {}, {}
+
+    def run(name, argv):
+        torch.cuda.synchronize()
+        fused_mlp.launches = fused_mlp.bwd_launches = 0   # path starts
+        t = time.perf_counter()
+        out = run_plnerf.main(argv)
+        torch.cuda.synchronize()
+        runs[name] = time.perf_counter() - t
+        launches[name] = {"fused_mlp_fwd": fused_mlp.launches,  # ends
+                          "fused_mlp_bwd": fused_mlp.bwd_launches}
+        return out
+
+    def expect(name, fwd, bwd):
+        got = launches[name]
+        if (got["fused_mlp_fwd"], got["fused_mlp_bwd"]) != (fwd, bwd):
+            raise AssertionError(f"driver {name}: launches {got}, "
+                                 f"expected {fwd} / {bwd}")
+
+    return run, expect, launches, runs
+
+
+class _Recording:
+    """Wraps ``module.name`` while active: each call's seconds and
+    result go to ``calls``."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.module, self.name)
+
+        def wrapped(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            self.calls.append((time.perf_counter() - t, out))
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
 
 
 def phase_driver(dev, bare_step_ms=None):
@@ -1160,7 +1286,6 @@ def phase_driver(dev, bare_step_ms=None):
 
     from plnerf_torch.checkpoint import io as ckio
     from plnerf_torch.cli import run_plnerf
-    from plnerf_torch.kernels import fused_mlp
 
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="plnerf_driver_")
@@ -1170,31 +1295,16 @@ def phase_driver(dev, bare_step_ms=None):
         write_sphere_scene(os.path.join(data, "sphere"), DRIVER_SIZE,
                            DRIVER_VIEWS)
         scene_s = time.perf_counter() - t0
+        write_fixed_dist_scene(os.path.join(data, "fixdist"), DRIVER_SIZE,
+                               run_plnerf.FIXED_DIST_NEAR, FIXED_DIST_VIEWS)
+        fixed_scene_s = time.perf_counter() - t0 - scene_s
         config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "configs", "blender_linear.txt")
         where = ["--ckpt_dir", ckpt, "--expname", "smoke", "--data_dir", data,
                  "--scene_id", "sphere"]
         exp = os.path.join(ckpt, "smoke")
         eval_chunks = -(-DRIVER_SIZE * DRIVER_SIZE // R_CHUNK)
-        launches, runs = {}, {}
-
-        def run(name, argv):
-            """One call of the driver's entry point, its launches and s."""
-            torch.cuda.synchronize()
-            fused_mlp.launches = fused_mlp.bwd_launches = 0   # path starts
-            t = time.perf_counter()
-            out = run_plnerf.main(argv)
-            torch.cuda.synchronize()
-            runs[name] = time.perf_counter() - t
-            launches[name] = {"fused_mlp_fwd": fused_mlp.launches,  # ends
-                              "fused_mlp_bwd": fused_mlp.bwd_launches}
-            return out
-
-        def expect(name, fwd, bwd):
-            got = launches[name]
-            if (got["fused_mlp_fwd"], got["fused_mlp_bwd"]) != (fwd, bwd):
-                raise AssertionError(f"driver {name}: launches {got}, "
-                                     f"expected {fwd} / {bwd}")
+        run, expect, launches, runs = _driver_runs()
 
         train = ["--config", config, "--task", "train"] + where + DRIVER_TRAIN
         state = run("train", train + ["--num_iterations", str(DRIVER_STEPS)])
@@ -1232,6 +1342,26 @@ def phase_driver(dev, bare_step_ms=None):
             raise AssertionError(f"held-out PSNR {scores}")
         view = _driver_view(test, state)
 
+        # the fixed-distance sweep from the step-400 checkpoint
+        with _Recording(run_plnerf.EI, "render_images_with_metrics") as rec:
+            sweep = run("test_fixed_dist", test[2:] + [
+                "--task", "test_fixed_dist", "--eval_data_dir", data,
+                "--eval_scene_id", "fixdist"])
+        n_dist = len(run_plnerf.FIXED_DIST_NEAR)
+        expect("test_fixed_dist", 2 * n_dist * FIXED_DIST_VIEWS
+               * eval_chunks, 0)
+        fixed = {}
+        for (d, mm), (s_, _) in zip(sweep.items(), rec.calls):
+            sub = os.path.join(exp, f"test_images_dist{d}_sphere")
+            with open(os.path.join(sub, "metrics.txt")) as f:
+                if "psnr: " not in f.read():
+                    raise AssertionError(f"{sub}/metrics.txt")
+            fixed[d] = {"near": run_plnerf.FIXED_DIST_NEAR[d],
+                        "psnr": mm.get("psnr"), "ssim": mm.get("ssim"),
+                        "s_per_image": s_ / FIXED_DIST_VIEWS}
+        if len(fixed) != n_dist or len(rec.calls) != n_dist:
+            raise AssertionError(f"fixed-dist results {fixed}")
+
         # checkpoint save and load of the step-400 state, on their own
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1249,7 +1379,8 @@ def phase_driver(dev, bare_step_ms=None):
         fwd = sum(v["fused_mlp_fwd"] for v in launches.values())
         bwd = sum(v["fused_mlp_bwd"] for v in launches.values())
         log("driver", card=card_line(), scene={
-            "views": DRIVER_VIEWS, "size": DRIVER_SIZE, "write_s": scene_s},
+            "views": DRIVER_VIEWS, "size": DRIVER_SIZE, "write_s": scene_s,
+            "fixed_dist_write_s": fixed_scene_s},
             config="configs/blender_linear.txt", steps=DRIVER_RESUME_STEPS,
             resumed_from=DRIVER_STEPS, checkpoints=ckpts,
             train_loss=losses, train_psnr={k: r["train/psnr"]
@@ -1268,7 +1399,7 @@ def phase_driver(dev, bare_step_ms=None):
             psnr_init=scores["test_init"]["psnr"],
             ssim_init=scores["test_init"]["ssim"],
             psnr_400=scores["test"]["psnr"], ssim_400=scores["test"]["ssim"],
-            view_check=view,
+            view_check=view, fixed_dist=fixed,
             launches=launches, launches_per_train_step={
                 "fused_mlp_fwd": 2.0, "fused_mlp_bwd": 2.0},
             phase_s=time.perf_counter() - t_phase,
@@ -1285,8 +1416,110 @@ def phase_driver(dev, bare_step_ms=None):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def phase_llff(dev):
+    """Returns (forward launches, backward launches) of the LLFF runs."""
+    import shutil
+    import tempfile
+
+    from plnerf_torch.cli import run_plnerf
+    from plnerf_torch.data.synthetic import make_llff_fixture
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="plnerf_llff_")
+    try:
+        data, ckpt = os.path.join(root, "data"), os.path.join(root, "ckpt")
+        H, W = LLFF_HW
+        t0 = time.perf_counter()
+        make_llff_fixture(os.path.join(data, "ff"), n=LLFF_VIEWS, H=H, W=W,
+                          factor=LLFF_FACTOR, n_march=LLFF_MARCH,
+                          workers=min(8, os.cpu_count() or 1))
+        scene_s = time.perf_counter() - t0
+        config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "configs", "llff_linear.txt")
+        where = ["--ckpt_dir", ckpt, "--expname", "llff", "--data_dir", data,
+                 "--scene_id", "ff", "--dataset", "llff"]
+        exp = os.path.join(ckpt, "llff")
+        eval_chunks = -(-H * W // R_CHUNK)
+        i_test = list(range(0, LLFF_VIEWS, 8))
+        n_train = LLFF_VIEWS - len(i_test)
+        run, expect, launches, runs = _driver_runs()
+
+        with _Recording(run_plnerf.batching, "build_ray_pool") as pool:
+            state = run("train", ["--config", config, "--task", "train",
+                                  "--num_iterations", str(LLFF_STEPS)]
+                        + where + LLFF_TRAIN)
+        # two val renders (i_img at 150, 300), two launches per chunk each
+        expect("train", 2 * LLFF_STEPS + 2 * 2 * eval_chunks,
+               2 * LLFF_STEPS)
+        (pool_s, rows), = pool.calls
+        if rows.shape != (n_train * H * W, 12):
+            raise AssertionError(f"pool {rows.shape}")
+        recs = _records(exp, "train/loss")
+        losses = {k: r["train/loss"] for k, r in recs.items()}
+        if not (np.isfinite(list(losses.values())).all()
+                and losses[LLFF_STEPS] < losses[LLFF_PRINT]):
+            raise AssertionError(f"loss did not fall: {losses}")
+
+        test = ["--task", "test"] + where
+        scores = {}
+        for name, extra in (("test", []), ("test_init", ["--no_reload"])):
+            mm = run(name, test + extra)
+            expect(name, 2 * len(i_test) * eval_chunks, 0)
+            scores[name] = {k: mm.get(k) for k in ("psnr", "ssim")}
+        if not scores["test"]["psnr"] > scores["test_init"]["psnr"]:
+            raise AssertionError(f"held-out PSNR {scores}")
+
+        err = run("samples_error", ["--task", "test_samples_error",
+                                    "--eval_det"] + where)
+        expect("samples_error", 2 * len(i_test) * eval_chunks, 0)
+        sub, = [d for d in os.listdir(exp)
+                if d.startswith("test_samples_error_")]
+        with open(os.path.join(exp, sub, "metrics_expecteddepth.txt")) as f:
+            k, v = f.read().split(": ")
+        if k != "importance_sampling_error" or not np.isfinite(float(v)):
+            raise AssertionError(f"metrics_expecteddepth.txt: {k}: {v}")
+        view = _driver_view(test, state, hyp=True)
+
+        window_s = {k: LLFF_PRINT / r["train/steps_per_sec"]
+                    for k, r in recs.items()}
+        log("llff", card=card_line(), scene={
+            "views": LLFF_VIEWS, "images": f"images_{LLFF_FACTOR}",
+            "size": [H, W], "hwf_full": [H * LLFF_FACTOR, W * LLFF_FACTOR],
+            "n_march": LLFF_MARCH, "write_s": scene_s},
+            config="configs/llff_linear.txt", steps=LLFF_STEPS,
+            i_test=i_test, pool={"rows": rows.shape[0],
+                                 "columns": rows.shape[1],
+                                 "bytes": rows.nbytes, "build_s": pool_s},
+            train_loss=losses, train_psnr={k: r["train/psnr"]
+                                           for k, r in recs.items()},
+            val_psnr={k: r["val/psnr"]
+                      for k, r in _records(exp, "val/psnr").items()},
+            ms_per_step=1e3 * sum(window_s.values()) / LLFF_STEPS,
+            ms_per_step_by_window={k: 1e3 * v / LLFF_PRINT
+                                   for k, v in window_s.items()},
+            s_per_test_image=runs["test"] / len(i_test),
+            s_per_samples_error_image=runs["samples_error"] / len(i_test),
+            run_s=runs, psnr_init=scores["test_init"]["psnr"],
+            ssim_init=scores["test_init"]["ssim"],
+            psnr=scores["test"]["psnr"], ssim=scores["test"]["ssim"],
+            importance_sampling_error=err.get("importance_sampling_error"),
+            view_check=view, launches=launches,
+            launches_per_train_step={"fused_mlp_fwd": 2.0,
+                                     "fused_mlp_bwd": 2.0},
+            phase_s=time.perf_counter() - t_phase,
+            note="ms_per_step: the i_print windows' times summed over the "
+                 "run (val renders and checkpoints included); pool build_s: "
+                 "build_ray_pool on the host (rays, shuffle, NDC warp); s "
+                 "per test image: the task's wall time over its images")
+        fwd = sum(v["fused_mlp_fwd"] for v in launches.values())
+        bwd = sum(v["fused_mlp_bwd"] for v in launches.values())
+        return fwd, bwd
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 PHASES = ("kernel", "probes", "bwd", "slice", "reference", "train",
-          "train_reference", "driver")
+          "train_reference", "driver", "llff")
 
 
 def main(argv=None) -> int:
@@ -1319,7 +1552,7 @@ def main(argv=None) -> int:
             fns = dict(zip(PHASES, (
                 phase_kernel, phase_probes, phase_bwd_kernel, phase_slice,
                 phase_reference, phase_train, phase_train_reference,
-                phase_driver)))
+                phase_driver, phase_llff)))
             for name in only:
                 fns[name](dev)
             return 0
@@ -1332,12 +1565,13 @@ def main(argv=None) -> int:
         phase_train_reference(dev)
         driver_fwd, driver_bwd = phase_driver(
             dev, train_summary["ms_per_step_fp32"])
+        llff_fwd, llff_bwd = phase_llff(dev)
     except Exception:
         traceback.print_exc()
         return 1
     if (launches < 1 or train_fwd < 1 or train_bwd < 1 or probe_fwd < 1
             or min(probe_launches.values()) < 1 or driver_fwd < 1
-            or driver_bwd < 1):
+            or driver_bwd < 1 or llff_fwd < 1 or llff_bwd < 1):
         print("chip_smoke: a main path launched no kernel", file=sys.stderr)
         return 1
     # the training path runs folded heads in fp32
@@ -1346,13 +1580,14 @@ def main(argv=None) -> int:
         "name": "fused_mlp_fwd", "route": "cuda",
         "source": "plnerf_torch/kernels/csrc/fused_mlp_fwd.cu",
         "replaces": KERNEL_REPLACES,
-        "launches": launches + train_fwd + probe_fwd + driver_fwd,
+        "launches": launches + train_fwd + probe_fwd + driver_fwd + llff_fwd,
         "max_abs_err": err, "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]}, {
         "name": "fused_mlp_bwd", "route": "cuda",
         "source": "plnerf_torch/kernels/csrc/fused_mlp_bwd.cu",
-        "replaces": BWD_REPLACES, "launches": train_bwd + driver_bwd,
+        "replaces": BWD_REPLACES,
+        "launches": train_bwd + driver_bwd + llff_bwd,
         "max_abs_err": bwd_err, "ms": bt["kernel_ms"],
         "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"],
         "bound_by": bt["bound_by"], "library_ms": bt["library_ms"]}]

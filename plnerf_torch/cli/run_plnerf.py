@@ -1,20 +1,26 @@
-"""PL-NeRF driver, ``train`` and ``test`` (port of
-``plnerf/cli/run_plnerf.py``, the reference ``run_plnerf.py`` CLI):
+"""PL-NeRF driver (port of ``plnerf/cli/run_plnerf.py``, the reference
+``run_plnerf.py`` CLI):
 
     python -m plnerf_torch.cli.run_plnerf --config configs/blender_linear.txt \\
-        --task train|test [--device cpu] ...
+        --task train|test|test_fixed_dist|test_samples_error [--device cpu] ...
 
 * ``train``: two-Adam NVS training with the constant-quadrature warm-up,
   the precrop, both ray-batching policies (one image per step, or the
-  shuffled ray pool), periodic checkpoints, val renders and test sets.
+  shuffled ray pool; NDC rays for LLFF scenes), periodic checkpoints, val
+  renders and test sets.
 * ``test``: held-out views, PSNR / SSIM -> pngs and metrics.txt.
+* ``test_fixed_dist``: the held-out views of ``--eval_data_dir`` /
+  ``--eval_scene_id`` (a blender_fixeddist scene) at the four distances of
+  ``FIXED_DIST_NEAR``, one ``test_images_dist{d}_{scene_id}`` folder each.
+* ``test_samples_error``: the importance-sampling error of the held-out
+  views, ``test_samples_error_{N_importance}/metrics_expecteddepth.txt``.
 
-Runs on the CUDA device unless ``--device cpu`` is given, and raises where
-there is none.  Not ported yet, each refused with ``SystemExit`` naming
-its ROADMAP item: the ``test_fixed_dist`` / ``test_samples_error`` /
-``video`` tasks and ``--render_only`` (A8), ``export_serving`` (A13),
-``--occ_grid`` (A10), ``--profile`` (A17), ``--lpips_weights`` (A14); the
-llff and DTU datasets (A7b, ``cli/datasets.py``).
+Datasets: llff, blender, blender2, blender_fixeddist, DTU, DTU2
+(``cli/datasets.py``).  Runs on the CUDA device unless ``--device cpu`` is
+given, and raises where there is none.  Not ported yet, each refused with
+``SystemExit`` naming its ROADMAP item: the ``video`` task,
+``--render_only`` and ``--i_video`` (A8), ``export_serving`` (A13),
+``--occ_grid`` (A10), ``--profile`` (A17), ``--lpips_weights`` (A14).
 
 Differences from the JAX driver:
 
@@ -29,6 +35,9 @@ Differences from the JAX driver:
   round the cadences to windows of N) is parsed for config parity and
   refused above 1.  Cadences fire on the iterations where the JAX driver's
   fire at N = 1.
+* ``test_samples_error`` renders NDC rays for LLFF scenes, as the
+  reference's render_kwargs do; the JAX driver renders world-space rays
+  there between NDC bounds (0, 1).
 * Randomness comes from one ``torch.Generator`` seeded ``--seed``.  A
   resumed run reseeds it from ``--seed``, as the JAX driver draws from a
   fresh ``PRNGKey(seed)`` (run_plnerf.py:438): it does not continue the
@@ -51,8 +60,8 @@ from ..eval import metrics as Mx
 from ..train import batching
 from ..train.step import TrainSetup, init_state, make_train_step
 from ..utils.logging import MetricsLogger
-from .config import config_parser, resolve_args
 from .datasets import DatasetBundle, load_dataset
+from .config import config_parser, resolve_args
 
 
 def _resolve_kernel(args, device: torch.device) -> bool:
@@ -196,7 +205,8 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
         t_pool = time.time()
         pool = torch.as_tensor(batching.build_ray_pool(
             np.asarray(data.images, np.float32), np.asarray(data.poses),
-            data.K, bundle.i_train, seed=args.seed), device=device)
+            data.K, bundle.i_train, seed=args.seed, ndc=bundle.ndc,
+            focal=float(data.hwf[2])), device=device)
         if pool.shape[0] < n_rand:
             raise ValueError(f"the ray pool holds {pool.shape[0]} rays, "
                              f"fewer than --N_rand {n_rand}")
@@ -226,7 +236,8 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
         else:
             rays, target, _ = batching.sample_one_image_batch(
                 images, poses, K, i_train, g, n_rand, near, far,
-                rcfg.use_viewdirs, i < args.precrop_iters, args.precrop_frac)
+                rcfg.use_viewdirs, i < args.precrop_iters, args.precrop_frac,
+                ndc=bundle.ndc, focal=float(data.hwf[2]))
         state, metrics = step_fn(state, {"rays": rays, "target": target}, g)
         if use_batching and pool.shape[0] - i_batch < n_rand:
             # every full batch of the epoch is consumed before the
@@ -328,14 +339,19 @@ def eval_render_config(args, rcfg: RenderConfig) -> RenderConfig:
     return EI.test_render_config(rcfg, **ov)
 
 
+def _state_for_eval(args, setup):
+    state, start = restore_or_init(args, setup, resolve_device(args.device))
+    if start == 0 and not args.no_reload:
+        print("WARNING: no checkpoint found — evaluating fresh init")
+    return state
+
+
 def run_test(args, bundle, mcfg, rcfg, state=None, suffix: str = "",
              setup=None, chunk=None):
     """Render and score the test split; writes the images and metrics.txt
     and returns the ``MeanTracker``."""
     if state is None:
-        state, start = restore_or_init(args, setup, resolve_device(args.device))
-        if start == 0 and not args.no_reload:
-            print("WARNING: no checkpoint found — evaluating fresh init")
+        state = _state_for_eval(args, setup)
     mean_metrics, res = EI.render_images_with_metrics(
         state.params_coarse, state.params_fine, bundle.data, bundle.i_test,
         mcfg, eval_render_config(args, rcfg), chunk=chunk or args.chunk,
@@ -351,13 +367,62 @@ def run_test(args, bundle, mcfg, rcfg, state=None, suffix: str = "",
     return mean_metrics
 
 
+# the reference's multi-distance sweep: dist -> near plane
+FIXED_DIST_NEAR = {0.25: 1e-4, 0.5: 0.5, 0.75: 1.0, 1.0: 2.0}
+
+
+def run_test_fixed_dist(args, mcfg, rcfg, setup):
+    """Score the checkpoint on the held-out views of the blender_fixeddist
+    scene ``--eval_data_dir`` / ``--eval_scene_id`` at each distance of
+    ``FIXED_DIST_NEAR``, with its near plane; returns {dist:
+    MeanTracker}."""
+    import copy
+
+    state = _state_for_eval(args, setup)
+    out = {}
+    for test_dist, near in FIXED_DIST_NEAR.items():
+        eval_args = copy.copy(args)
+        eval_args.dataset = "blender_fixeddist"
+        eval_args.data_dir = args.eval_data_dir
+        eval_args.scene_id = args.eval_scene_id
+        eval_args.test_dist = test_dist
+        eval_args.set_near_plane = near
+        bundle = load_dataset(eval_args)
+        mean_metrics, res = EI.render_images_with_metrics(
+            state.params_coarse, state.params_fine, bundle.data,
+            bundle.i_test, mcfg, eval_render_config(args, rcfg),
+            chunk=args.chunk, near=near, far=bundle.far,
+            mcfg_fine=setup.mcfg_fine)
+        EI.write_images_with_metrics(res, mean_metrics, os.path.join(
+            exp_dir(args), f"test_images_dist{test_dist}_{args.scene_id}"))
+        print(f"[fixed_dist {test_dist}] psnr="
+              f"{mean_metrics.get('psnr'):.3f}")
+        out[test_dist] = mean_metrics
+    return out
+
+
+def run_test_samples_error(args, bundle, mcfg, rcfg, setup):
+    """The importance-sampling error of the held-out views, written to
+    ``test_samples_error_{N_importance}/metrics_expecteddepth.txt``;
+    returns the ``MeanTracker``."""
+    state = _state_for_eval(args, setup)
+    return EI.test_images_samples(
+        state.params_coarse, state.params_fine, bundle.data, bundle.i_test,
+        mcfg, eval_render_config(args, rcfg),
+        os.path.join(exp_dir(args),
+                     f"test_samples_error_{args.N_importance}"),
+        chunk=args.chunk, mcfg_fine=setup.mcfg_fine, ndc=bundle.ndc)
+
+
 # ---------------------------------------------------------------------------
 
+TASKS = ("train", "test", "test_fixed_dist", "test_samples_error")
+
+
 def _refuse_unported(args) -> None:
-    if args.task in ("test_fixed_dist", "test_samples_error", "video") \
-            or args.render_only:
-        raise SystemExit(f"--task {args.task} / --render_only: not ported "
-                         "yet (ROADMAP A8)")
+    if args.task == "video" or args.render_only:
+        raise SystemExit(f"--task {args.task} / --render_only: videos are "
+                         "not ported yet (ROADMAP A8)")
     if args.task == "export_serving":
         raise SystemExit("--task export_serving: not ported yet (ROADMAP "
                          "A13)")
@@ -374,13 +439,14 @@ def _refuse_unported(args) -> None:
         raise SystemExit(f"--steps_per_dispatch {args.steps_per_dispatch}: "
                          "the port runs one step per loop iteration; only 1 "
                          "is accepted")
-    if args.task not in ("train", "test"):
+    if args.task not in TASKS:
         raise SystemExit(f"Unknown task {args.task}")
 
 
 def run(args, vanilla: bool = False):
-    """Run ``args.task``; returns the final ``TrainState`` (train) or the
-    test metrics' ``MeanTracker`` (test)."""
+    """Run ``args.task``; returns the final ``TrainState`` (train), the
+    metrics' ``MeanTracker`` (test, test_samples_error) or {dist:
+    MeanTracker} (test_fixed_dist)."""
     _refuse_unported(args)
     if args.task != "train":
         # eval-time sample-budget override; mutating args keeps rcfg and
@@ -390,9 +456,13 @@ def run(args, vanilla: bool = False):
         if getattr(args, "eval_N_importance", None):
             args.N_importance = args.eval_N_importance
     mcfg, rcfg, setup = build_configs(args, vanilla=vanilla)
+    if args.task == "test_fixed_dist":
+        return run_test_fixed_dist(args, mcfg, rcfg, setup)
     bundle = load_dataset(args)
     if args.task == "train":
         return run_training(args, bundle, setup, mcfg, rcfg)
+    if args.task == "test_samples_error":
+        return run_test_samples_error(args, bundle, mcfg, rcfg, setup)
     return run_test(args, bundle, mcfg, rcfg, setup=setup)
 
 

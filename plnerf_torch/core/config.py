@@ -64,7 +64,7 @@ class RenderConfig:
     epsilon: float = 1e-3
     farcolorfix: bool = False
     constant_init: bool = False       # force constant mode (warmup)
-    # depth-supervision extras (compute_pred_hyp is not ported yet)
+    # depth-supervision extras (core/render.py: pred_hyp)
     compute_pred_hyp: bool = False
     is_joint: bool = False
     trim_first_weight: bool = True

@@ -3,15 +3,20 @@ pass -> hierarchical importance resampling -> fine pass, differentiable
 end to end except the importance samples, which are detached as in the
 reference.
 
-RNG: one ``torch.Generator`` feeds, in order, the coarse jitter, the
-coarse density noise, the resample draws and the fine density noise.  The
-``overrides`` dict (``t_rand``, ``noise``, ``u``) injects exact arrays
-for any stream, so numpy-made draws drive this renderer and the JAX
-package alike.
+With ``rcfg.compute_pred_hyp`` it also returns the depth-supervision
+quantiles ``pred_hyp``: the analytic inverse CDF of the last pass's
+weights at draws ``u``, not detached, so gradients flow through
+``sampling.sample_pdf_reformulation`` into tau and T (the depth script's
+render_rays, :920-934).
 
-Not ported yet (raise ``NotImplementedError``): occupancy-grid guided
-sampling (``rcfg.occ``) and the depth-supervision quantiles
-(``rcfg.compute_pred_hyp``).
+RNG: one ``torch.Generator`` feeds, in order, the coarse jitter, the
+coarse density noise, the resample draws, the fine density noise and the
+``pred_hyp`` draws.  The ``overrides`` dict (``t_rand``, ``noise``, ``u``,
+``u_hyp``) injects exact arrays for any stream, so numpy-made draws drive
+this renderer and the JAX package alike.
+
+Not ported yet (raises ``NotImplementedError``): occupancy-grid guided
+sampling (``rcfg.occ``, ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -46,12 +51,12 @@ def render_rays(
 
     ray_batch: [R, 8] (``[o, d, near, far]``) or [R, 11] (+viewdirs).
     Returns rgb_map/disp_map/acc_map/depth_map, the coarse ``*0``
-    variants, z_std and sigma0_pos_frac (and raw with ``retraw``).
+    variants, z_std and sigma0_pos_frac (and raw with ``retraw``; with
+    ``compute_pred_hyp``: pred_hyp, u, weights, z_vals and, after a fine
+    pass, weights0 and z_vals0).
     """
     if rcfg.occ is not None:
         raise NotImplementedError("occupancy-grid sampling is not ported")
-    if rcfg.compute_pred_hyp:
-        raise NotImplementedError("compute_pred_hyp is not ported")
     dev = ray_batch.device
     R = ray_batch.shape[0]
     rays_o, rays_d = ray_batch[:, 0:3], ray_batch[:, 3:6]
@@ -92,6 +97,28 @@ def render_rays(
         out["raw"] = raw
         return out
 
+    def resample(out, z, u):
+        """Importance-sample new z values (one per column of u) from a
+        pass's weights."""
+        if m == "linear":
+            return sampling.sample_pdf_reformulation(
+                z, out["weights"], out["tau"], out["T"], near, far, u,
+                rcfg.zero_tol, rcfg.epsilon)[0]
+        z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
+        return sampling.sample_pdf(z_mid, out["weights"][..., 1:-1], u)
+
+    def pred_hyp(out, z, n):
+        """The depth-supervision quantiles of a pass, not detached."""
+        uh = _maybe(overrides, "u_hyp", dev)
+        if uh is None:
+            uh = sampling.draw_u(generator, R, n, not rcfg.perturb,
+                                 rcfg.is_joint, device=dev)
+        w = out["weights"]
+        return {"pred_hyp": resample(out, z, uh), "u": uh,
+                "weights": (w[..., 1:] if m == "linear"
+                            and rcfg.trim_first_weight else w),
+                "z_vals": z}
+
     out_c = run(params_coarse, z_vals, mcfg)
     ret: Dict[str, torch.Tensor] = {
         # dead-coarse detector: fraction of raw coarse densities > 0
@@ -102,20 +129,15 @@ def render_rays(
             ret[k_] = out_c[k_]
         if rcfg.retraw:
             ret["raw"] = out_c["raw"]
+        if rcfg.compute_pred_hyp:
+            ret.update(pred_hyp(out_c, z_vals, rcfg.n_samples))
         return ret
 
     u = _maybe(overrides, "u", dev)
     if u is None:
         u = sampling.draw_u(generator, R, rcfg.n_importance,
                             det=not rcfg.perturb, device=dev)
-    if m == "linear":
-        z_samples, _, _, _ = sampling.sample_pdf_reformulation(
-            z_vals, out_c["weights"], out_c["tau"], out_c["T"], near, far, u,
-            rcfg.zero_tol, rcfg.epsilon)
-    else:
-        z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-        z_samples = sampling.sample_pdf(z_mid, out_c["weights"][..., 1:-1], u)
-    z_samples = z_samples.detach()                # run_plnerf.py:728
+    z_samples = resample(out_c, z_vals, u).detach()   # run_plnerf.py:728
     z_samples = torch.minimum(torch.maximum(z_samples, near), far)
     z_fine = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1).values
 
@@ -132,6 +154,10 @@ def render_rays(
     ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)  # jnp.std
     if rcfg.retraw:
         ret["raw"] = out_f["raw"]
+    if rcfg.compute_pred_hyp:
+        ret.update(pred_hyp(out_f, z_fine, rcfg.n_importance))
+        ret["weights0"] = out_c["weights"]
+        ret["z_vals0"] = z_vals
     return ret
 
 

@@ -5,7 +5,7 @@
 * ``sample_pdf_reformulation`` — the paper's analytic inverse-CDF for
   piecewise-linear density, with the two closed-form branches, the
   epsilon clamps, the three-way select and the NaN fallback to the left
-  bin edge.
+  bin edge; ``sample_pdf_reformulation_cdf`` is the CDF it searches.
 
 ``searchsorted_right`` keeps the JAX package's comparison count
 (``sum(cdf <= u)``), not a binary search: after the ``cdf[..., -1] = 1``
@@ -146,10 +146,8 @@ def sample_pdf_reformulation(
     Returns (samples, T_below, tau_below, bin_below), all [R, N].
     """
     bins_aug = torch.cat([near, bins, far], dim=-1)          # [R, S+2]
-    cdf = torch.cumsum(weights, dim=-1)           # the weights ARE the pdf
-    # the last entry set to 1 out of place: cdf descends from the weights
-    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf[..., :-1],
-                     torch.ones_like(cdf[..., :1])], dim=-1)  # [R, S+2]
+    # the weights ARE the pdf
+    cdf = sample_pdf_reformulation_cdf(bins, weights, near, far)
 
     inds = searchsorted_right(cdf, u)
     below = torch.clamp_min(inds - 1, 0)
@@ -175,3 +173,14 @@ def sample_pdf_reformulation(
     samples = torch.where(tau_diff_g <= -zero_threshold, decreasing, samples)
     samples = torch.where(torch.isnan(samples), s_left, samples)
     return samples, T_left, tau_left, s_left
+
+
+def sample_pdf_reformulation_cdf(bins: torch.Tensor, weights: torch.Tensor,
+                                 near: torch.Tensor, far: torch.Tensor
+                                 ) -> torch.Tensor:
+    """The CDF the reformulated sampler searches, [R, S+2]: 0, the running
+    sum of the weights, and a last entry set to 1 (normalised by fiat;
+    reference run_nerf_helpers.py:374), built out of place."""
+    cdf = torch.cumsum(weights, dim=-1)
+    return torch.cat([torch.zeros_like(cdf[..., :1]), cdf[..., :-1],
+                      torch.ones_like(cdf[..., :1])], dim=-1)

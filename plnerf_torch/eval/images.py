@@ -1,7 +1,7 @@
 """Full-image rendering, metric evaluation and result writers (port of
-``render_image``, ``test_render_config``, ``render_images_with_metrics``
-and ``write_images_with_metrics`` from ``plnerf/eval/images.py``), single
-device.
+``render_image``, ``test_render_config``, ``render_images_with_metrics``,
+``test_images_samples`` and ``write_images_with_metrics`` from
+``plnerf/eval/images.py``), single device.
 
 A Python loop over fixed-size ray chunks replaces the JAX package's
 ``lax.map``; chunk ``i`` draws from a generator seeded ``seed + i``.
@@ -35,10 +35,12 @@ _IMAGE_KEYS = ("rgb_map", "disp_map", "acc_map", "depth_map", "rgb0", "depth0")
 def render_chunks(params_c: NeRF, params_f: Optional[NeRF],
                   rays: torch.Tensor, mcfg: ModelConfig, rcfg: RenderConfig,
                   chunk: int, seed: int, keys, cam_embedding=None,
-                  mcfg_fine: Optional[ModelConfig] = None
-                  ) -> Dict[str, torch.Tensor]:
+                  mcfg_fine: Optional[ModelConfig] = None,
+                  keep_hyp: bool = False) -> Dict[str, torch.Tensor]:
     """Render ``rays`` [n, 8|11] chunk by chunk; returns the ``keys``
-    maps concatenated over chunks, on the rays' device."""
+    maps (and ``pred_hyp`` with ``keep_hyp``) concatenated over chunks, on
+    the rays' device."""
+    keys = tuple(keys) + (("pred_hyp",) if keep_hyp else ())
     outs = []
     with torch.no_grad():
         for i, start in enumerate(range(0, rays.shape[0], chunk)):
@@ -56,10 +58,11 @@ def render_image(params_c: NeRF, params_f: Optional[NeRF], c2w, hwf, K,
                  near: float = 2.0, far: float = 6.0, chunk: int = 32768,
                  ndc: bool = False, render_factor: int = 0,
                  pixel_center: bool = False, cam_embedding=None,
-                 mcfg_fine: Optional[ModelConfig] = None
-                 ) -> Dict[str, np.ndarray]:
+                 mcfg_fine: Optional[ModelConfig] = None,
+                 keep_hyp: bool = False) -> Dict[str, np.ndarray]:
     """Render one full image on the models' device; returns numpy maps
-    shaped [H, W, ...].  ``render_factor`` downsamples H/W/focal;
+    shaped [H, W, ...] (``pred_hyp`` too with ``keep_hyp``, which needs
+    ``rcfg.compute_pred_hyp``).  ``render_factor`` downsamples H/W/focal;
     ``pixel_center`` uses the depth-script ray convention."""
     H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
     if render_factor:
@@ -80,7 +83,7 @@ def render_image(params_c: NeRF, params_f: Optional[NeRF], c2w, hwf, K,
     packed, _ = render.make_ray_batch(rays_o, rays_d, near, far,
                                       rcfg.use_viewdirs, ndc, H, W, focal)
     out = render_chunks(params_c, params_f, packed, mcfg, rcfg, chunk, seed,
-                        _IMAGE_KEYS, cam_embedding, mcfg_fine)
+                        _IMAGE_KEYS, cam_embedding, mcfg_fine, keep_hyp)
     return {k: v.cpu().numpy().reshape(H, W, *v.shape[1:])
             for k, v in out.items()}
 
@@ -152,6 +155,67 @@ def render_images_with_metrics(
     mean_metrics.note("lpips", "UNAVAILABLE (no weights file: LPIPS is not "
                       "ported yet, ROADMAP A14)")
     return mean_metrics, res
+
+
+def test_images_samples(
+    params_c: NeRF, params_f: Optional[NeRF], dataset, indices,
+    mcfg: ModelConfig, rcfg: RenderConfig, result_dir: str,
+    count: Optional[int] = None, chunk: int = 32768, seed: int = 0,
+    verbose: bool = True, pixel_center: bool = False,
+    mcfg_fine: Optional[ModelConfig] = None,
+    valid_mask_from_dataset: bool = False, ndc: bool = False):
+    """The importance-sampling-error eval (reference run_plnerf.py:218-282):
+    the mean distance between each termination quantile (``pred_hyp``) and
+    the expected depth, over the rays of each view, averaged over views and
+    written to ``result_dir/metrics_expecteddepth.txt``.  Returns the
+    ``MeanTracker``.
+
+    ``count`` views are drawn from ``indices`` with
+    ``default_rng(seed)``; ``valid_mask_from_dataset`` averages over the
+    dataset's valid-depth pixels only (the depth script,
+    run_nerf_sample_based_depth.py:404-408).  ``ndc`` renders NDC rays, as
+    the reference's render_kwargs do for LLFF scenes; the JAX package
+    always renders world-space rays here.  Image ``n`` renders with the
+    seeds ``seed + n * n_chunks + i`` of its chunks ``i``."""
+    rcfg = dataclasses.replace(rcfg, compute_pred_hyp=True)
+    indices = list(np.asarray(indices))
+    if count is not None:
+        count = min(count, len(indices))
+        indices = list(np.random.default_rng(seed).choice(
+            indices, size=count, replace=False))
+    n_chunks = math.ceil(int(dataset.hwf[0]) * int(dataset.hwf[1]) / chunk)
+
+    mean_depth_metrics = MeanTracker()
+    for n, img_idx in enumerate(indices):
+        K_i = (dataset.intrinsics[img_idx]
+               if pixel_center
+               and getattr(dataset, "intrinsics", None) is not None
+               else dataset.K)
+        out = render_image(params_c, params_f, dataset.poses[img_idx],
+                           dataset.hwf, K_i, mcfg, rcfg,
+                           seed=seed + n * n_chunks, near=dataset.near,
+                           far=dataset.far, chunk=chunk, ndc=ndc,
+                           pixel_center=pixel_center, mcfg_fine=mcfg_fine,
+                           keep_hyp=True)
+        dists = np.abs(out["pred_hyp"] - out["depth_map"][..., None])
+        if valid_mask_from_dataset and dataset.gt_valid_depths is not None:
+            valid = np.asarray(dataset.gt_valid_depths[img_idx]).astype(bool)
+            if valid.ndim == 3:
+                valid = valid[..., 0]
+            per_ray = np.mean(dists, axis=-1)
+            err = float(np.mean(per_ray[valid])) if valid.any() else np.nan
+        else:
+            err = float(np.mean(dists))
+        if not np.isnan(err):
+            mean_depth_metrics.add({"importance_sampling_error": err})
+        if verbose:
+            print(f"Sample-error image {n + 1}/{len(indices)}: {err:.4f}")
+
+    os.makedirs(result_dir, exist_ok=True)
+    with open(os.path.join(result_dir, "metrics_expecteddepth.txt"),
+              "w") as f:
+        mean_depth_metrics.print(f)
+    return mean_depth_metrics
 
 
 def write_images_with_metrics(images: Dict[str, np.ndarray],

@@ -5,7 +5,8 @@ device of the images.
   step and ``n_rand`` pixels of it, drawn with replacement, from the
   central crop during the precrop iterations.
 * ``build_ray_pool`` / ``pool_batch`` (LLFF ``use_batching`` recipes): a
-  shuffled pool of every training ray, consumed in contiguous slices.
+  shuffled pool of every training ray (NDC-warped for LLFF scenes),
+  consumed in contiguous slices.
 
 Draws come from an explicit ``torch.Generator``; ``draws`` injects them
 (image index into ``i_train``, pixel rows, pixel cols), so tests can drive
@@ -100,9 +101,14 @@ def sample_one_image_batch(
 
 
 def build_ray_pool(images: np.ndarray, poses: np.ndarray, K, i_train,
-                   seed: int = 0) -> np.ndarray:
+                   seed: int = 0, ndc: bool = False,
+                   focal: float = 0.0) -> np.ndarray:
     """Host-side shuffled pool [M, 9]: (o, d, rgb) of every pixel of the
-    training images (the JAX package's pool, same rows and order)."""
+    training images (the JAX package's pool, same rows and order).  With
+    ``ndc`` the rows are [M, 12]: o and d warped into NDC once, here, and
+    the world-space d kept as columns 9-11 for the viewdirs (the
+    reference's render computes them before the warp, run_plnerf.py:
+    145-155)."""
     rows = []
     H, W = images.shape[1], images.shape[2]
     for i in np.asarray(i_train):
@@ -114,6 +120,11 @@ def build_ray_pool(images: np.ndarray, poses: np.ndarray, K, i_train,
              images[i].reshape(-1, 3)], axis=-1))
     pool = np.concatenate(rows, 0).astype(np.float32)
     np.random.default_rng(seed).shuffle(pool)
+    if ndc:
+        ro, rd = raysmod.ndc_rays(H, W, focal, 1.0, torch.from_numpy(
+            pool[:, 0:3]), torch.from_numpy(pool[:, 3:6]))
+        pool = np.concatenate([ro.numpy(), rd.numpy(), pool[:, 6:9],
+                               pool[:, 3:6]], -1)
     return pool
 
 

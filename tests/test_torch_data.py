@@ -225,9 +225,3 @@ def test_load_dataset_matches_jax(scenes, dataset, white_bkgd):
     for f in ("i_train", "i_val", "i_test"):
         np.testing.assert_array_equal(getattr(got, f), getattr(ref, f))
 
-
-@pytest.mark.parametrize("dataset", ["llff", "DTU"])
-def test_load_dataset_refuses_the_unported_loaders(dataset):
-    args = argparse.Namespace(data_dir=".", scene_id="x", dataset=dataset)
-    with pytest.raises(SystemExit, match="A7b"):
-        datasets.load_dataset(args)

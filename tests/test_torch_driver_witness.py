@@ -1,8 +1,9 @@
 """The port's driver trains as the JAX driver does: both start from one
 init and train on the numpy sphere scene (the scene ``chip_smoke.py``'s
-driver phase writes, here at 64x64) in pool mode with perturb off, so the
-two runs see the same rays in the same order and differ only by
-floating-point rounding.  Their losses along the run and their held-out
+driver phase writes, here at 64x64), and on the forward-facing LLFF
+fixture with NDC rays, in pool mode with perturb off, so the two runs see
+the same rays in the same order and differ only by floating-point
+rounding.  Their losses along the run and their held-out
 ``--eval_det`` metrics, fine and coarse, are held against each other.
 
 Tolerances: losses 1e-2 relative; held-out PSNR, fine and coarse, within
@@ -58,14 +59,13 @@ def _losses(exp):
                 if "train/loss" in r}
 
 
-def test_driver_trains_like_jax(tmp_path):
-    data_dir = str(tmp_path / "data")
-    chip_smoke.write_sphere_scene(os.path.join(data_dir, "sphere"), 64,
-                                  {"train": 8, "val": 1, "test": 2})
-    ckpt_dir = str(tmp_path / "ckpt")
-    common = FLAGS + ["--data_dir", data_dir, "--scene_id", "sphere",
+def _train_and_test_both(flags, data_dir, scene, ckpt_dir, steps, test):
+    """Train the JAX driver, then the port's from the same init, for
+    ``steps`` steps; test both with ``--eval_det``.  Returns (port, JAX)
+    losses by step and held-out metrics of the ``test`` result folder."""
+    common = flags + ["--data_dir", data_dir, "--scene_id", scene,
                       "--ckpt_dir", ckpt_dir]
-    train = common + ["--task", "train", "--num_iterations", str(STEPS)]
+    train = common + ["--task", "train", "--num_iterations", str(steps)]
     jrun.main(train + ["--expname", "jax"])
 
     # the port starts from the JAX driver's init (PRNGKey(--seed))
@@ -81,25 +81,68 @@ def test_driver_trains_like_jax(tmp_path):
     ckio.save_checkpoint(os.path.join(ckpt_dir, "port"), 0,
                          state.state_dict())
     state = run_plnerf.main(train + cpu)
-    assert state.step == STEPS
+    assert state.step == steps
 
-    got = _losses(os.path.join(ckpt_dir, "port"))
-    ref = _losses(os.path.join(ckpt_dir, "jax"))
-    assert list(got) == list(ref) == [20, 40, 60]
-    for k in ref:
-        assert got[k] == pytest.approx(ref[k], rel=1e-2), k
-    assert ref[60] < ref[20]
-
-    test = ["--task", "test", "--ckpt_dir", ckpt_dir, "--data_dir", data_dir,
-            "--scene_id", "sphere", "--white_bkgd", "--eval_det"]
+    test = test + ["--task", "test", "--ckpt_dir", ckpt_dir, "--data_dir",
+                   data_dir, "--scene_id", scene, "--eval_det"]
     jrun.main(test + ["--expname", "jax", "--no_mesh"])
     run_plnerf.main(test + cpu)
-    sub = "test_images_linear_16_16sphere"
-    got = _metrics_txt(os.path.join(ckpt_dir, "port", sub, "metrics.txt"))
-    ref = _metrics_txt(os.path.join(ckpt_dir, "jax", sub, "metrics.txt"))
+    losses, metrics = [], []
+    for who in ("port", "jax"):
+        exp = os.path.join(ckpt_dir, who)
+        losses.append(_losses(exp))
+        sub, = [d for d in os.listdir(exp) if d.startswith("test_images_")]
+        metrics.append(_metrics_txt(os.path.join(exp, sub, "metrics.txt")))
+    return losses, metrics
+
+
+def _hold(losses, metrics, steps):
+    (got_l, ref_l), (got, ref) = losses, metrics
+    assert list(got_l) == list(ref_l) == steps
+    for k in ref_l:
+        assert got_l[k] == pytest.approx(ref_l[k], rel=1e-2), k
+    assert ref_l[steps[-1]] < ref_l[steps[0]]
     assert set(got) == set(ref) == {"img_loss", "psnr", "ssim", "img_loss0",
                                     "psnr0"}
     for k, tol in (("psnr", 0.5), ("psnr0", 0.5), ("ssim", 0.02)):
         assert abs(got[k] - ref[k]) <= tol, (k, got, ref)
     for k in ("img_loss", "img_loss0"):
         assert got[k] == pytest.approx(ref[k], rel=0.1), (k, got, ref)
+
+
+def test_driver_trains_like_jax(tmp_path):
+    data_dir = str(tmp_path / "data")
+    chip_smoke.write_sphere_scene(os.path.join(data_dir, "sphere"), 64,
+                                  {"train": 8, "val": 1, "test": 2})
+    losses, metrics = _train_and_test_both(
+        FLAGS, data_dir, "sphere", str(tmp_path / "ckpt"), STEPS,
+        ["--white_bkgd"])
+    _hold(losses, metrics, [20, 40, 60])
+
+
+def test_llff_driver_trains_like_jax(tmp_path):
+    """The LLFF path: the forward-facing fixture (6 views at 48x64,
+    llffhold 3), NDC rays from the 12-column pool, 40 steps of the
+    llff_linear recipe at tiny widths with its density noise off.  The 4
+    training views' 12,288 rays outlast the run's 10,240: a reshuffle
+    draws from each package's own generator.  Same tolerances; the losses
+    agree to 1e-6 at step 5 and within 0.5% at 40 here."""
+    from plnerf_torch.data.synthetic import make_llff_fixture
+
+    data_dir = str(tmp_path / "data")
+    make_llff_fixture(os.path.join(data_dir, "ff"), n=6, H=48, W=64)
+    flags = [
+        "--config", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "configs", "llff_linear.txt"),
+        "--factor", "1", "--llffhold", "3", "--raw_noise_std", "0",
+        "--constant_init", "10", "--N_rand", "256", "--N_samples", "16",
+        "--N_importance", "16", "--netdepth", "4", "--netwidth", "32",
+        "--multires", "6", "--multires_views", "2", "--chunk", "1200",
+        "--lrate", "5e-3", "--lrate_decay", "500", "--perturb", "0",
+        "--i_print", "20", "--i_weights", "40", "--i_img", "1000000",
+        "--i_testset", "1000000", "--i_video", "1000000", "--no_mesh",
+        "--seed", "0"]
+    losses, metrics = _train_and_test_both(
+        flags, data_dir, "ff", str(tmp_path / "ckpt"), 40,
+        ["--dataset", "llff"])
+    _hold(losses, metrics, [20, 40])

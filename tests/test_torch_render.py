@@ -316,7 +316,6 @@ def test_render_rays_unported_branches_raise():
     kw = dict(netdepth=2, netwidth=16, multires=4, multires_views=2)
     m = torch_model(kw, np_params(kw))
     rb = t(_ray_batch(4))
-    for rcfg in (RenderConfig(compute_pred_hyp=True),
-                 RenderConfig(occ=object())):
-        with pytest.raises(NotImplementedError):
-            render.render_rays(m, m, rb, None, ModelConfig(**kw), rcfg)
+    with pytest.raises(NotImplementedError):
+        render.render_rays(m, m, rb, None, ModelConfig(**kw),
+                           RenderConfig(occ=object()))

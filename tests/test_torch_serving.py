@@ -152,6 +152,7 @@ def test_port_imports_neither_jax_nor_plnerf():
             "plnerf_torch.utils.profile", "plnerf_torch.cli.run_plnerf",
             "plnerf_torch.cli.run_vanilla", "plnerf_torch.cli.config",
             "plnerf_torch.cli.datasets", "plnerf_torch.data.blender",
+            "plnerf_torch.data.llff", "plnerf_torch.data.dtu",
             "plnerf_torch.data.common", "plnerf_torch.data.png",
             "plnerf_torch.checkpoint.io", "plnerf_torch.eval.metrics",
             "plnerf_torch.utils.logging"} <= set(mods)
@@ -174,3 +175,27 @@ def test_port_imports_neither_jax_nor_plnerf():
             assert not pat.search(f.read()), rel
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         assert not pat.search(f.read())
+
+
+def test_loaders_run_without_image_libraries(tmp_path):
+    """The LLFF and DTU loaders read, minify and resize with the port's own
+    code: a run that writes the forward-facing fixture, loads it with a
+    minify, resizes and decomposes as the DTU loaders do, and ends with
+    cv2, PIL and imageio never imported (the check above sees only what
+    importing the modules pulls in)."""
+    code = (
+        "import sys, numpy as np\n"
+        "from plnerf_torch.data import dtu, llff, synthetic\n"
+        f"d = synthetic.make_llff_fixture({str(tmp_path)!r}, n=3, H=8, "
+        "W=12)\n"
+        "assert llff.load_llff_data(d, factor=2)[0].shape == (3, 4, 6, 3)\n"
+        "img = np.zeros((8, 12, 3), np.uint8)\n"
+        "assert dtu.bilinear_resize(img, (6, 4)).shape == (4, 6, 3)\n"
+        "dtu.decompose_projection(np.eye(3, 4))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('cv2', 'PIL', 'imageio'))\n"
+        "print(bad)\nsys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert os.path.isdir(tmp_path / "images_2")
