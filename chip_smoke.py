@@ -106,11 +106,33 @@ Phases, one line each, then the result line:
            8th pixel on the CPU (``REFERENCE_TOL``, and ``pred_hyp`` at the
            depth tolerance 1e-2); logs ms per step, pool build s, s per
            test image, PSNR / SSIM and the importance-sampling error.
+11. depth  both kernels at the depth topology (input 57 padded to 64, views
+           3 + a 4-channel camera embedding padded to 32, per ray; folded
+           heads) against their plain versions, fp32 and bf16 (forward
+           1e-4 / 2e-2 x max(1, max|raw|); backward 1e-3 / 2e-2 relative L2
+           per block, dv included); then the depth driver,
+           ``plnerf_torch.cli.run_depth.main``, on the multi-object scene
+           it writes with ``write_blender2_depth_scene`` (blender2_depth
+           layout, 10 / 1 / 9 views at 200x200 of which the loader reads 2
+           test views): the depth recipe at full width (linear, 128 + 64
+           samples, 1024 rays, space carving 0.007 from step 50, scale /
+           shift frozen from 150, 4 camera channels trained), 300 steps
+           and a resume to 350, ``--task test --eval_det`` at 350 and on
+           the fresh init (3 epochs of camera optimization per view, the
+           driver's 100 cut), ``test_samples_error --eval_det``,
+           ``optimize_camera_embedding`` called on one test view, and step
+           1 on the card against the CPU (losses 1e-3 relative; grads of
+           both networks 1e-3 relative L2, scales, shifts and embeddings
+           1e-3).  Launches counted as in the driver phase.  Checks a
+           falling loss and space-carving loss, scale / shift means that
+           move and then hold, a held-out depth RMSE below the fresh
+           init's, the metric files; logs ms per step, s per test image,
+           PSNR / SSIM / depth RMSE.
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without CUDA, without the repository beside it, or on any failure.
-``--only bwd,train`` (or ``--only llff``) runs the build and the named
+``--only bwd,train`` (or ``--only depth``) runs the build and the named
 phases alone and prints no result lines.
 """
 from __future__ import annotations
@@ -167,6 +189,20 @@ LLFF_STEPS, LLFF_PRINT = 300, 50
 LLFF_TRAIN = ["--constant_init", "100", "--i_print", str(LLFF_PRINT),
               "--i_weights", "150", "--i_img", "150",
               "--i_testset", "1000000", "--i_video", "1000000"]
+# the depth phase: the multi-object scene in the blender2_depth layout at
+# 200x200 (lego's camera_angle_x), 10 train and 1 val views and 9 test
+# views of which the loader reads 2 (a stride of 8); the depth recipe at
+# full width with camera embeddings
+DEPTH_VIEWS = {"train": 10, "val": 1, "test": 9}
+DEPTH_SIZE = 200
+DEPTH_STEPS, DEPTH_RESUME_STEPS, DEPTH_PRINT, DEPTH_FREEZE = 300, 350, 50, 150
+DEPTH_CAM_EPOCHS = 3
+DEPTH_TRAIN = ["--mode", "linear", "--N_samples", "128", "--N_importance",
+               "64", "--N_rand", "1024", "--space_carving_weight", "0.007",
+               "--freeze_ss", str(DEPTH_FREEZE), "--warm_start_nerf", "50",
+               "--input_ch_cam", "4", "--opt_ch_cam",
+               "--i_print", str(DEPTH_PRINT), "--i_img", "150",
+               "--i_weights", "150"]
 # pred_hyp, a depth along the ray, at the depth maps' tolerance
 HYP_TOL = dict(REFERENCE_TOL, pred_hyp=1e-2)
 PROBE_REPLACES = {"shape": "tools/dot_decompose.py:89",     # make_shape_kernel
@@ -1226,13 +1262,16 @@ def _driver_view(argv, state, stride: int = 8, hyp: bool = False) -> dict:
             "card_s": card_s, "cpu_s": cpu_s}
 
 
-def _driver_runs():
+def _driver_runs(entry=None):
     """(run, expect, launches, runs): ``run(name, argv)`` calls the driver's
-    entry point, the kernels' launch counters set to 0 just before and read
-    just after into ``launches[name]``, its seconds into ``runs[name]``;
-    ``expect(name, fwd, bwd)`` holds a run's launches."""
+    entry point (``run_plnerf.main`` unless ``entry`` is given), the
+    kernels' launch counters set to 0 just before and read just after into
+    ``launches[name]``, its seconds into ``runs[name]``; ``expect(name,
+    fwd, bwd)`` holds a run's launches."""
     from plnerf_torch.cli import run_plnerf
     from plnerf_torch.kernels import fused_mlp
+
+    entry = entry or run_plnerf.main
 
     launches, runs = {}, {}
 
@@ -1240,7 +1279,7 @@ def _driver_runs():
         torch.cuda.synchronize()
         fused_mlp.launches = fused_mlp.bwd_launches = 0   # path starts
         t = time.perf_counter()
-        out = run_plnerf.main(argv)
+        out = entry(argv)
         torch.cuda.synchronize()
         runs[name] = time.perf_counter() - t
         launches[name] = {"fused_mlp_fwd": fused_mlp.launches,  # ends
@@ -1518,8 +1557,366 @@ def phase_llff(dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _depth_kernel_holds(dev, args, data, state) -> dict:
+    """Both kernels at the depth topology (input 57 padded to 64, views 3
+    + a 4-channel camera embedding padded to 32, per ray; folded heads;
+    softplus10 outside the kernel) on the inputs the path itself gives
+    them: every forward and backward call of one depth step of the trained
+    ``state`` on 1024 rays of train view 0 (the coarse and fine passes),
+    and the forward calls of one 32,768-ray eval chunk of test view 0; in
+    fp32 and bf16.
+
+    Forward: against the plain version, 1e-4 fp32 / 2e-2 bf16 x max(1,
+    max|raw|).  Backward (``_bwd_hold``): the recorded call's inputs with a
+    seeded random cotangent on every point, against the plain version,
+    relative L2 per block, dv included, 1e-3 fp32 / 2e-2 bf16; in fp32
+    beside both evaluations' distance from the plain version summed in
+    float64."""
+    import dataclasses
+
+    from plnerf_torch.cli import run_depth
+    from plnerf_torch.core import rays as raysmod
+    from plnerf_torch.core.render import make_ray_batch
+    from plnerf_torch.eval import images as EI
+    from plnerf_torch.kernels import fused_mlp
+    from plnerf_torch.train import step as tstep
+
+    mcfg, _, setup = run_depth.build_configs(args)
+
+    def d(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    batch = run_depth.depth_batch(
+        d(data.images), d(data.poses), d(data.intrinsics),
+        d(np.asarray(data.gt_depths)[..., 0]),
+        d(np.asarray(data.gt_valid_depths, np.float32)), 0, N_RAND,
+        data.near, data.far, True,
+        torch.Generator(device=dev).manual_seed(13))
+    ti = int(data.i_split[2][0])
+    ro, rd = raysmod.get_rays_pixelcenter(
+        int(data.hwf[0]), int(data.hwf[1]), data.intrinsics[ti],
+        d(np.asarray(data.poses[ti])[:3, :4]))
+    eval_rays = make_ray_batch(ro, rd, data.near, data.far, True)[0][
+        :R_CHUNK]
+    calls = []
+    fwd, bwd = fused_mlp.forward_cuda, fused_mlp.backward_cuda
+
+    def record(kind, fn):
+        def wrapped(*a):
+            calls.append((kind, a))
+            return fn(*a)
+        return wrapped
+
+    errs, bwd_errs, rels = {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        s = dataclasses.replace(setup, rcfg=dataclasses.replace(
+            setup.rcfg, mlp_dtype=dtype))
+        calls.clear()
+        fused_mlp.forward_cuda = record("fwd_train", fwd)
+        fused_mlp.backward_cuda = record("bwd_train", bwd)
+        try:
+            tstep.depth_grads(s, state, batch,
+                              torch.Generator(device=dev).manual_seed(14))
+            fused_mlp.forward_cuda = record("fwd_eval", fwd)
+            EI.render_chunks(state.params_coarse, state.params_fine,
+                             eval_rays, mcfg, EI.test_render_config(
+                                 s.rcfg, perturb=False), R_CHUNK, 0,
+                             ("rgb_map",))
+        finally:
+            fused_mlp.forward_cuda, fused_mlp.backward_cuda = fwd, bwd
+        for o in (state.opt_fine, state.opt_ss, state.opt_latent):
+            o.zero_grad(set_to_none=True)
+        kinds = [k for k, _ in calls]
+        if kinds.count("fwd_train") != 2 or kinds.count("bwd_train") != 2 \
+                or kinds.count("fwd_eval") != 2:
+            raise AssertionError(f"depth path {dtype}: kernel calls {kinds}")
+        with torch.no_grad():
+            for i, (kind, a) in enumerate(calls):
+                p, x, v, v_div = a[:4]
+                if (x.shape[1], v.shape[1]) != (64, 32):
+                    raise AssertionError(f"depth topology packed as x "
+                                         f"{tuple(x.shape)}, v "
+                                         f"{tuple(v.shape)}")
+                key = f"{kind}{i}_{x.shape[0]}_{dtype}"
+                if kind.startswith("fwd"):
+                    _hold(key, p, x, v, v_div, errs)
+                    continue
+                cot = torch.randn(a[4].shape, device=dev,
+                                  generator=torch.Generator(
+                                      device=dev).manual_seed(15))
+                _bwd_hold(key, p, x, v, v_div, cot, bwd_errs, rels)
+        del calls[:]
+        torch.cuda.empty_cache()
+    return {"fwd_max_abs_err": errs, "bwd_max_abs_err": bwd_errs,
+            "bwd_rel_l2_err": rels,
+            "tolerance": {
+                "forward": "1e-4 fp32, 2e-2 bf16 x max(1, max|raw|)",
+                "backward": "relative L2 per block against the plain "
+                            "version, 1e-3 fp32, 2e-2 bf16"}}
+
+
+def _depth_grads(state) -> dict:
+    """The .grad of every tensor the depth step trains, on the CPU."""
+    out = _grads(state)
+    for name in ("depth_scales", "depth_shifts", "cam_embeddings"):
+        out[name] = getattr(state, name).grad.detach().cpu().clone()
+    return out
+
+
+def _depth_card_vs_cpu(dev, args, data) -> dict:
+    """Step 1 of ``make_depth_train_step`` from one state on the card (the
+    kernels) and on the CPU (their plain versions): 256 rays of train view
+    0 and the renderer's draws made with numpy and injected on both, space
+    carving on from the first step.  Grads (before the clip) of both
+    networks to 1e-3 relative L2 over all and 1e-2 per tensor (see
+    phase_train_reference), of the scales, shifts and embeddings to 1e-3
+    each; the step's losses to 1e-3 relative."""
+    import dataclasses
+
+    from plnerf_torch.cli import run_depth
+    from plnerf_torch.train import step as tstep
+
+    _, _, setup = run_depth.build_configs(args)
+    setup = dataclasses.replace(setup, warm_start_nerf=0)
+    host_setup = dataclasses.replace(setup, rcfg=dataclasses.replace(
+        setup.rcfg, use_fused_mlp=True, fused_fold_heads=True))
+    n_img = data.images.shape[0]
+    rng = np.random.default_rng(11)
+    R = 256
+    g = torch.Generator().manual_seed(12)
+
+    def cpu(a):
+        return torch.as_tensor(np.asarray(a, np.float32))
+
+    valid = np.asarray(data.gt_valid_depths, np.float32)
+    batch = run_depth.depth_batch(
+        cpu(data.images), cpu(data.poses), cpu(data.intrinsics),
+        cpu(np.asarray(data.gt_depths)[..., 0]), cpu(valid), 0, R,
+        data.near, data.far, True, g)
+    draws = {"t_rand": rng.uniform(size=(R, N_COARSE)),
+             "u": rng.uniform(size=(R, N_FINE)),
+             "u_hyp": rng.uniform(size=(R, N_FINE))}
+    card = tstep.init_state(torch.Generator(device=dev).manual_seed(3),
+                            setup, dev, n_images=n_img)
+    host = tstep.init_state(None, host_setup, "cpu", n_images=n_img)
+    host.load_state_dict(card.state_dict())
+    runs = {}
+    for name, state, s in (("card", card, setup), ("cpu", host, host_setup)):
+        d = state.depth_scales.device
+        b = {k: (v.to(d) if isinstance(v, torch.Tensor) else v)
+             for k, v in batch.items()}
+        ov = {k: torch.as_tensor(v, dtype=torch.float32, device=d)
+              for k, v in draws.items()}
+        tstep.depth_grads(s, state, b, None, ov)
+        grads = _depth_grads(state)
+        _, m = tstep.make_depth_train_step(s)(state, b, None, ov)
+        runs[name] = {"grads": grads,
+                      "losses": {k: float(m[k]) for k in (
+                          "loss", "img_loss", "img_loss0",
+                          "space_carving_loss")}}
+    gpu, cpu_ = runs["card"], runs["cpu"]
+    nets = {k: v for k, v in cpu_["grads"].items() if k[:2] in ("c.", "f.")}
+    errs = _grad_errs(gpu["grads"], nets)
+    for name in ("depth_scales", "depth_shifts", "cam_embeddings"):
+        errs[name] = rel_l2(gpu["grads"][name], cpu_["grads"][name])
+    loss_err = {k: abs(gpu["losses"][k] / cpu_["losses"][k] - 1)
+                for k in gpu["losses"]}
+    worst = max((k for k in nets), key=errs.get)
+    if not (errs["all"] <= 1e-3 and errs[worst] <= 1e-2
+            and max(errs[n] for n in ("depth_scales", "depth_shifts",
+                                      "cam_embeddings")) <= 1e-3
+            and max(loss_err.values()) <= 1e-3):
+        raise AssertionError(f"depth step 1 card vs CPU: grads {errs}, "
+                             f"losses {loss_err}")
+    return {"rays": R, "losses_card": gpu["losses"],
+            "losses_cpu": cpu_["losses"], "loss_rel_err": loss_err,
+            "grad_rel_l2_err": {k: errs[k] for k in (
+                "all", worst, "depth_scales", "depth_shifts",
+                "cam_embeddings")},
+            "tolerance": "grads 1e-3 over both networks, 1e-2 per network "
+                         "tensor, 1e-3 for scales / shifts / embeddings; "
+                         "losses 1e-3 relative"}
+
+
+def phase_depth(dev):
+    """Returns (forward launches, backward launches) of the depth runs."""
+    import functools
+    import shutil
+    import tempfile
+
+    from plnerf_torch.checkpoint import io as ckio
+    from plnerf_torch.cli import config, run_depth
+    from plnerf_torch.data.synthetic import write_blender2_depth_scene
+    from plnerf_torch.eval import images as EI
+    from plnerf_torch.train import camera_opt
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="plnerf_depth_")
+    try:
+        data_dir, ckpt = (os.path.join(root, "data"),
+                          os.path.join(root, "ckpt"))
+        t0 = time.perf_counter()
+        write_blender2_depth_scene(
+            os.path.join(data_dir, "mobj"), DEPTH_VIEWS, DEPTH_SIZE,
+            DEPTH_SIZE, LEGO_CAMERA_ANGLE_X, seed=0,
+            workers=min(8, os.cpu_count() or 1))
+        scene_s = time.perf_counter() - t0
+        where = ["--ckpt_dir", ckpt, "--expname", "depth", "--data_dir",
+                 data_dir, "--scene_id", "mobj", "--dataset",
+                 "blender2_depth", "--set_near_plane", "2.0",
+                 "--white_bkgd"]
+        exp = os.path.join(ckpt, "depth")
+        size = DEPTH_SIZE * DEPTH_SIZE
+        eval_chunks = -(-size // R_CHUNK)
+        cam_batches = size // min(2 * N_RAND, size)
+        n_test = len(range(0, DEPTH_VIEWS["test"], 8))
+        run, expect, launches, runs = _driver_runs(run_depth.main)
+
+        train = ["train"] + where + DEPTH_TRAIN
+        state = run("train", train + ["--num_iterations", str(DEPTH_STEPS)])
+        # two val renders (i_img at 150, 300), two launches per chunk each
+        expect("train", 2 * DEPTH_STEPS + 2 * 2 * eval_chunks,
+               2 * DEPTH_STEPS)
+        state = run("resume", train + ["--num_iterations",
+                                       str(DEPTH_RESUME_STEPS)])
+        resumed = DEPTH_RESUME_STEPS - DEPTH_STEPS
+        expect("resume", 2 * resumed, 2 * resumed)
+        ckpts = [os.path.basename(p) for p in ckio.list_checkpoints(exp)]
+        if state.step != DEPTH_RESUME_STEPS or ckpts != [
+                "000150.ckpt", "000300.ckpt", "000350.ckpt"]:
+            raise AssertionError(f"step {state.step}, checkpoints {ckpts}")
+        recs = _records(exp, "train/loss")
+        steps = sorted(recs)
+        losses = {k: recs[k]["train/loss"] for k in steps}
+        sc = {k: recs[k]["train/space_carving_loss"] for k in steps}
+        scale = {k: recs[k]["train/depth_scale_mean"] for k in steps}
+        shift = {k: recs[k]["train/depth_shift_mean"] for k in steps}
+        if not (np.isfinite(list(losses.values())).all()
+                and losses[steps[-1]] < losses[steps[0]]):
+            raise AssertionError(f"loss did not fall: {losses}")
+        if not sc[steps[-1]] < sc[steps[0]]:
+            raise AssertionError(f"space-carving loss did not fall: {sc}")
+        frozen = [k for k in steps if k >= DEPTH_FREEZE]
+        if not (len({(scale[k], shift[k]) for k in frozen}) == 1
+                and (scale[DEPTH_FREEZE], shift[DEPTH_FREEZE]) != (
+                    scale[steps[0]], shift[steps[0]])):
+            raise AssertionError(f"scale / shift means {scale} {shift}: "
+                                 f"they must move, then hold from "
+                                 f"{DEPTH_FREEZE}")
+
+        # the kernels on the path's own inputs, at the trained state
+        test = ["test", "--eval_det"] + where
+        args = config.resolve_args(run_depth.config_parser().parse_args(
+            test))
+        mcfg, rcfg, _ = run_depth.build_configs(args)
+        data = run_depth.load_depth_dataset(args)
+        holds = _depth_kernel_holds(dev, args, data, state)
+
+        # eval: test-time camera optimization (the model trained its
+        # embeddings) cut from 100 epochs per view to DEPTH_CAM_EPOCHS
+        scores = {}
+        orig = run_depth.optimize_camera_embedding
+        run_depth.optimize_camera_embedding = functools.partial(
+            orig, epochs=DEPTH_CAM_EPOCHS)
+        try:
+            for name, extra in (("test", []),
+                                ("test_init", ["--no_reload"])):
+                mm = run(name, test + extra)
+                # a camera-optimization batch: both passes forward, the
+                # fine pass backward (its loss is the fine colour's; the
+                # importance samples are detached)
+                batches = DEPTH_CAM_EPOCHS * cam_batches
+                expect(name, n_test * (2 * batches + 2 * eval_chunks),
+                       n_test * batches)
+                scores[name] = {k: mm.get(k) for k in (
+                    "psnr", "ssim", "depth_rmse", "psnr0")}
+        finally:
+            run_depth.optimize_camera_embedding = orig
+        if not scores["test"]["depth_rmse"] < scores["test_init"][
+                "depth_rmse"]:
+            raise AssertionError(f"held-out depth RMSE {scores}")
+        result_dir = os.path.join(
+            exp, f"test_images_linear_{N_COARSE}_{N_FINE}"
+                 "with_optimization_mobj")
+        with open(os.path.join(result_dir, "metrics.txt")) as f:
+            text = f.read()
+        if "depth_rmse: " not in text or "psnr: " not in text:
+            raise AssertionError(f"metrics.txt: {text!r}")
+
+        err = run("samples_error", ["test_samples_error"] + test[1:])
+        expect("samples_error", 2 * n_test * eval_chunks, 0)
+        with open(os.path.join(exp, f"test_predicted_samples_error_{N_FINE}",
+                               "metrics_depth_samples.txt")) as f:
+            k, v = f.read().split(": ")
+        if k != "importance_sampling_error" or not np.isfinite(float(v)):
+            raise AssertionError(f"metrics_depth_samples.txt: {k}: {v}")
+
+        # camera optimization on one test view, called directly
+        ti = int(data.i_split[2][0])
+        test_rcfg = run_depth.eval_render_config(args, rcfg)
+        history = []
+        t = time.perf_counter()
+        emb = camera_opt.optimize_camera_embedding(
+            state.params_coarse, state.params_fine, data.images[ti],
+            data.poses[ti], data.intrinsics[ti], mcfg, test_rcfg,
+            data.near, data.far, n_rand=N_RAND, epochs=DEPTH_CAM_EPOCHS,
+            history=history)
+        cam_s = time.perf_counter() - t
+        if not (np.isfinite(history).all() and max(history) >= history[0]
+                and torch.isfinite(emb).all()):
+            raise AssertionError(f"camera optimization PSNRs {history}")
+        views = {}
+        for tag, e in (("zero", None), ("best", emb)):
+            out = EI.render_image(
+                state.params_coarse, state.params_fine, data.poses[ti],
+                data.hwf, data.intrinsics[ti], mcfg, test_rcfg,
+                near=data.near, far=data.far, pixel_center=True,
+                cam_embedding=e)
+            views[tag] = float(-10 * np.log10(np.mean(
+                (out["rgb_map"] - data.images[ti]) ** 2)))
+        reference = _depth_card_vs_cpu(dev, args, data)
+
+        window_s = {k: DEPTH_PRINT / r["train/steps_per_sec"]
+                    for k, r in recs.items()}
+        log("depth", card=card_line(), scene={
+            "views": DEPTH_VIEWS, "read_test_views": n_test,
+            "size": DEPTH_SIZE, "write_s": scene_s},
+            recipe=DEPTH_TRAIN, steps=DEPTH_RESUME_STEPS,
+            resumed_from=DEPTH_STEPS, checkpoints=ckpts,
+            train_loss=losses, space_carving_loss=sc,
+            depth_scale_mean=scale, depth_shift_mean=shift,
+            train_psnr={k: r["train/psnr"] for k, r in recs.items()},
+            val={k: {m: r.get(f"val/{m}") for m in ("psnr", "depth_rmse")}
+                 for k, r in _records(exp, "val/psnr").items()},
+            ms_per_step=1e3 * sum(window_s.values()) / DEPTH_RESUME_STEPS,
+            ms_per_step_by_window={k: 1e3 * v / DEPTH_PRINT
+                                   for k, v in window_s.items()},
+            s_per_test_image=runs["test"] / n_test,
+            s_per_samples_error_image=runs["samples_error"] / n_test,
+            run_s=runs, scores=scores,
+            importance_sampling_error=err.get("importance_sampling_error"),
+            camera_opt={"view": ti, "epochs": DEPTH_CAM_EPOCHS,
+                        "batches": cam_batches, "psnr_by_epoch": history,
+                        "psnr_render_zero": views["zero"],
+                        "psnr_render_best": views["best"], "s": cam_s},
+            kernel_holds=holds, card_vs_cpu_step1=reference,
+            launches=launches, launches_per_train_step={
+                "fused_mlp_fwd": 2.0, "fused_mlp_bwd": 2.0},
+            phase_s=time.perf_counter() - t_phase,
+            note="ms_per_step: the i_print windows' times summed over the "
+                 "run (val renders and checkpoints included); s per test "
+                 "image: the test task's wall time over its images, "
+                 f"{DEPTH_CAM_EPOCHS} epochs of camera optimization per "
+                 "image included (the driver's 100 cut)")
+        fwd = sum(v["fused_mlp_fwd"] for v in launches.values())
+        bwd = sum(v["fused_mlp_bwd"] for v in launches.values())
+        return fwd, bwd
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 PHASES = ("kernel", "probes", "bwd", "slice", "reference", "train",
-          "train_reference", "driver", "llff")
+          "train_reference", "driver", "llff", "depth")
 
 
 def main(argv=None) -> int:
@@ -1552,7 +1949,7 @@ def main(argv=None) -> int:
             fns = dict(zip(PHASES, (
                 phase_kernel, phase_probes, phase_bwd_kernel, phase_slice,
                 phase_reference, phase_train, phase_train_reference,
-                phase_driver, phase_llff)))
+                phase_driver, phase_llff, phase_depth)))
             for name in only:
                 fns[name](dev)
             return 0
@@ -1566,12 +1963,14 @@ def main(argv=None) -> int:
         driver_fwd, driver_bwd = phase_driver(
             dev, train_summary["ms_per_step_fp32"])
         llff_fwd, llff_bwd = phase_llff(dev)
+        depth_fwd, depth_bwd = phase_depth(dev)
     except Exception:
         traceback.print_exc()
         return 1
     if (launches < 1 or train_fwd < 1 or train_bwd < 1 or probe_fwd < 1
             or min(probe_launches.values()) < 1 or driver_fwd < 1
-            or driver_bwd < 1 or llff_fwd < 1 or llff_bwd < 1):
+            or driver_bwd < 1 or llff_fwd < 1 or llff_bwd < 1
+            or depth_fwd < 1 or depth_bwd < 1):
         print("chip_smoke: a main path launched no kernel", file=sys.stderr)
         return 1
     # the training path runs folded heads in fp32
@@ -1580,14 +1979,15 @@ def main(argv=None) -> int:
         "name": "fused_mlp_fwd", "route": "cuda",
         "source": "plnerf_torch/kernels/csrc/fused_mlp_fwd.cu",
         "replaces": KERNEL_REPLACES,
-        "launches": launches + train_fwd + probe_fwd + driver_fwd + llff_fwd,
+        "launches": (launches + train_fwd + probe_fwd + driver_fwd
+                     + llff_fwd + depth_fwd),
         "max_abs_err": err, "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]}, {
         "name": "fused_mlp_bwd", "route": "cuda",
         "source": "plnerf_torch/kernels/csrc/fused_mlp_bwd.cu",
         "replaces": BWD_REPLACES,
-        "launches": train_bwd + driver_bwd + llff_bwd,
+        "launches": train_bwd + driver_bwd + llff_bwd + depth_bwd,
         "max_abs_err": bwd_err, "ms": bt["kernel_ms"],
         "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"],
         "bound_by": bt["bound_by"], "library_ms": bt["library_ms"]}]

@@ -1,12 +1,14 @@
 """Synthetic analytic scenes for tests and smoke runs (own copy of the
-sphere scene and the forward-facing LLFF fixture of
-``plnerf/data/synthetic.py``): constant-density shapes rendered by
-independent numpy ray-marching, so the trainer runs without dataset
-files."""
+sphere scene, the multi-object scene with ground-truth depth and the
+forward-facing LLFF fixture of ``plnerf/data/synthetic.py``):
+constant-density shapes rendered by independent numpy ray-marching, so
+the trainers run without dataset files.  ``write_blender2_depth_scene``
+lays the multi-object scene out as a blender2_depth dataset."""
 from __future__ import annotations
 
+import json
 import os
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -75,6 +77,209 @@ def make_sphere_dataset(
     K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]],
                  np.float32)
     return images, poses.astype(np.float32), [H, W, focal], K
+
+
+# ---------------------------------------------------------------------------
+# The multi-object scene with ground-truth depth (the JAX package's
+# convergence fixture): spheres of varied albedo over a checkered ground
+# slab, its expected-depth maps, and a writer of the blender2_depth layout.
+# ---------------------------------------------------------------------------
+
+_SCENE_SPHERES = [
+    # (center, radius, albedo)
+    ((0.0, 0.0, 0.35), 0.55, (0.85, 0.25, 0.2)),
+    ((0.9, -0.45, 0.05), 0.32, (0.2, 0.45, 0.9)),
+    ((-0.85, 0.55, -0.05), 0.28, (0.95, 0.8, 0.15)),
+    ((-0.15, -0.9, -0.12), 0.22, (0.2, 0.8, 0.35)),
+]
+_SLAB_Z = (-0.55, -0.38)        # thin ground slab (sharp boundaries)
+_SLAB_R = 1.6                    # slab extent |x|, |y| < R
+
+
+def _scene_sigma_rgb(pts: np.ndarray, density: float, slab: bool = True):
+    """Density and albedo of the multi-object scene at points [..., 3].
+    ``slab=False`` drops the ground slab (an object-centric scene whose
+    rays are mostly empty space)."""
+    sigma = np.zeros(pts.shape[:-1], np.float32)
+    rgb = np.zeros(pts.shape[:-1] + (3,), np.float32)
+    for (c, r, a) in _SCENE_SPHERES:
+        inside = (np.linalg.norm(pts - np.asarray(c, np.float32), axis=-1)
+                  < r)
+        sigma = np.where(inside, density, sigma)
+        rgb = np.where(inside[..., None], np.asarray(a, np.float32), rgb)
+    if not slab:
+        return sigma, rgb
+    z = pts[..., 2]
+    slab = ((z > _SLAB_Z[0]) & (z < _SLAB_Z[1])
+            & (np.abs(pts[..., 0]) < _SLAB_R)
+            & (np.abs(pts[..., 1]) < _SLAB_R))
+    checker = ((np.floor(pts[..., 0] * 2.5) + np.floor(pts[..., 1] * 2.5))
+               % 2).astype(np.float32)
+    slab_rgb = np.where(checker[..., None] > 0,
+                        np.asarray((0.9, 0.9, 0.9), np.float32),
+                        np.asarray((0.25, 0.25, 0.3), np.float32))
+    sigma = np.where(slab, density, sigma)
+    rgb = np.where(slab[..., None], slab_rgb, rgb)
+    return sigma, rgb
+
+
+def render_scene_image(
+    c2w: np.ndarray, H: int, W: int, focal: float,
+    density: float = 80.0, near: float = 2.0, far: float = 6.0,
+    n_march: int = 512, white_bkgd: bool = True, row_chunk: int = 16,
+    slab: bool = True, pixel_center: bool = False, with_acc: bool = False,
+):
+    """Numpy volume render of the multi-object scene.  Returns (rgb [H, W,
+    3], depth [H, W]), depth the expected termination distance (sum w *
+    t, the renderer's depth_map), and the opacity [H, W] third with
+    ``with_acc``.  Rays leave pixel corners as in the JAX package, or
+    pixel centres (the depth loaders' convention) with ``pixel_center``."""
+    i, j = np.meshgrid(np.arange(W, dtype=np.float32),
+                       np.arange(H, dtype=np.float32), indexing="xy")
+    if pixel_center:
+        i, j = i + 0.5, j + 0.5
+    dirs = np.stack(
+        [(i - W / 2) / focal, -(j - H / 2) / focal, -np.ones_like(i)], -1)
+    rays_d = (dirs @ c2w[:3, :3].T).astype(np.float32)
+    rays_o = np.broadcast_to(c2w[:3, 3].astype(np.float32), rays_d.shape)
+    t = np.linspace(near, far, n_march, dtype=np.float32)
+
+    rgb_out = np.zeros((H, W, 3), np.float32)
+    depth_out = np.zeros((H, W), np.float32)
+    acc_out = np.zeros((H, W), np.float32)
+    for r0 in range(0, H, row_chunk):
+        r1 = min(H, r0 + row_chunk)
+        pts = (rays_o[r0:r1, :, None, :]
+               + rays_d[r0:r1, :, None, :] * t[:, None])
+        sigma, rgb = _scene_sigma_rgb(pts, density, slab=slab)
+        dt = (far - near) / (n_march - 1) * np.linalg.norm(
+            rays_d[r0:r1], axis=-1)[..., None]
+        alpha = 1 - np.exp(-sigma * dt)
+        trans = np.cumprod(np.concatenate(
+            [np.ones_like(alpha[..., :1]), 1 - alpha + 1e-10], -1), -1
+        )[..., :-1]
+        w = alpha * trans
+        rgb_px = (w[..., None] * rgb).sum(-2)
+        acc = w.sum(-1)
+        depth_out[r0:r1] = (w * t).sum(-1)
+        acc_out[r0:r1] = acc
+        if white_bkgd:
+            rgb_px = rgb_px + (1 - acc)[..., None]
+        rgb_out[r0:r1] = rgb_px
+    if with_acc:
+        return rgb_out, depth_out, acc_out
+    return rgb_out, depth_out
+
+
+def _multi_object_poses(n: int, seed: int) -> np.ndarray:
+    """n cameras at radius 4 around the scene, in a seeded random order."""
+    rng = np.random.default_rng(seed)
+    thetas = np.linspace(-180, 180, n, endpoint=False)
+    phis = rng.uniform(-55, -12, n)
+    order = rng.permutation(n)
+    return np.stack([pose_spherical_np(thetas[k], phis[k], 4.0)
+                     for k in order]).astype(np.float32)
+
+
+def make_multi_object_dataset(
+    n_train: int = 30, n_test: int = 6, H: int = 160, W: int = 160,
+    seed: int = 0, density: float = 80.0, cache_dir: Optional[str] = None,
+    slab: bool = True,
+):
+    """Train / test splits of the multi-object scene with its depth maps:
+    dict(images, poses, depths, K, i_train, i_test, hwf, near, far).
+    Renders are cached in ``cache_dir`` under the geometry's key."""
+    focal = 0.5 * W / np.tan(0.25)
+    key = (f"mobj_{n_train}_{n_test}_{H}x{W}_{seed}_{density:g}"
+           + ("" if slab else "_noslab"))
+    cache = os.path.join(cache_dir, key + ".npz") if cache_dir else None
+    if cache and os.path.exists(cache):
+        z = np.load(cache)
+        return {k: z[k] for k in z.files} | {
+            "hwf": [H, W, focal], "near": 2.0, "far": 6.0}
+
+    n = n_train + n_test
+    poses = _multi_object_poses(n, seed)
+    images, depths = [], []
+    for p in poses:
+        rgb, d = render_scene_image(p, H, W, focal, density=density,
+                                    slab=slab)
+        images.append(rgb)
+        depths.append(d)
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]],
+                 np.float32)
+    out = {"images": np.stack(images), "poses": poses,
+           "depths": np.stack(depths), "K": K,
+           "i_train": np.arange(n_train), "i_test": np.arange(n_train, n)}
+    if cache:
+        os.makedirs(cache_dir, exist_ok=True)
+        np.savez_compressed(cache, **out)
+    return out | {"hwf": [H, W, focal], "near": 2.0, "far": 6.0}
+
+
+# one stored depth unit is max_depth / 255 (the loaders divide by 255 /
+# max_depth); this puts depth 8 at the top of 16 bits
+DEPTH_PNG_MAX_DEPTH = 8.0 * 255.0 / 65535.0
+
+
+def write_blender2_depth_scene(
+    basedir: str, views: Dict[str, int], H: int, W: int,
+    camera_angle_x: float, seed: int = 0, density: float = 80.0,
+    n_march: int = 512, max_depth: float = DEPTH_PNG_MAX_DEPTH,
+    workers: int = 1, slab: bool = True) -> str:
+    """Write the multi-object scene in the blender2_depth layout that
+    ``data.blender.load_blender2_depth`` reads: per split of ``views``
+    ({"train": n, "val": n, "test": n}), ``{split}_transforms.json``
+    (``camera_angle_x``; per frame ``file_path``, ``depth_file_path``,
+    ``max_depth``, ``transform_matrix``), RGBA pngs ``{split}/r_{i}.png``
+    (straight colour, alpha the opacity, so compositing over white gives
+    the white-background render) and 16-bit depth pngs
+    ``{split}/r_{i}_depth.png`` holding ``depth * 255 / max_depth``.
+    Cameras come from one seeded set over every split, rays from pixel
+    centres.  Mind the loader's stride of 8 over the test split: 9 test
+    views are read as 2.  ``workers`` renders that many views at once in
+    threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .png import write_png
+
+    focal = 0.5 * W / np.tan(0.5 * camera_angle_x)
+    poses = _multi_object_poses(sum(views.values()), seed)
+    jobs, k = [], 0
+    for split, n in views.items():
+        os.makedirs(os.path.join(basedir, split), exist_ok=True)
+        frames = []
+        for i in range(n):
+            c2w = poses[k]
+            k += 1
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "depth_file_path": f"./{split}/r_{i}_depth_",
+                           "max_depth": max_depth,
+                           "transform_matrix": c2w.tolist()})
+            jobs.append((os.path.join(basedir, split, f"r_{i}"), c2w))
+        with open(os.path.join(basedir, f"{split}_transforms.json"),
+                  "w") as f:
+            json.dump({"camera_angle_x": camera_angle_x, "frames": frames},
+                      f)
+
+    def render(job):
+        path, c2w = job
+        rgb, depth, acc = render_scene_image(
+            c2w, H, W, focal, density=density, n_march=n_march,
+            white_bkgd=False, slab=slab, pixel_center=True, with_acc=True)
+        color = rgb / np.maximum(acc, 1e-8)[..., None]
+        rgba = np.concatenate([color, acc[..., None]], -1)
+        write_png(path + ".png",
+                  np.rint(np.clip(rgba, 0, 1) * 255).astype(np.uint8))
+        stored = np.rint(depth * (255.0 / max_depth))
+        if stored.max() > 65535:
+            raise ValueError(f"depth {depth.max()} does not fit 16 bits at "
+                             f"max_depth {max_depth}")
+        write_png(path + "_depth.png", stored.astype(np.uint16))
+
+    with ThreadPoolExecutor(max(1, workers)) as ex:
+        list(ex.map(render, jobs))
+    return basedir
 
 
 # ---------------------------------------------------------------------------

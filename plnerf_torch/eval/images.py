@@ -102,18 +102,24 @@ def render_images_with_metrics(
     indices: Sequence[int], mcfg: ModelConfig, rcfg: RenderConfig,
     chunk: int = 32768, near: Optional[float] = None,
     far: Optional[float] = None, ndc: bool = False, seed: int = 0,
-    verbose: bool = True, mcfg_fine: Optional[ModelConfig] = None):
+    verbose: bool = True, mcfg_fine: Optional[ModelConfig] = None,
+    pixel_center: bool = False, cam_embeddings=None):
     """Render the held-out views ``indices`` of ``dataset`` (a
     ``SceneData``) and aggregate their metrics (reference
     run_plnerf.py:284-363): per image img_loss, PSNR and SSIM of the fine
-    pass, img_loss0 and PSNR0 of the coarse.  Returns ``(MeanTracker,
-    res)``, ``res`` holding the stacked rgbs / target_rgbs / depths (/ far)
-    and the coarse rgbs0 / depths0 for the writers.
+    pass, img_loss0 and PSNR0 of the coarse, and, where the dataset
+    carries depths, the depth RMSE over its valid pixels (averaged over the
+    images that have any).  Returns ``(MeanTracker, res)``, ``res`` holding
+    the stacked rgbs / target_rgbs / depths (/ far), the coarse rgbs0 /
+    depths0 and the target_depths (/ far) / target_valid_depths for the
+    writers.
 
-    Image ``n`` renders with the seeds ``seed + n * n_chunks + i`` of its
-    chunks ``i``, so no two chunks share a stream.  LPIPS is not ported
-    (ROADMAP A14): its row in the metrics is a note.  The depth-supervision
-    datasets' depth RMSE waits for their loaders (ROADMAP A9)."""
+    ``pixel_center``: the depth script's rays, from each view's vector
+    intrinsics.  ``cam_embeddings``: {index: embedding} from test-time
+    camera optimization (a view without one renders at zeros).  Image ``n``
+    renders with the seeds ``seed + n * n_chunks + i`` of its chunks
+    ``i``, so no two chunks share a stream.  LPIPS is not ported (ROADMAP
+    A14): its row in the metrics is a note."""
     near = dataset.near if near is None else near
     far = dataset.far if far is None else far
     if near is None or far is None:
@@ -122,21 +128,39 @@ def render_images_with_metrics(
     n_chunks = math.ceil(H * W / chunk)
 
     mean_metrics = MeanTracker()
-    res = {"rgbs": [], "target_rgbs": [], "depths": [], "rgbs0": [],
-           "depths0": []}
+    mean_depth_metrics = MeanTracker()
+    res = {"rgbs": [], "target_rgbs": [], "depths": [], "target_depths": [],
+           "target_valid_depths": [], "rgbs0": [], "depths0": []}
     indices = [int(i) for i in np.asarray(indices)]
     for n, img_idx in enumerate(indices):
         t0 = time.time()
         target = np.asarray(dataset.images[img_idx], np.float32)
+        K_i = (dataset.intrinsics[img_idx]
+               if pixel_center
+               and getattr(dataset, "intrinsics", None) is not None
+               else dataset.K)
         out = render_image(params_c, params_f, dataset.poses[img_idx],
-                           dataset.hwf, dataset.K, mcfg, rcfg,
+                           dataset.hwf, K_i, mcfg, rcfg,
                            seed=seed + n * n_chunks, near=near, far=far,
-                           chunk=chunk, ndc=ndc, mcfg_fine=mcfg_fine)
+                           chunk=chunk, ndc=ndc, pixel_center=pixel_center,
+                           cam_embedding=(None if cam_embeddings is None
+                                          else cam_embeddings.get(img_idx)),
+                           mcfg_fine=mcfg_fine)
         rgb = np.clip(out["rgb_map"], 0.0, 1.0)
         img_loss = float(np.mean((out["rgb_map"] - target) ** 2))
         psnr = M.mse2psnr(img_loss)
         metrics = {"img_loss": img_loss, "psnr": psnr,
                    "ssim": M.ssim(rgb, target)}
+        if dataset.gt_depths is not None:
+            gt_depth = np.asarray(dataset.gt_depths[img_idx])[..., 0]
+            valid = np.asarray(dataset.gt_valid_depths[img_idx]).astype(bool)
+            if valid.ndim == 3:
+                valid = valid[..., 0]
+            rmse = M.depth_rmse(out["depth_map"], gt_depth, valid)
+            if not np.isnan(rmse):
+                mean_depth_metrics.add({"depth_rmse": rmse})
+            res["target_depths"].append(gt_depth / far)
+            res["target_valid_depths"].append(valid)
         res["rgbs"].append(rgb)
         res["target_rgbs"].append(target)
         res["depths"].append(out["depth_map"] / far)
@@ -152,9 +176,11 @@ def render_images_with_metrics(
                   f"PSNR: {psnr:.2f} ({time.time() - t0:.1f}s)")
 
     res = {k: np.stack(v, 0) for k, v in res.items() if v}
-    mean_metrics.note("lpips", "UNAVAILABLE (no weights file: LPIPS is not "
-                      "ported yet, ROADMAP A14)")
-    return mean_metrics, res
+    all_mean = MeanTracker()
+    all_mean.add({**mean_metrics.as_dict(), **mean_depth_metrics.as_dict()})
+    all_mean.note("lpips", "UNAVAILABLE (no weights file: LPIPS is not "
+                  "ported yet, ROADMAP A14)")
+    return all_mean, res
 
 
 def test_images_samples(
@@ -163,12 +189,13 @@ def test_images_samples(
     count: Optional[int] = None, chunk: int = 32768, seed: int = 0,
     verbose: bool = True, pixel_center: bool = False,
     mcfg_fine: Optional[ModelConfig] = None,
-    valid_mask_from_dataset: bool = False, ndc: bool = False):
+    valid_mask_from_dataset: bool = False, ndc: bool = False,
+    metrics_filename: str = "metrics_expecteddepth.txt"):
     """The importance-sampling-error eval (reference run_plnerf.py:218-282):
     the mean distance between each termination quantile (``pred_hyp``) and
     the expected depth, over the rays of each view, averaged over views and
-    written to ``result_dir/metrics_expecteddepth.txt``.  Returns the
-    ``MeanTracker``.
+    written to ``result_dir/metrics_filename`` (the depth script names it
+    metrics_depth_samples.txt).  Returns the ``MeanTracker``.
 
     ``count`` views are drawn from ``indices`` with
     ``default_rng(seed)``; ``valid_mask_from_dataset`` averages over the
@@ -212,8 +239,7 @@ def test_images_samples(
             print(f"Sample-error image {n + 1}/{len(indices)}: {err:.4f}")
 
     os.makedirs(result_dir, exist_ok=True)
-    with open(os.path.join(result_dir, "metrics_expecteddepth.txt"),
-              "w") as f:
+    with open(os.path.join(result_dir, metrics_filename), "w") as f:
         mean_depth_metrics.print(f)
     return mean_depth_metrics
 

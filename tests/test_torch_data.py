@@ -204,9 +204,16 @@ def test_load_blender_fixed_dist_matches_jax(scenes, test_dist):
 
 
 def test_depth_loaders_are_refused():
-    for fn in (blender.load_blender2_depth, blender.load_blender_depth):
-        with pytest.raises(NotImplementedError, match="A9"):
+    """The depth loaders (ported with depth supervision) refuse a scene
+    with no split to read, as the JAX package's do."""
+    for fn, ref in ((blender.load_blender2_depth,
+                     jblender.load_blender2_depth),
+                    (blender.load_blender_depth,
+                     jblender.load_blender_depth)):
+        with pytest.raises(ValueError, match="no split"):
             fn("nowhere")
+        with pytest.raises(ValueError):
+            ref("nowhere")
 
 
 @pytest.mark.parametrize("dataset, white_bkgd", [

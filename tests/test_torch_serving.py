@@ -150,6 +150,8 @@ def test_port_imports_neither_jax_nor_plnerf():
     assert {"plnerf_torch.kernels.fused_mlp", "plnerf_torch.kernels.dot_probe",
             "plnerf_torch.tools.dot_decompose",
             "plnerf_torch.utils.profile", "plnerf_torch.cli.run_plnerf",
+            "plnerf_torch.cli.run_depth", "plnerf_torch.train.camera_opt",
+            "plnerf_torch.train.losses",
             "plnerf_torch.cli.run_vanilla", "plnerf_torch.cli.config",
             "plnerf_torch.cli.datasets", "plnerf_torch.data.blender",
             "plnerf_torch.data.llff", "plnerf_torch.data.dtu",
