@@ -123,17 +123,46 @@ Phases, one line each, then the result line:
            ``optimize_camera_embedding`` called on one test view, and step
            1 on the card against the CPU (losses 1e-3 relative; grads of
            both networks 1e-3 relative L2, scales, shifts and embeddings
-           1e-3).  Launches counted as in the driver phase.  Checks a
+           1e-3).  Then two seeded runs of 70 steps (20 past the warm
+           start) that must repeat bit for bit (logged losses, every
+           tensor of the final state), and a 60-step run with
+           ``--occ_grid`` (warm-up 20; its line is the occ phase's).
+           Launches counted as in the driver phase.  Checks a
            falling loss and space-carving loss, scale / shift means that
            move and then hold, a held-out depth RMSE below the fresh
            init's, the metric files; logs ms per step, s per test image,
            PSNR / SSIM / depth RMSE.
+12. occ    the driver on ``configs/blender_linear_occ.txt`` at full width
+           (two 8x256 MLPs, bf16, 32 grid-guided + 64 importance samples,
+           a 128^3 grid with 96 candidate bins over [-1.5, 1.5]^3) on the
+           driver phase's sphere: 300 steps (warm-up cut from 500 to 100,
+           precrop and constant quadrature as the driver phase cuts them,
+           ``i_print`` 10, checkpoints every 300, val renders every 600),
+           a resume to 1200 from the ``.occ`` sidecar (the grid guides at
+           once; on this scene it starts to carve near step 1000),
+           ``--task test``; and ``configs/blender_linear.txt --mlp_dtype
+           bfloat16`` for the same 1200 steps and test.  Both bf16
+           kernels held against their plain
+           versions on the calls of one guided step and one 32,768-ray
+           eval chunk with the grid (2e-2 as in the depth phase); the grid
+           functions on the card against the CPU on the same inputs
+           (exact; ``occ_guided_z_vals`` 1e-5) and one fp32 guided step
+           (losses 1e-3 relative, grads 1e-3 relative L2, the updated
+           grid's ``occ`` differing in at most ``OCC_FLIP_BOUND`` of the
+           voxels); two seeded runs of the first guided steps bit-equal in
+           losses, state and grid.  Launches counted as in the driver
+           phase.  Checks that the grid guides every step past the
+           warm-up, that ``occ_ray_frac`` falls from the first guided print
+           to the end, that the centre voxel stays occupied; logs both
+           arms' ms per step (the occ arm's warm-up and guided windows
+           apart), s per test image, PSNR / SSIM, ``occ_ray_frac`` and the
+           grid's occupied share.
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without CUDA, without the repository beside it, or on any failure.
-``--only bwd,train`` (or ``--only depth``) runs the build and the named
-phases alone and prints no result lines.
+``--only bwd,train`` (or ``--only depth``, ``--only occ``) runs the build
+and the named phases alone and prints no result lines.
 """
 from __future__ import annotations
 
@@ -142,6 +171,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -203,6 +233,32 @@ DEPTH_TRAIN = ["--mode", "linear", "--N_samples", "128", "--N_importance",
                "--input_ch_cam", "4", "--opt_ch_cam",
                "--i_print", str(DEPTH_PRINT), "--i_img", "150",
                "--i_weights", "150"]
+# the depth phase's two seeded runs past the warm start (50), and its run
+# of the depth driver with the occupancy grid
+DEPTH_REPEAT_STEPS = 70
+DEPTH_OCC_STEPS, DEPTH_OCC_WARMUP = 60, 20
+# the occ phase: configs/blender_linear_occ.txt on the driver phase's
+# sphere, its warm-up (500) and precrop cut as the driver phase cuts them;
+# two seeded runs of its first guided steps
+OCC_WARMUP = 100
+# 300 steps and a resume to 1200: on this scene the grid starts to carve
+# only near step 1000, where the field's fog clears (occ_ray_frac 0.69
+# to step 900, 0.63 at 1000, 0.29 at 1500: tools/occ_quality.py, PERF.md)
+OCC_STEPS, OCC_RESUME_STEPS = 300, 1200
+# both arms print every 10 steps, so the first guided print (110) reads
+# the grid 10 steps after it engages; checkpoints every 300, val renders
+# every 600
+OCC_PRINT = 10
+OCC_TRAIN = ["--precrop_iters", "50", "--constant_init", "100",
+             "--i_print", str(OCC_PRINT), "--i_weights", "300",
+             "--i_img", "600", "--i_testset", "1000000",
+             "--i_video", "1000000"]
+OCC_ARM = OCC_TRAIN + ["--occ_warmup", str(OCC_WARMUP)]
+OCC_REPEAT_STEPS, OCC_REPEAT_WARMUP = 60, 20
+OCC_REPEAT = DRIVER_TRAIN + [
+    "--i_print", "10", "--i_img", "1000000", "--i_weights",
+    str(OCC_REPEAT_STEPS), "--occ_warmup", str(OCC_REPEAT_WARMUP),
+    "--num_iterations", str(OCC_REPEAT_STEPS)]
 # pred_hyp, a depth along the ray, at the depth maps' tolerance
 HYP_TOL = dict(REFERENCE_TOL, pred_hyp=1e-2)
 PROBE_REPLACES = {"shape": "tools/dot_decompose.py:89",     # make_shape_kernel
@@ -1119,83 +1175,6 @@ def phase_train_reference(dev):
                              f"{cpu['losses']}")
 
 
-def _write_sphere_pngs(size: int, jobs) -> None:
-    """Render the numpy sphere for each (path, c2w) of ``jobs`` at size x
-    size with the lego camera_angle_x, as RGBA pngs in straight alpha (the
-    sphere's colour, alpha its opacity), so compositing over white gives
-    the white-background render."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from plnerf_torch.data.png import write_png
-    from plnerf_torch.data.synthetic import render_sphere_image
-    from plnerf_torch.utils.misc import to8b
-
-    focal = 0.5 * size / np.tan(0.5 * LEGO_CAMERA_ANGLE_X)
-    color = np.array([0.8, 0.3, 0.2], np.float32)
-
-    def render(job):
-        path, c2w = job
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        rgb = render_sphere_image(c2w, size, size, focal, color=color,
-                                  white_bkgd=False)
-        alpha = np.clip(rgb[..., :1] / color[0], 0.0, 1.0)
-        rgba = np.concatenate([np.broadcast_to(color, rgb.shape), alpha], -1)
-        write_png(path, to8b(rgba))
-
-    # numpy releases the interpreter lock in the render's large ops; each
-    # 400x400 render holds ~2 GB of intermediates
-    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
-        list(ex.map(render, jobs))
-
-
-def _write_frames(scene_dir: str, json_name: str, frames) -> None:
-    with open(os.path.join(scene_dir, json_name), "w") as f:
-        json.dump({"camera_angle_x": LEGO_CAMERA_ANGLE_X,
-                   "frames": frames}, f)
-
-
-def write_sphere_scene(scene_dir: str, size: int, views: dict) -> None:
-    """A Blender-layout scene of the numpy sphere: ``transforms_{split}.
-    json`` and RGBA pngs.  Train views ring the sphere; val and test views
-    sit between them."""
-    from plnerf_torch.data.synthetic import pose_spherical_np
-
-    rng = np.random.default_rng(0)
-    jobs = []
-    for k, (split, n) in enumerate(views.items()):
-        thetas = np.linspace(-180, 180, n, endpoint=False) + 360 / 16 * k
-        frames = []
-        for i, theta in enumerate(thetas):
-            c2w = pose_spherical_np(theta, rng.uniform(-40, -20), 4.0)
-            frames.append({"file_path": f"./{split}/r_{i}",
-                           "transform_matrix": c2w.tolist()})
-            jobs.append((os.path.join(scene_dir, split, f"r_{i}.png"), c2w))
-        os.makedirs(scene_dir, exist_ok=True)
-        _write_frames(scene_dir, f"transforms_{split}.json", frames)
-    _write_sphere_pngs(size, jobs)
-
-
-def write_fixed_dist_scene(scene_dir: str, size: int, dists, n: int) -> None:
-    """The blender_fixeddist layout of the numpy sphere: ``n`` test views
-    at radius 4 x d for each distance d (``radius_{d}_test/r_i.png`` and
-    ``transforms_radius{d}_test.json``)."""
-    from plnerf_torch.data.synthetic import pose_spherical_np
-
-    jobs = []
-    os.makedirs(scene_dir, exist_ok=True)
-    for d in dists:
-        frames = []
-        for i, theta in enumerate(np.linspace(-180, 180, n, endpoint=False)
-                                  + 15.0):
-            c2w = pose_spherical_np(theta, -30.0, 4.0 * d)
-            rel = f"radius_{d}_test/r_{i}"
-            frames.append({"file_path": "./" + rel,
-                           "transform_matrix": c2w.tolist()})
-            jobs.append((os.path.join(scene_dir, rel + ".png"), c2w))
-        _write_frames(scene_dir, f"transforms_radius{d}_test.json", frames)
-    _write_sphere_pngs(size, jobs)
-
-
 def _records(exp: str, key: str) -> dict:
     """{step: record} of the metrics.jsonl records holding ``key``."""
     with open(os.path.join(exp, "metrics.jsonl")) as f:
@@ -1318,25 +1297,39 @@ class _Recording:
         setattr(self.module, self.name, self.orig)
 
 
-def phase_driver(dev, bare_step_ms=None):
-    """Returns (forward launches, backward launches) of the driver's runs."""
+def sphere_data(scenes: str) -> tuple:
+    """(data_dir, seconds): ``scenes``, holding the driver phases' sphere
+    scene ``sphere`` (``DRIVER_VIEWS`` at ``DRIVER_SIZE``), written unless
+    it is there already (then 0 s)."""
+    from plnerf_torch.data.synthetic import write_sphere_scene
+
+    path = os.path.join(scenes, "sphere")
+    if os.path.isdir(path):
+        return scenes, 0.0
+    t0 = time.perf_counter()
+    write_sphere_scene(path, DRIVER_SIZE, DRIVER_VIEWS)
+    return scenes, time.perf_counter() - t0
+
+
+def phase_driver(dev, bare_step_ms=None, scenes=None):
+    """Returns (forward launches, backward launches) of the driver's runs.
+    ``scenes``: where the sphere scene is or goes (``sphere_data``)."""
     import shutil
     import tempfile
 
     from plnerf_torch.checkpoint import io as ckio
     from plnerf_torch.cli import run_plnerf
+    from plnerf_torch.data.synthetic import write_fixed_dist_scene
 
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="plnerf_driver_")
     try:
-        data, ckpt = os.path.join(root, "data"), os.path.join(root, "ckpt")
+        ckpt = os.path.join(root, "ckpt")
+        data, scene_s = sphere_data(scenes or os.path.join(root, "data"))
         t0 = time.perf_counter()
-        write_sphere_scene(os.path.join(data, "sphere"), DRIVER_SIZE,
-                           DRIVER_VIEWS)
-        scene_s = time.perf_counter() - t0
         write_fixed_dist_scene(os.path.join(data, "fixdist"), DRIVER_SIZE,
                                run_plnerf.FIXED_DIST_NEAR, FIXED_DIST_VIEWS)
-        fixed_scene_s = time.perf_counter() - t0 - scene_s
+        fixed_scene_s = time.perf_counter() - t0
         config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "configs", "blender_linear.txt")
         where = ["--ckpt_dir", ckpt, "--expname", "smoke", "--data_dir", data,
@@ -1738,6 +1731,36 @@ def _depth_card_vs_cpu(dev, args, data) -> dict:
                          "losses 1e-3 relative"}
 
 
+def _depth_occ_run(run, expect, train, ckpt, runs, launches) -> None:
+    """The depth driver with ``--occ_grid``: ``DEPTH_OCC_STEPS`` steps,
+    the grid warming up for ``DEPTH_OCC_WARMUP``, then guiding; checks that
+    it guides every step past the warm-up and writes its sidecar, and logs
+    on the occ phase's line."""
+    name = "depth_occ"
+    run(name, train + [
+        "--occ_grid", "--occ_warmup", str(DEPTH_OCC_WARMUP),
+        "--num_iterations", str(DEPTH_OCC_STEPS), "--i_print", "10",
+        "--i_img", "1000000", "--i_weights", str(DEPTH_OCC_STEPS),
+        "--expname", name])
+    expect(name, 2 * DEPTH_OCC_STEPS, 2 * DEPTH_OCC_STEPS)
+    exp = os.path.join(ckpt, name)
+    recs = _records(exp, "train/loss")
+    frac = {k: r["train/occ_ray_frac"] for k, r in recs.items()
+            if "train/occ_ray_frac" in r}
+    if sorted(frac) != [k for k in sorted(recs) if k > DEPTH_OCC_WARMUP] \
+            or not os.path.exists(os.path.join(
+                exp, f"{DEPTH_OCC_STEPS:06d}.occ")):
+        raise AssertionError(f"depth driver --occ_grid: occ_ray_frac {frac}")
+    log("occ", part="depth_driver", card=card_line(), recipe=DEPTH_TRAIN,
+        steps=DEPTH_OCC_STEPS, warmup=DEPTH_OCC_WARMUP, occ_ray_frac=frac,
+        train_loss={k: r["train/loss"] for k, r in recs.items()},
+        space_carving_loss={k: r.get("train/space_carving_loss")
+                            for k, r in recs.items()},
+        ms_per_step_by_window={k: 1e3 / r["train/steps_per_sec"]
+                               for k, r in recs.items()},
+        run_s=runs[name], launches=launches[name])
+
+
 def phase_depth(dev):
     """Returns (forward launches, backward launches) of the depth runs."""
     import functools
@@ -1876,6 +1899,15 @@ def phase_depth(dev):
                 (out["rgb_map"] - data.images[ti]) ** 2)))
         reference = _depth_card_vs_cpu(dev, args, data)
 
+        # two seeded runs past the warm start must repeat bit for bit
+        repeat = _repeat(run, expect, train + [
+            "--num_iterations", str(DEPTH_REPEAT_STEPS), "--i_print", "10",
+            "--i_img", "1000000", "--i_weights", str(DEPTH_REPEAT_STEPS)],
+            ckpt, "repeat", DEPTH_REPEAT_STEPS,
+            ("train/loss", "train/img_loss", "train/img_loss0",
+             "train/space_carving_loss"))
+        _depth_occ_run(run, expect, train, ckpt, runs, launches)
+
         window_s = {k: DEPTH_PRINT / r["train/steps_per_sec"]
                     for k, r in recs.items()}
         log("depth", card=card_line(), scene={
@@ -1900,7 +1932,7 @@ def phase_depth(dev):
                         "psnr_render_zero": views["zero"],
                         "psnr_render_best": views["best"], "s": cam_s},
             kernel_holds=holds, card_vs_cpu_step1=reference,
-            launches=launches, launches_per_train_step={
+            repeat=repeat, launches=launches, launches_per_train_step={
                 "fused_mlp_fwd": 2.0, "fused_mlp_bwd": 2.0},
             phase_s=time.perf_counter() - t_phase,
             note="ms_per_step: the i_print windows' times summed over the "
@@ -1915,8 +1947,395 @@ def phase_depth(dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _repeat(run, expect, argv, exp_root, name, steps, keys) -> dict:
+    """Two runs of the driver command ``argv`` from one seed, as
+    experiments ``{name}_a`` and ``{name}_b`` (two launches of each kernel
+    per step, no eval render): every logged ``keys`` value, every tensor of
+    the final state and, where there is one, of the final ``.occ`` sidecar
+    must be bit-equal; raises otherwise."""
+    from plnerf_torch.tools.depth_repeat import state_diff
+
+    states, recs, grids = {}, [], []
+    for tag in ("a", "b"):
+        exp = f"{name}_{tag}"
+        states[tag] = run(exp, argv + ["--expname", exp])
+        expect(exp, 2 * steps, 2 * steps)
+        recs.append(_records(os.path.join(exp_root, exp), "train/loss"))
+        sidecar = os.path.join(exp_root, exp, f"{steps:06d}.occ")
+        if os.path.exists(sidecar):
+            grids.append(torch.load(sidecar, weights_only=True))
+    differ = [k for k in recs[0]
+              if any(recs[0][k].get(q) != recs[1].get(k, {}).get(q)
+                     for q in keys)]
+    out = {"steps": steps, "logged_steps": sorted(recs[0]),
+           "differing_logged_steps": differ,
+           "state": state_diff(states["a"].state_dict(),
+                               states["b"].state_dict()),
+           "grid": state_diff(*grids) if len(grids) == 2 else None,
+           "losses": {k: r["train/loss"] for k, r in recs[0].items()}}
+    if (differ or out["state"]["tensors"] or len(grids) == 1
+            or (out["grid"] and out["grid"]["tensors"])):
+        raise AssertionError(f"{name}: two seeded runs differ: {out}")
+    return out
+
+
+def _occ_setup(args):
+    """(mcfg, setup with the grid's config) of the occ recipe's args."""
+    import dataclasses
+
+    from plnerf_torch.cli import run_plnerf
+
+    mcfg, rcfg, setup = run_plnerf.build_configs(args)
+    return mcfg, dataclasses.replace(setup, rcfg=dataclasses.replace(
+        rcfg, occ=run_plnerf.occ_cfg_from_args(args)))
+
+
+def _occ_kernel_holds(dev, args, state, grid, batch, eval_rays) -> dict:
+    """Both bf16 kernels on the inputs the occ path gives them: every
+    forward and backward call of one guided step of the trained ``state``
+    on ``batch`` (1024 rays: 32,768 coarse and 98,304 fine rows) and the
+    forward calls of one 32,768-ray eval chunk with the grid (1,048,576
+    and 3,145,728 rows); held as ``_depth_kernel_holds`` holds them
+    (forward 2e-2 x max(1, max|raw|), backward 2e-2 relative L2 per block
+    on a seeded random cotangent).  Returns the errors and the step's
+    density observations (``_occ_z``, ``_occ_sigma``) on the CPU."""
+    from plnerf_torch.eval import images as EI
+    from plnerf_torch.kernels import fused_mlp
+    from plnerf_torch.train import step as tstep
+
+    mcfg, setup = _occ_setup(args)
+    if setup.rcfg.mlp_dtype != "bfloat16" or not setup.rcfg.use_fused_mlp:
+        raise AssertionError(f"occ recipe config {setup.rcfg}")
+    calls = []
+    fwd, bwd = fused_mlp.forward_cuda, fused_mlp.backward_cuda
+
+    def record(kind, fn):
+        def wrapped(*a):
+            calls.append((kind, a))
+            return fn(*a)
+        return wrapped
+
+    fused_mlp.forward_cuda = record("fwd_train", fwd)
+    fused_mlp.backward_cuda = record("bwd_train", bwd)
+    try:
+        loss, m = tstep._render_loss(
+            state.params_coarse, state.params_fine,
+            dict(batch, occ_grid=grid),
+            torch.Generator(device=dev).manual_seed(16), setup)
+        loss.backward()
+        fused_mlp.forward_cuda = record("fwd_eval", fwd)
+        EI.render_chunks(state.params_coarse, state.params_fine, eval_rays,
+                         mcfg, EI.test_render_config(setup.rcfg,
+                                                     perturb=False),
+                         R_CHUNK, 0, ("rgb_map",), occ_grid=grid)
+    finally:
+        fused_mlp.forward_cuda, fused_mlp.backward_cuda = fwd, bwd
+    for o in (state.opt_fine, state.opt_coarse):
+        o.zero_grad(set_to_none=True)
+    rows = {}
+    for kind, a in calls:
+        rows.setdefault(kind, []).append(a[1].shape[0])
+    rows = {k: sorted(v) for k, v in rows.items()}
+    want = {"fwd_train": [N_RAND * 32, N_RAND * 96],
+            "bwd_train": [N_RAND * 32, N_RAND * 96],
+            "fwd_eval": [R_CHUNK * 32, R_CHUNK * 96]}
+    if rows != want:
+        raise AssertionError(f"occ path kernel calls {rows}, expected {want}")
+    errs, bwd_errs, rels = {}, {}, {}
+    with torch.no_grad():
+        for i, (kind, a) in enumerate(calls):
+            p, x, v, v_div = a[:4]
+            key = f"{kind}{i}_{x.shape[0]}_bfloat16"
+            if kind.startswith("fwd"):
+                _hold(key, p, x, v, v_div, errs)
+                continue
+            cot = torch.randn(a[4].shape, device=dev,
+                              generator=torch.Generator(
+                                  device=dev).manual_seed(17))
+            _bwd_hold(key, p, x, v, v_div, cot, bwd_errs, rels)
+    del calls[:]
+    torch.cuda.empty_cache()
+    return {"rows": rows, "fwd_max_abs_err": errs,
+            "bwd_max_abs_err": bwd_errs, "bwd_rel_l2_err": rels,
+            "tolerance": {"forward": "2e-2 x max(1, max|raw|)",
+                          "backward": "relative L2 per block against the "
+                                      "plain version, 2e-2"}}, {
+        "z": m["_occ_z"].cpu(), "sigma": m["_occ_sigma"].cpu()}
+
+
+# the updated grid on the card against the CPU: voxels whose occ may
+# differ (a density EMA within rounding of the threshold), of 128^3
+OCC_FLIP_BOUND = 1e-4
+
+
+def _occ_card_vs_cpu(dev, args, grid, batch, obs) -> dict:
+    """The grid functions on the card and on the CPU on the same inputs
+    (the trained ``grid``, ``batch``'s rays, a guided step's density
+    observations ``obs``): ``update_grid``, ``refresh_occ`` and
+    ``occupancy_along_rays`` exactly, ``occ_guided_z_vals`` to 1e-5.  Then
+    one fp32 guided step's forward and backward and its grid update from a
+    fresh init, the grid and the renderer's draws (made with numpy) the
+    same on both: losses to 1e-3 relative, grads to 1e-3 relative L2 over
+    both networks and 1e-2 per tensor (see phase_train_reference), the
+    updated grid's ``occ`` differing in at most ``OCC_FLIP_BOUND`` of the
+    voxels."""
+    import dataclasses
+
+    from plnerf_torch.core import occgrid as og
+    from plnerf_torch.train import step as tstep
+
+    _, setup = _occ_setup(args)
+    cfg = setup.rcfg.occ
+    cpu_grid = {k: v.cpu() for k, v in grid.items()}
+    rays = batch["rays"].cpu()
+    pts = rays[:, None, 0:3] + rays[:, None, 3:6] * obs["z"][..., None]
+    exact, errs = {}, {}
+    got = og.update_grid(grid, pts.to(dev), obs["sigma"].to(dev), cfg)
+    ref = og.update_grid(cpu_grid, pts, obs["sigma"], cfg)
+    for k in ("density", "occ"):
+        exact[f"update_grid.{k}"] = torch.equal(got[k].cpu(), ref[k])
+    exact["refresh_occ"] = torch.equal(og.refresh_occ(grid, cfg)["occ"].cpu(),
+                                       og.refresh_occ(cpu_grid, cfg)["occ"])
+    R = rays.shape[0]
+    t_rand = torch.as_tensor(np.random.default_rng(18).uniform(
+        size=(R, setup.rcfg.n_samples)), dtype=torch.float32)
+    outs = {}
+    for name, g, r, t in (("card", grid, rays.to(dev), t_rand.to(dev)),
+                          ("cpu", cpu_grid, rays, t_rand)):
+        parts = (r[:, 0:3], r[:, 3:6], r[:, 6:7], r[:, 7:8])
+        e, o = og.occupancy_along_rays(g, *parts, cfg.candidates, cfg)
+        z, frac = og.occ_guided_z_vals(g, *parts, setup.rcfg.n_samples, t,
+                                       cfg)
+        outs[name] = [x.cpu() for x in (e, o, z, frac)]
+    exact["occupancy_along_rays.edges"] = torch.equal(outs["card"][0],
+                                                      outs["cpu"][0])
+    exact["occupancy_along_rays.occ"] = torch.equal(outs["card"][1],
+                                                    outs["cpu"][1])
+    errs["occ_guided_z_vals"] = float(
+        (outs["card"][2] - outs["cpu"][2]).abs().max())
+    errs["occ_ray_frac"] = float((outs["card"][3] - outs["cpu"][3]).abs())
+
+    # one fp32 guided step from one state, grid and set of draws
+    fp32 = dataclasses.replace(setup, rcfg=dataclasses.replace(
+        setup.rcfg, mlp_dtype="float32"))
+    rng = np.random.default_rng(19)
+    n = 256
+    draws = {"t_rand": rng.uniform(size=(n, fp32.rcfg.n_samples)),
+             "u": rng.uniform(size=(n, fp32.rcfg.n_importance))}
+    card = tstep.init_state(torch.Generator(device=dev).manual_seed(4), fp32,
+                            dev)
+    host = tstep.init_state(None, fp32, "cpu")
+    host.load_state_dict(card.state_dict())
+    step = {}
+    for name, state, g in (("card", card, grid), ("cpu", host, cpu_grid)):
+        d = g["occ"].device
+        b = {"rays": batch["rays"][:n].to(d),
+             "target": batch["target"][:n].to(d)}
+        ov = {k: torch.as_tensor(v, dtype=torch.float32, device=d)
+              for k, v in draws.items()}
+        loss, m = tstep._render_loss(state.params_coarse, state.params_fine,
+                                     dict(b, occ_grid=g), None, fp32,
+                                     overrides=ov)
+        loss.backward()
+        new, m = tstep.apply_occ_update(fp32, g, b, m)
+        step[name] = {"grads": _grads(state), "occ": new["occ"].cpu(),
+                      "losses": {k: float(m[k]) for k in (
+                          "loss", "img_loss", "img_loss0", "occ_ray_frac")}}
+    gpu, cpu = step["card"], step["cpu"]
+    grad_errs = _grad_errs(gpu["grads"], cpu["grads"])
+    loss_err = {k: abs(gpu["losses"][k] / cpu["losses"][k] - 1)
+                for k in gpu["losses"]}
+    flips = int((gpu["occ"] != cpu["occ"]).sum())
+    worst = max((k for k in grad_errs if k != "all"), key=grad_errs.get)
+    out = {"exact": exact, "max_abs_err": errs, "rays": n,
+           "losses_card": gpu["losses"], "losses_cpu": cpu["losses"],
+           "loss_rel_err": loss_err,
+           "grad_rel_l2_err": {k: grad_errs[k] for k in ("all", worst)},
+           "occ_voxels_differing": flips, "voxels": gpu["occ"].numel(),
+           "tolerance": {
+               "grid_functions": "exact; occ_guided_z_vals 1e-5",
+               "step": "losses 1e-3 relative; grads 1e-3 relative L2 over "
+                       "both networks, 1e-2 per tensor",
+               "updated_grid": f"occ differs in at most {OCC_FLIP_BOUND} "
+                               "of the voxels"}}
+    if not (all(exact.values()) and errs["occ_guided_z_vals"] <= 1e-5
+            and errs["occ_ray_frac"] <= 1e-6
+            and max(loss_err.values()) <= 1e-3 and grad_errs["all"] <= 1e-3
+            and grad_errs[worst] <= 1e-2
+            and flips <= OCC_FLIP_BOUND * gpu["occ"].numel()):
+        raise AssertionError(f"occ card vs CPU: {out}")
+    return out
+
+
+def phase_occ(dev, scenes=None):
+    """Returns (forward launches, backward launches) of the occ runs.
+    ``scenes``: where the sphere scene is or goes (``sphere_data``)."""
+    import shutil
+    import tempfile
+
+    from plnerf_torch.cli import config
+    from plnerf_torch.cli.datasets import load_dataset
+    from plnerf_torch.core import rays as raysmod
+    from plnerf_torch.core.render import make_ray_batch
+    from plnerf_torch.train import batching
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="plnerf_occ_")
+    try:
+        ckpt = os.path.join(root, "ckpt")
+        data, scene_s = sphere_data(scenes or os.path.join(root, "data"))
+        here = os.path.dirname(os.path.abspath(__file__))
+        occ_config = os.path.join(here, "configs", "blender_linear_occ.txt")
+        uni_config = os.path.join(here, "configs", "blender_linear.txt")
+        where = ["--ckpt_dir", ckpt, "--data_dir", data, "--scene_id",
+                 "sphere"]
+        eval_chunks = -(-DRIVER_SIZE * DRIVER_SIZE // R_CHUNK)
+        n_test = DRIVER_VIEWS["test"]
+        run, expect, launches, runs = _driver_runs()
+
+        # the occ arm: 300 steps, a resume to 400 from the sidecar, test
+        train = (["--config", occ_config, "--task", "train"] + where
+                 + ["--expname", "occ"] + OCC_ARM)
+        run("train", train + ["--num_iterations", str(OCC_STEPS)])
+        expect("train", 2 * OCC_STEPS, 2 * OCC_STEPS)
+        state = run("resume", train + ["--num_iterations",
+                                       str(OCC_RESUME_STEPS)])
+        resumed = OCC_RESUME_STEPS - OCC_STEPS
+        # two val renders (i_img at 600, 1200), two launches per chunk each
+        expect("resume", 2 * resumed + 2 * 2 * eval_chunks, 2 * resumed)
+        exp = os.path.join(ckpt, "occ")
+        files = sorted(f for f in os.listdir(exp) if f[0].isdigit())
+        if state.step != OCC_RESUME_STEPS or files != [
+                f"{s:06d}.{x}" for s in range(300, OCC_RESUME_STEPS + 1, 300)
+                for x in ("ckpt", "occ")]:
+            raise AssertionError(f"step {state.step}, files {files}")
+        recs = _records(exp, "train/loss")
+        frac = {k: r["train/occ_ray_frac"] for k, r in recs.items()
+                if "train/occ_ray_frac" in r}
+        guided = [k for k in sorted(recs) if k > OCC_WARMUP]
+        first = min(frac)
+        if sorted(frac) != guided or not frac[OCC_RESUME_STEPS] < \
+                frac[first]:
+            raise AssertionError(f"occ_ray_frac {frac}: the grid must guide "
+                                 f"every step past {OCC_WARMUP}, the resume "
+                                 "at once, and carve")
+        losses = {k: r["train/loss"] for k, r in recs.items()}
+        if not (np.isfinite(list(losses.values())).all()
+                and losses[OCC_RESUME_STEPS] < losses[OCC_PRINT]):
+            raise AssertionError(f"loss did not fall: {losses}")
+        grid = torch.load(os.path.join(exp, f"{OCC_RESUME_STEPS:06d}.occ"),
+                          map_location=dev, weights_only=True)
+        g = grid["occ"].shape[0]
+        occupied = float(grid["occ"].mean())
+        if float(grid["occ"][g // 2, g // 2, g // 2]) != 1.0:
+            raise AssertionError(f"grid at {OCC_RESUME_STEPS}: occupied "
+                                 f"share {occupied}, centre voxel "
+                                 f"{grid['occ'][g // 2, g // 2, g // 2]}")
+        test = ["--task", "test", "--white_bkgd"] + where
+        mm = run("test", test + ["--expname", "occ"])
+        expect("test", 2 * n_test * eval_chunks, 0)
+
+        # the uniform arm at the same dtype, same scene and steps
+        run("uniform_train", ["--config", uni_config, "--task", "train",
+                              "--mlp_dtype", "bfloat16"] + where
+            + ["--expname", "uniform"] + OCC_TRAIN
+            + ["--num_iterations", str(OCC_RESUME_STEPS)])
+        expect("uniform_train", 2 * OCC_RESUME_STEPS
+               + 2 * 2 * eval_chunks, 2 * OCC_RESUME_STEPS)
+        mm_u = run("uniform_test", test + ["--expname", "uniform"])
+        expect("uniform_test", 2 * n_test * eval_chunks, 0)
+        recs_u = _records(os.path.join(ckpt, "uniform"), "train/loss")
+
+        # the kernels on the occ path's own inputs, at the trained state
+        args = config.resolve_args(config.config_parser().parse_args(
+            test + ["--expname", "occ"]))
+        bundle = load_dataset(args)
+        imgs = torch.as_tensor(np.asarray(bundle.data.images, np.float32),
+                               device=dev)
+        poses = torch.as_tensor(np.asarray(bundle.data.poses, np.float32)[
+            :, :3, :4], device=dev)
+        rays, target, _ = batching.sample_one_image_batch(
+            imgs, poses, bundle.data.K,
+            torch.as_tensor(np.asarray(bundle.i_train), device=dev),
+            torch.Generator(device=dev).manual_seed(20), N_RAND,
+            bundle.near, bundle.far, True)
+        batch = {"rays": rays, "target": target}
+        ti = int(bundle.i_test[0])
+        H, W = DRIVER_SIZE, DRIVER_SIZE
+        ro, rd = raysmod.get_rays(H, W, np.asarray(bundle.data.K),
+                                  poses[ti])
+        eval_rays = make_ray_batch(ro, rd, bundle.near, bundle.far,
+                                   True)[0][:R_CHUNK]
+        holds, obs = _occ_kernel_holds(dev, args, state, grid, batch,
+                                       eval_rays)
+        reference = _occ_card_vs_cpu(dev, args, grid, batch, obs)
+
+        # two seeded runs of the first guided steps
+        repeat = _repeat(run, expect, [
+            "--config", occ_config, "--task", "train"] + where + OCC_REPEAT,
+            ckpt, "repeat", OCC_REPEAT_STEPS,
+            ("train/loss", "train/img_loss", "train/img_loss0",
+             "train/occ_ray_frac"))
+
+        def windows(rs):
+            return {k: 1e3 / r["train/steps_per_sec"]
+                    for k, r in sorted(rs.items())}
+
+        def over(w, keep):
+            ks = [k for k in w if keep(k)]
+            return sum(w[k] for k in ks) / len(ks)
+
+        w_occ, w_uni = windows(recs), windows(recs_u)
+        occ_ms = over(w_occ, lambda k: True)
+        uni_ms = over(w_uni, lambda k: True)
+        log("occ", card=card_line(), scene={
+            "views": DRIVER_VIEWS, "size": DRIVER_SIZE, "write_s": scene_s},
+            config="configs/blender_linear_occ.txt", recipe=OCC_ARM,
+            steps=OCC_RESUME_STEPS, resumed_from=OCC_STEPS,
+            files=files,
+            occ_arm={
+                "ms_per_step": occ_ms,
+                "ms_per_step_warmup_windows": over(
+                    w_occ, lambda k: k <= OCC_WARMUP),
+                "ms_per_step_guided_windows": over(
+                    w_occ, lambda k: k > OCC_WARMUP),
+                "ms_per_step_by_window": w_occ,
+                "s_per_test_image": runs["test"] / n_test,
+                "psnr": mm.get("psnr"), "ssim": mm.get("ssim"),
+                "psnr0": mm.get("psnr0"), "train_loss": losses,
+                "occ_ray_frac": frac, "occ_ray_frac_first": frac[first],
+                "occ_ray_frac_end": frac[OCC_RESUME_STEPS],
+                "grid_occupied_share": occupied,
+                "grid_centre_voxel_occupied": True},
+            uniform_bf16_arm={
+                "config": "configs/blender_linear.txt --mlp_dtype bfloat16",
+                "ms_per_step": uni_ms,
+                "ms_per_step_by_window": w_uni,
+                "s_per_test_image": runs["uniform_test"] / n_test,
+                "psnr": mm_u.get("psnr"), "ssim": mm_u.get("ssim"),
+                "psnr0": mm_u.get("psnr0"),
+                "train_loss": {k: r["train/loss"] for k, r in
+                               recs_u.items()}},
+            occ_over_uniform_ms=occ_ms / uni_ms,
+            kernel_holds=holds, card_vs_cpu=reference, repeat=repeat,
+            run_s=runs, launches=launches, launches_per_train_step={
+                "fused_mlp_fwd": 2.0, "fused_mlp_bwd": 2.0},
+            phase_s=time.perf_counter() - t_phase,
+            note="ms per step: each i_print window's time over its steps "
+                 "(from metrics.jsonl's steps_per_sec; val renders and "
+                 "checkpoints inside), averaged over the windows; the "
+                 f"warm-up windows end at {OCC_WARMUP} (32 uniform coarse "
+                 "samples), the guided ones follow; s per test image: the "
+                 "test task's wall time over its images")
+        fwd = sum(v["fused_mlp_fwd"] for v in launches.values())
+        bwd = sum(v["fused_mlp_bwd"] for v in launches.values())
+        return fwd, bwd
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 PHASES = ("kernel", "probes", "bwd", "slice", "reference", "train",
-          "train_reference", "driver", "llff", "depth")
+          "train_reference", "driver", "llff", "depth", "occ")
 
 
 def main(argv=None) -> int:
@@ -1949,7 +2368,7 @@ def main(argv=None) -> int:
             fns = dict(zip(PHASES, (
                 phase_kernel, phase_probes, phase_bwd_kernel, phase_slice,
                 phase_reference, phase_train, phase_train_reference,
-                phase_driver, phase_llff, phase_depth)))
+                phase_driver, phase_llff, phase_depth, phase_occ)))
             for name in only:
                 fns[name](dev)
             return 0
@@ -1960,8 +2379,11 @@ def main(argv=None) -> int:
         phase_reference(dev)
         train_fwd, train_bwd, train_summary = phase_train(dev)
         phase_train_reference(dev)
-        driver_fwd, driver_bwd = phase_driver(
-            dev, train_summary["ms_per_step_fp32"])
+        # the driver and occ phases share one sphere scene
+        with tempfile.TemporaryDirectory(prefix="plnerf_scenes_") as scenes:
+            driver_fwd, driver_bwd = phase_driver(
+                dev, train_summary["ms_per_step_fp32"], scenes)
+            occ_fwd, occ_bwd = phase_occ(dev, scenes)
         llff_fwd, llff_bwd = phase_llff(dev)
         depth_fwd, depth_bwd = phase_depth(dev)
     except Exception:
@@ -1970,7 +2392,8 @@ def main(argv=None) -> int:
     if (launches < 1 or train_fwd < 1 or train_bwd < 1 or probe_fwd < 1
             or min(probe_launches.values()) < 1 or driver_fwd < 1
             or driver_bwd < 1 or llff_fwd < 1 or llff_bwd < 1
-            or depth_fwd < 1 or depth_bwd < 1):
+            or depth_fwd < 1 or depth_bwd < 1 or occ_fwd < 1
+            or occ_bwd < 1):
         print("chip_smoke: a main path launched no kernel", file=sys.stderr)
         return 1
     # the training path runs folded heads in fp32
@@ -1980,14 +2403,15 @@ def main(argv=None) -> int:
         "source": "plnerf_torch/kernels/csrc/fused_mlp_fwd.cu",
         "replaces": KERNEL_REPLACES,
         "launches": (launches + train_fwd + probe_fwd + driver_fwd
-                     + llff_fwd + depth_fwd),
+                     + llff_fwd + depth_fwd + occ_fwd),
         "max_abs_err": err, "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]}, {
         "name": "fused_mlp_bwd", "route": "cuda",
         "source": "plnerf_torch/kernels/csrc/fused_mlp_bwd.cu",
         "replaces": BWD_REPLACES,
-        "launches": train_bwd + driver_bwd + llff_bwd + depth_bwd,
+        "launches": (train_bwd + driver_bwd + llff_bwd + depth_bwd
+                     + occ_bwd),
         "max_abs_err": bwd_err, "ms": bt["kernel_ms"],
         "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"],
         "bound_by": bt["bound_by"], "library_ms": bt["library_ms"]}]

@@ -13,6 +13,11 @@ floats and strings (``train.state.TrainState.state_dict``), written to a
 never sees half a file.  ``restore_checkpoint`` loads with
 ``weights_only=True`` onto the device asked for: a checkpoint written on
 the card restores on the CPU and back.
+
+Sidecars share a checkpoint's step stem (``aux_path``): the occupancy
+grid trained beside the parameters is ``{step:06d}.occ``, a dict of
+tensors written the same way.  The JAX package's flax ``.occ`` files are
+not read (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -35,6 +40,32 @@ def _save(path: str, obj: Any) -> str:
 def save_checkpoint(ckpt_dir: str, step: int, state_dict: dict) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     return _save(os.path.join(ckpt_dir, f"{step:06d}.ckpt"), state_dict)
+
+
+def aux_path(ckpt_path: str, suffix: str) -> str:
+    """The sidecar of a checkpoint: 000100.ckpt -> 000100.<suffix>."""
+    return os.path.splitext(ckpt_path)[0] + "." + suffix
+
+
+def save_aux(ckpt_path: str, suffix: str, tensors: dict) -> str:
+    """Write the dict of tensors ``tensors`` as ``ckpt_path``'s sidecar."""
+    return _save(aux_path(ckpt_path, suffix), tensors)
+
+
+def restore_aux(path: str, template: dict, device) -> dict:
+    """A sidecar written by ``save_aux``, on ``device``, holding exactly
+    the keys of ``template`` with its shapes and dtypes (raises
+    otherwise)."""
+    loaded = torch.load(path, map_location=device, weights_only=True)
+    if set(loaded) != set(template):
+        raise ValueError(f"{path}: keys {sorted(loaded)}, expected "
+                         f"{sorted(template)}")
+    for k, v in template.items():
+        if loaded[k].shape != v.shape or loaded[k].dtype != v.dtype:
+            raise ValueError(f"{path}: {k} is {loaded[k].dtype} "
+                             f"{tuple(loaded[k].shape)}, expected {v.dtype} "
+                             f"{tuple(v.shape)}")
+    return loaded
 
 
 def list_checkpoints(ckpt_dir: str):

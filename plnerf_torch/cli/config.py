@@ -251,9 +251,10 @@ def config_parser() -> ConfigArgumentParser:
 
 
 def add_occ_flags(a) -> None:
-    """Occupancy-grid flag group, shared by the NVS and depth drivers
-    (parsed with the JAX package's defaults; the grid is not ported yet,
-    ROADMAP A10).  ``a`` is a parser's ``add_argument``."""
+    """Occupancy-grid flag group, shared by the NVS and depth drivers, with
+    the JAX package's defaults (``core/occgrid.py``;
+    ``run_plnerf.occ_cfg_from_args``).  ``a`` is a parser's
+    ``add_argument``."""
     a("--occ_grid", action="store_true")
     a("--occ_res", type=int, default=128)
     a("--occ_candidates", type=int, default=96)

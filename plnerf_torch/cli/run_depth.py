@@ -27,13 +27,19 @@ with ``--opt_ch_cam`` first fits each view's embedding,
 error over the valid-depth pixels).  Result folders are named as the JAX
 driver names them.  Datasets: blender2_depth, blender_depth.
 
+``--occ_grid``: grid-guided coarse samples, the grid updated by each
+step and checkpointed as a ``.occ`` sidecar, as in ``run_plnerf``; here
+the degenerate-guidance advisory only prints (at the ``i_print``
+cadence), with no fallback, and test-time camera optimization renders
+without the grid (uniform samples), as in the JAX driver.
+
 Runs on the CUDA device unless ``--device cpu`` is given, and raises where
 there is none.  ``--use_kernel`` (for ``--use_pallas``) is AUTO, on
 whenever the device is CUDA, as in ``run_plnerf``.  Refused with
 ``SystemExit`` naming their ROADMAP item: the ``video`` task (A8),
-``--occ_grid`` (A10), ``--lpips_weights`` (A14), more than one CUDA device
-without ``--no_mesh`` (A15), and ``--steps_per_dispatch`` above 1 (the
-port runs one step per loop iteration).
+``--lpips_weights`` (A14), more than one CUDA device without
+``--no_mesh`` (A15), and ``--steps_per_dispatch`` above 1 (the port runs
+one step per loop iteration).
 
 Randomness: each step's image is ``np.random.default_rng(--random_seed)
 .choice(i_train)``, the sequence the JAX driver draws; its pixels and the
@@ -61,11 +67,14 @@ from ..eval import images as EI
 from ..eval import metrics as Mx
 from ..train import batching
 from ..train.camera_opt import optimize_camera_embedding
-from ..train.step import TrainSetup, init_state, make_depth_train_step
+from ..train.step import (TrainSetup, apply_occ_update, init_state,
+                          make_depth_train_step)
 from ..utils.logging import MetricsLogger
 from .config import (ConfigArgumentParser, add_occ_flags, resolve_args,
                      str2bool)
-from .run_plnerf import _resolve_kernel, eval_render_config
+from .run_plnerf import (_occ_advisory, _resolve_kernel, eval_render_config,
+                         occ_cfg_from_args, occ_for_eval, occ_train_grid,
+                         save_checkpoint)
 
 TASKS = ("train", "test", "test_opt", "test_samples_error")
 
@@ -245,10 +254,11 @@ def depth_batch(images: torch.Tensor, poses: torch.Tensor,
 
 def init_depth_state(args, setup: TrainSetup, n_images: int,
                      device: torch.device):
-    """Returns ``(state, start)``: a fresh state seeded ``--random_seed``
-    (scales times ``--scale_init``, shifts plus ``--shift_init``), then,
-    unless ``--no_reload``, the experiment's latest checkpoint when there
-    is one."""
+    """Returns ``(state, start, path)``: a fresh state seeded
+    ``--random_seed`` (scales times ``--scale_init``, shifts plus
+    ``--shift_init``), then, unless ``--no_reload``, the experiment's
+    latest checkpoint when there is one; ``path`` is the file restored or
+    None."""
     state = init_state(make_generator(args.random_seed, device), setup,
                        device, n_images=n_images)
     with torch.no_grad():
@@ -258,7 +268,7 @@ def init_depth_state(args, setup: TrainSetup, n_images: int,
     if path:
         ckio.restore_checkpoint(path, state, device)
         print(f"Resumed from {path} at step {state.step}")
-    return state, state.step
+    return state, state.step, path
 
 
 def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
@@ -268,9 +278,14 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
     i_train, i_val, i_test = [np.asarray(s) for s in data.i_split[:3]]
     if len(i_val) == 0:
         i_val = i_test
-    state, start = init_depth_state(args, setup, data.images.shape[0],
-                                    device)
+    state, start, ckpt_path = init_depth_state(args, setup,
+                                               data.images.shape[0], device)
     logger = MetricsLogger(exp_dir(args))
+    occ_cfg = occ_cfg_from_args(args)
+    occ_state, occ_warm_end = None, 0
+    if occ_cfg is not None:
+        occ_state, occ_warm_end = occ_train_grid(args, occ_cfg, ckpt_path,
+                                                 start, device)
 
     def dev(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
@@ -283,16 +298,29 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
     sc_mask = np.asarray(data.gt_valid_depths).astype(np.float32)
     sc_mask = dev(sc_mask[..., 0] if sc_mask.ndim == 4 else sc_mask)
     step_fn = make_depth_train_step(setup)
+    occ_setup = occ_step = None
+    if occ_cfg is not None:
+        occ_setup = dataclasses.replace(setup, rcfg=dataclasses.replace(
+            rcfg, occ=occ_cfg))
+        occ_step = make_depth_train_step(occ_setup)
     g = make_generator(args.random_seed, device)
     rng = np.random.default_rng(args.random_seed)
     t0 = time.time()
     steps_since_print = 0
+    occ_warned = False
     for i in range(start + 1, args.num_iterations + 1):
         img_i = int(rng.choice(i_train))
         batch = depth_batch(images, poses, intrinsics, depths, sc_mask,
                             img_i, args.N_rand, data.near, data.far,
                             rcfg.use_viewdirs, g)
-        state, metrics = step_fn(state, batch, g)
+        occ_on = occ_cfg is not None and i > occ_warm_end
+        if occ_on:
+            state, metrics = occ_step(state, dict(batch, occ_grid=occ_state),
+                                      g)
+            occ_state, metrics = apply_occ_update(occ_setup, occ_state,
+                                                  batch, metrics)
+        else:
+            state, metrics = step_fn(state, batch, g)
         steps_since_print += 1
 
         if i % args.i_print == 0:
@@ -308,15 +336,19 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
             print(f"[DEPTH TRAIN] Iter: {i} Loss: {m['loss']:.5f} "
                   f"PSNR: {m['psnr']:.2f} SC: "
                   f"{m.get('space_carving_loss', 0.0):.5f}")
+            if occ_on:
+                # depth supervision usually closes the degenerate-scene
+                # gap, so this only advises
+                occ_warned = _occ_advisory(m, i, occ_warm_end, occ_warned)
         if i % args.i_img == 0 and len(i_val) > 0:
             # a val view and its depth RMSE (reference :1203-1232)
             vi = int(i_val[(i // args.i_img) % len(i_val)])
             out = EI.render_image(
                 state.params_coarse, state.params_fine, data.poses[vi],
                 data.hwf, data.intrinsics[vi], mcfg,
-                EI.test_render_config(rcfg), near=data.near, far=data.far,
-                chunk=args.chunk, pixel_center=True,
-                mcfg_fine=setup.mcfg_fine)
+                EI.test_render_config(rcfg, occ=occ_cfg), near=data.near,
+                far=data.far, chunk=args.chunk, pixel_center=True,
+                mcfg_fine=setup.mcfg_fine, occ_grid=occ_state)
             val_mse = float(np.mean(
                 (out["rgb_map"] - np.asarray(data.images[vi])) ** 2))
             rec = {"mse": val_mse, "psnr": Mx.mse2psnr(val_mse)}
@@ -328,20 +360,18 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
             logger.scalars(i, rec, prefix="val/")
             logger.image(i, "val/rgb", np.clip(out["rgb_map"], 0, 1))
         if i % args.i_weights == 0:
-            path = ckio.save_checkpoint(exp_dir(args), state.step,
-                                        state.state_dict())
-            print("Saved", path)
-    path = ckio.save_checkpoint(exp_dir(args), state.step, state.state_dict())
-    print("Saved", path)
+            save_checkpoint(args, state, occ_state)
+    save_checkpoint(args, state, occ_state)
     logger.close()
     return state
 
 
 def run_test(args, data, setup: TrainSetup, mcfg: ModelConfig, test_rcfg,
-             state):
+             state, occ_grid=None):
     """``test`` / ``test_opt``: the held-out views, each first fitted its
     camera embedding where the model has camera channels and the task is
-    ``test_opt`` or the model trained them; returns the ``MeanTracker``."""
+    ``test_opt`` or the model trained them (without the grid); returns the
+    ``MeanTracker``."""
     i_test = np.asarray(data.i_split[2])
     with_opt = (mcfg.input_ch_cam > 0
                 and (args.task == "test_opt" or args.opt_ch_cam))
@@ -360,7 +390,8 @@ def run_test(args, data, setup: TrainSetup, mcfg: ModelConfig, test_rcfg,
     mm, res = EI.render_images_with_metrics(
         state.params_coarse, state.params_fine, data, i_test, mcfg,
         test_rcfg, chunk=args.chunk, pixel_center=True,
-        cam_embeddings=cam_embeddings, mcfg_fine=setup.mcfg_fine)
+        cam_embeddings=cam_embeddings, mcfg_fine=setup.mcfg_fine,
+        occ_grid=occ_grid)
     result_dir = os.path.join(
         exp_dir(args),
         f"test_images_{args.mode}_{args.N_samples}_{args.N_importance}"
@@ -373,9 +404,6 @@ def _refuse_unported(args) -> None:
     if args.task == "video":
         raise SystemExit("--task video: videos are not ported yet "
                          "(ROADMAP A8)")
-    if args.occ_grid:
-        raise SystemExit("--occ_grid: the occupancy grid is not ported yet "
-                         "(ROADMAP A10)")
     if args.lpips_weights:
         raise SystemExit("--lpips_weights: LPIPS is not ported yet "
                          "(ROADMAP A14)")
@@ -408,11 +436,12 @@ def run(args):
     if args.task == "train":
         return run_training(args, data, setup, mcfg, rcfg)
     device = resolve_device(args.device)
-    state, start = init_depth_state(args, setup, data.images.shape[0],
-                                    device)
+    state, start, path = init_depth_state(args, setup, data.images.shape[0],
+                                          device)
     if start == 0 and not args.no_reload:
         print("WARNING: no checkpoint found — evaluating fresh init")
-    test_rcfg = eval_render_config(args, rcfg)
+    occ_cfg, occ_grid = occ_for_eval(args, path, device)
+    test_rcfg = eval_render_config(args, rcfg, occ_cfg)
     if args.task == "test_samples_error":
         # the depth variant: valid-depth-masked, the reference's naming
         # (run_nerf_sample_based_depth.py:400-420)
@@ -424,8 +453,8 @@ def run(args):
             chunk=args.chunk, pixel_center=True,
             valid_mask_from_dataset=True,
             metrics_filename="metrics_depth_samples.txt",
-            mcfg_fine=setup.mcfg_fine)
-    return run_test(args, data, setup, mcfg, test_rcfg, state)
+            mcfg_fine=setup.mcfg_fine, occ_grid=occ_grid)
+    return run_test(args, data, setup, mcfg, test_rcfg, state, occ_grid)
 
 
 def main(argv=None):

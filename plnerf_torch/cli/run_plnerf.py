@@ -15,12 +15,25 @@
 * ``test_samples_error``: the importance-sampling error of the held-out
   views, ``test_samples_error_{N_importance}/metrics_expecteddepth.txt``.
 
+``--occ_grid`` (``configs/blender_linear_occ.txt``): the coarse samples
+are placed by an occupancy grid (``core/occgrid.py``) that the train step
+updates from its own density evaluations.  A fresh grid warms up for
+``--occ_warmup`` steps of uniform sampling from wherever training
+(re)starts; a grid restored from the ``{step:06d}.occ`` sidecar of the
+checkpoint it resumes from engages at once.  The sidecar is written with
+every checkpoint, and every eval task renders with the grid of the
+checkpoint it evaluates (a missing sidecar raises unless
+``--occ_eval_fresh_grid``).  Past ``OCC_ADVISORY_GRACE`` guided steps a
+mean occupied candidate-bin fraction above ``OCC_DEGENERATE_RAY_FRAC``
+prints an advisory and drops the grid for the rest of the run (no more
+sidecars), unless ``--occ_keep_degenerate``.
+
 Datasets: llff, blender, blender2, blender_fixeddist, DTU, DTU2
 (``cli/datasets.py``).  Runs on the CUDA device unless ``--device cpu`` is
 given, and raises where there is none.  Not ported yet, each refused with
 ``SystemExit`` naming its ROADMAP item: the ``video`` task,
 ``--render_only`` and ``--i_video`` (A8), ``export_serving`` (A13),
-``--occ_grid`` (A10), ``--profile`` (A17), ``--lpips_weights`` (A14).
+``--profile`` (A17), ``--lpips_weights`` (A14).
 
 Differences from the JAX driver:
 
@@ -42,6 +55,12 @@ Differences from the JAX driver:
   resumed run reseeds it from ``--seed``, as the JAX driver draws from a
   fresh ``PRNGKey(seed)`` (run_plnerf.py:438): it does not continue the
   interrupted run's stream.
+* An eval task's occupancy grid is the sidecar of the checkpoint it
+  loaded: with ``--no_reload`` (the fresh init) a fresh grid, where the
+  JAX driver reads the latest checkpoint's sidecar.
+* The degenerate-guidance guard reads ``occ_ray_frac`` (a host sync) only
+  on the steps where it can fire, past the grace window; the JAX driver
+  reads it after every dispatch window.  The decisions are the same.
 """
 from __future__ import annotations
 
@@ -53,12 +72,14 @@ import numpy as np
 import torch
 
 from ..checkpoint import io as ckio
+from ..core import occgrid as og
 from ..core.config import ModelConfig, RenderConfig
 from ..device import make_generator, resolve_device
 from ..eval import images as EI
 from ..eval import metrics as Mx
 from ..train import batching
-from ..train.step import TrainSetup, init_state, make_train_step
+from ..train.step import (TrainSetup, init_state, make_occ_train_step,
+                          make_train_step)
 from ..utils.logging import MetricsLogger
 from .datasets import DatasetBundle, load_dataset
 from .config import config_parser, resolve_args
@@ -114,9 +135,10 @@ def exp_dir(args) -> str:
 
 
 def restore_or_init(args, setup: TrainSetup, device: torch.device):
-    """Returns ``(state, start)``: a fresh state seeded ``--seed``, restored
-    from ``--ft_path`` or, unless ``--no_reload``, the experiment's latest
-    checkpoint when there is one."""
+    """Returns ``(state, start, path)``: a fresh state seeded ``--seed``,
+    restored from ``--ft_path`` or, unless ``--no_reload``, the
+    experiment's latest checkpoint when there is one; ``path`` is the file
+    restored (its sidecars sit beside it), None for the fresh state."""
     state = init_state(make_generator(args.seed, device), setup, device)
     path = args.ft_path
     if not path and not args.no_reload:
@@ -124,8 +146,72 @@ def restore_or_init(args, setup: TrainSetup, device: torch.device):
     if path and os.path.exists(path):
         ckio.restore_checkpoint(path, state, device)
         print(f"Resumed from {path} at step {state.step}")
-        return state, state.step
-    return state, 0
+        return state, state.step, path
+    return state, 0, None
+
+
+def occ_cfg_from_args(args):
+    """The ``OccGridConfig`` of the --occ_* flags, or None without
+    --occ_grid."""
+    if not getattr(args, "occ_grid", False):
+        return None
+    return og.OccGridConfig(
+        resolution=args.occ_res, candidates=args.occ_candidates,
+        decay=args.occ_decay, threshold=args.occ_threshold,
+        floor=args.occ_floor, warmup=args.occ_warmup)
+
+
+def load_occ_grid(args, occ_cfg, ckpt_path, device):
+    """``(grid, missing)``: the ``.occ`` sidecar grid of the checkpoint
+    ``ckpt_path``, else a fresh grid over ``--occ_bound``; ``missing`` is
+    the sidecar's path when ``ckpt_path`` has none (None without a
+    checkpoint)."""
+    b = float(args.occ_bound)
+    grid = og.init_grid([-b, -b, -b], [b, b, b], occ_cfg, device)
+    if ckpt_path is None:
+        return grid, None
+    gp = ckio.aux_path(ckpt_path, "occ")
+    if not os.path.exists(gp):
+        return grid, gp
+    return ckio.restore_aux(gp, grid, device), None
+
+
+def occ_for_eval(args, ckpt_path, device):
+    """``(occ_cfg, grid)`` for an eval task (both None without
+    --occ_grid): the sidecar grid beside ``ckpt_path``, the checkpoint
+    under evaluation.  A model trained grid-guided is scored under the
+    sample distribution it trained with, so a checkpoint without a sidecar
+    raises ``FileNotFoundError`` unless --occ_eval_fresh_grid; the fresh
+    init (no checkpoint) gets a fresh grid."""
+    occ_cfg = occ_cfg_from_args(args)
+    if occ_cfg is None:
+        return None, None
+    grid, missing = load_occ_grid(args, occ_cfg, ckpt_path, device)
+    if missing and getattr(args, "occ_eval_fresh_grid", False):
+        print("WARNING: --occ_grid eval but no sidecar grid at", missing,
+              "— using a fresh (uniform) grid (--occ_eval_fresh_grid)")
+    elif missing:
+        raise FileNotFoundError(
+            f"--occ_grid eval: no sidecar grid at {missing}. The model "
+            "under evaluation was loaded from a checkpoint without a "
+            "trained occupancy grid; evaluating it grid-guided with a fresh "
+            "all-occupied grid would mis-score it. Pass "
+            "--occ_eval_fresh_grid to do that deliberately, or drop "
+            "--occ_grid to evaluate with uniform sampling.")
+    return occ_cfg, grid
+
+
+def occ_train_grid(args, occ_cfg, ckpt_path, start, device):
+    """``(grid, warm_end)`` for a training run: the sidecar grid of the
+    checkpoint it resumes from engages once past the absolute warm-up
+    step; a fresh grid warms up for --occ_warmup steps from ``start``."""
+    grid, missing = load_occ_grid(args, occ_cfg, ckpt_path, device)
+    if missing:
+        print(f"WARNING: resuming --occ_grid run but no sidecar grid at "
+              f"{missing} — starting a fresh grid with a new "
+              f"{args.occ_warmup}-step warmup")
+    restored = ckpt_path is not None and missing is None
+    return grid, args.occ_warmup + (0 if restored else start)
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +225,50 @@ def restore_or_init(args, setup: TrainSetup, device: torch.device):
 # grace window clears init transients and the constant_init warm window.
 DEAD_COARSE_POS_FRAC = 1e-3
 DEAD_COARSE_GRACE = 3000
+
+
+# Degenerate-guidance guard: a mean occupied fraction of candidate bins
+# along the training rays above this means the grid cannot skip enough
+# empty space (slab-like or forward-facing geometry crosses most rays), and
+# the reduced sample count trains worse than uniform sampling at the full
+# count (the JAX package's occ A/B, BASELINE.md: -1.7 dB on its slab
+# fixture; healthy object-centric scenes read ~0.10 there).
+OCC_DEGENERATE_RAY_FRAC = 0.35
+# Guided steps before the guard arms: a fresh grid starts all-occupied and
+# an empty visited voxel carves in ~7 observations, so every scene reads
+# "degenerate" while the EMA converges.
+OCC_ADVISORY_GRACE = 2048
+
+
+def _occ_advisory(m: dict, step: int, warm_end: int, warned: bool,
+                  auto_fallback: bool = False) -> bool:
+    """Print a one-time advisory when guided sampling is degenerate past
+    the grace window; returns whether it has fired.  ``auto_fallback``
+    says that the caller drops the grid."""
+    frac = m.get("occ_ray_frac")
+    if (warned or frac is None or frac <= OCC_DEGENERATE_RAY_FRAC
+            or step <= warm_end + OCC_ADVISORY_GRACE):
+        return warned
+    print("=" * 72)
+    print(f"WARNING: occupancy-grid guidance is DEGENERATE at iter {step}: "
+          f"{frac:.0%} of candidate bins along training rays are occupied "
+          f"(> {OCC_DEGENERATE_RAY_FRAC:.0%}; healthy object-centric scenes "
+          "measure ~10%).")
+    print("The grid cannot skip enough empty space on this scene, so "
+          "--occ_grid only spreads the reduced sample count thinner.")
+    if auto_fallback:
+        print("AUTO-FALLBACK: grid guidance is now DISABLED for the rest of "
+              "this run: training continues with uniform stratified "
+              "sampling at the configured --N_samples, no further .occ "
+              "sidecars are written, and eval tasks on the resulting "
+              "checkpoints must run without --occ_grid. Pass "
+              "--occ_keep_degenerate to keep guidance.")
+    else:
+        print("Re-run without --occ_grid (or with the full uniform "
+              "--N_samples) unless depth supervision is active, which "
+              "closes the gap.")
+    print("=" * 72)
+    return True
 
 
 def _dead_coarse_advisory(m: dict, step: int, warned: bool,
@@ -186,7 +316,7 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
     """The train loop; returns the final ``TrainState``."""
     device = resolve_device(args.device)
     data = bundle.data
-    state, start = restore_or_init(args, setup, device)
+    state, start, ckpt_path = restore_or_init(args, setup, device)
     _refuse_training_videos(args, start)
     logger = MetricsLogger(exp_dir(args))
 
@@ -195,10 +325,21 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
     n_iters = args.num_iterations
     g = make_generator(args.seed, device)
     near, far = bundle.near, bundle.far
-    # one step function per quadrature phase (constant_init on / off)
-    steps = {ci: make_train_step(dataclasses.replace(
-        setup, rcfg=dataclasses.replace(rcfg, constant_init=ci)))
-        for ci in (True, False)}
+    occ_cfg = occ_cfg_from_args(args)
+    occ_state, occ_warm_end = None, 0
+    if occ_cfg is not None:
+        occ_state, occ_warm_end = occ_train_grid(args, occ_cfg, ckpt_path,
+                                                 start, device)
+
+    def make_step(const_init: bool, occ_on: bool):
+        s = dataclasses.replace(setup, rcfg=dataclasses.replace(
+            rcfg, constant_init=const_init, occ=occ_cfg if occ_on else None))
+        return make_occ_train_step(s) if occ_on else make_train_step(s)
+
+    # one step function per quadrature phase (constant_init on / off) and,
+    # with the grid, per grid phase (warm-up / guided)
+    steps = {(ci, oc): make_step(ci, oc) for ci in (True, False)
+             for oc in ((False, True) if occ_cfg is not None else (False,))}
 
     ev_chunk = training_eval_chunk(args, 0)   # no_batching: no pool
     if use_batching:
@@ -225,10 +366,12 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
 
     t0 = time.time()
     steps_since_print = 0
-    dead_warned = False
+    dead_warned = occ_warned = False
     for i in range(start + 1, n_iters + 1):
         # the phases of step i, as the reference picks them
-        step_fn = steps[i < args.constant_init and rcfg.mode == "linear"]
+        occ_on = occ_cfg is not None and i > occ_warm_end
+        step_fn = steps[(i < args.constant_init and rcfg.mode == "linear",
+                         occ_on)]
         if use_batching:
             rays, target = batching.pool_batch(
                 pool, i_batch, n_rand, near, far, rcfg.use_viewdirs)
@@ -238,7 +381,11 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
                 images, poses, K, i_train, g, n_rand, near, far,
                 rcfg.use_viewdirs, i < args.precrop_iters, args.precrop_frac,
                 ndc=bundle.ndc, focal=float(data.hwf[2]))
-        state, metrics = step_fn(state, {"rays": rays, "target": target}, g)
+        batch = {"rays": rays, "target": target}
+        if occ_on:
+            state, occ_state, metrics = step_fn(state, occ_state, batch, g)
+        else:
+            state, metrics = step_fn(state, batch, g)
         if use_batching and pool.shape[0] - i_batch < n_rand:
             # every full batch of the epoch is consumed before the
             # reshuffle (run_plnerf.py:1244-1248 of the reference)
@@ -246,6 +393,21 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
                                        device=device)]
             i_batch = 0
         steps_since_print += 1
+
+        if (occ_on and not occ_warned
+                and i > occ_warm_end + OCC_ADVISORY_GRACE):
+            frac_m = {"occ_ray_frac": float(metrics["occ_ray_frac"])}
+            occ_warned = _occ_advisory(
+                frac_m, i, occ_warm_end, occ_warned,
+                auto_fallback=not args.occ_keep_degenerate)
+            if occ_warned:
+                # the acting signal, logged at the step it fired
+                logger.scalars(i, {**frac_m, "occ_auto_fallback": float(
+                    not args.occ_keep_degenerate)}, prefix="train/")
+                if not args.occ_keep_degenerate:
+                    # uniform steps from here on, no grid updates or
+                    # sidecars; later eval tasks see no grid
+                    occ_cfg = occ_state = None
 
         if i % args.i_print == 0:
             m = {k: float(v) for k, v in metrics.items()}   # host sync
@@ -266,17 +428,16 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
                         f"{bad} (reference DEBUG scan, run_plnerf.py:754)")
 
         if i % args.i_weights == 0:
-            path = ckio.save_checkpoint(exp_dir(args), state.step,
-                                        state.state_dict())
-            print("Saved checkpoint at", path)
+            save_checkpoint(args, state, occ_state)
 
         if i % args.i_img == 0 and len(bundle.i_val) > 0:
             vi = int(bundle.i_val[(i // args.i_img) % len(bundle.i_val)])
             out = _oom_retry(lambda c: EI.render_image(
                 state.params_coarse, state.params_fine, data.poses[vi],
-                data.hwf, data.K, mcfg, EI.test_render_config(rcfg),
-                near=near, far=far, chunk=c, ndc=bundle.ndc,
-                mcfg_fine=setup.mcfg_fine), ev_chunk)
+                data.hwf, data.K, mcfg,
+                EI.test_render_config(rcfg, occ=occ_cfg), near=near,
+                far=far, chunk=c, ndc=bundle.ndc, mcfg_fine=setup.mcfg_fine,
+                occ_grid=occ_state), ev_chunk)
             val_mse = float(np.mean(
                 (out["rgb_map"] - np.asarray(data.images[vi])) ** 2))
             logger.scalars(i, {"mse": val_mse, "psnr": Mx.mse2psnr(val_mse)},
@@ -286,13 +447,21 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
         if i % args.i_testset == 0 and i < n_iters:
             _oom_retry(lambda c: run_test(
                 args, bundle, mcfg, rcfg, state=state, suffix=f"_{i:06d}",
-                setup=setup, chunk=c), ev_chunk)
+                setup=setup, chunk=c, occ=(occ_cfg, occ_state)), ev_chunk)
 
-    path = ckio.save_checkpoint(exp_dir(args), state.step, state.state_dict())
-    print("Saved checkpoint at", path)
+    save_checkpoint(args, state, occ_state)
     logger.close()
     print("Training complete.")
     return state
+
+
+def save_checkpoint(args, state, occ_state=None) -> str:
+    """The state's checkpoint and, with a grid, its ``.occ`` sidecar."""
+    path = ckio.save_checkpoint(exp_dir(args), state.step, state.state_dict())
+    if occ_state is not None:
+        ckio.save_aux(path, "occ", occ_state)
+    print("Saved checkpoint at", path)
+    return path
 
 
 # ---------------------------------------------------------------------------
@@ -331,33 +500,40 @@ def _oom_retry(render_fn, chunk: int, min_chunk: int = 1024):
         print(f"[eval] out of device memory: retrying at chunk {chunk}")
 
 
-def eval_render_config(args, rcfg: RenderConfig) -> RenderConfig:
+def eval_render_config(args, rcfg: RenderConfig,
+                       occ_cfg=None) -> RenderConfig:
     """Eval-task RenderConfig: the reference quirk (perturb forced back to
     True at test, run_plnerf.py:497-499, ``test_render_config``), then
-    --eval_det, which must come after it.  The kernel setting is kept."""
+    --eval_det, which must come after it; ``occ_cfg`` the grid's.  The
+    kernel setting is kept."""
     ov = {"perturb": False} if getattr(args, "eval_det", False) else {}
-    return EI.test_render_config(rcfg, **ov)
+    return EI.test_render_config(rcfg, occ=occ_cfg, **ov)
 
 
 def _state_for_eval(args, setup):
-    state, start = restore_or_init(args, setup, resolve_device(args.device))
+    """``(state, occ_cfg, grid)``: the checkpoint under evaluation and its
+    grid (``occ_for_eval``)."""
+    device = resolve_device(args.device)
+    state, start, path = restore_or_init(args, setup, device)
     if start == 0 and not args.no_reload:
         print("WARNING: no checkpoint found — evaluating fresh init")
-    return state
+    return (state,) + occ_for_eval(args, path, device)
 
 
 def run_test(args, bundle, mcfg, rcfg, state=None, suffix: str = "",
-             setup=None, chunk=None):
+             setup=None, chunk=None, occ=(None, None)):
     """Render and score the test split; writes the images and metrics.txt
-    and returns the ``MeanTracker``."""
+    and returns the ``MeanTracker``.  Without ``state``, the checkpoint
+    under evaluation and its grid; with it, ``occ`` is (occ_cfg, grid)."""
     if state is None:
-        state = _state_for_eval(args, setup)
+        state, *occ = _state_for_eval(args, setup)
+    occ_cfg, occ_grid = occ
     mean_metrics, res = EI.render_images_with_metrics(
         state.params_coarse, state.params_fine, bundle.data, bundle.i_test,
-        mcfg, eval_render_config(args, rcfg), chunk=chunk or args.chunk,
-        near=bundle.near, far=bundle.far, ndc=bundle.ndc,
-        mcfg_fine=setup.mcfg_fine if setup else None,
-    )
+        mcfg, eval_render_config(args, rcfg, occ_cfg),
+        chunk=chunk or args.chunk, near=bundle.near, far=bundle.far,
+        ndc=bundle.ndc, mcfg_fine=setup.mcfg_fine if setup else None,
+        occ_grid=occ_grid)
     result_dir = os.path.join(
         exp_dir(args),
         f"test_images_{args.mode}_{args.N_samples}_{args.N_importance}"
@@ -378,7 +554,7 @@ def run_test_fixed_dist(args, mcfg, rcfg, setup):
     MeanTracker}."""
     import copy
 
-    state = _state_for_eval(args, setup)
+    state, occ_cfg, occ_grid = _state_for_eval(args, setup)
     out = {}
     for test_dist, near in FIXED_DIST_NEAR.items():
         eval_args = copy.copy(args)
@@ -390,9 +566,9 @@ def run_test_fixed_dist(args, mcfg, rcfg, setup):
         bundle = load_dataset(eval_args)
         mean_metrics, res = EI.render_images_with_metrics(
             state.params_coarse, state.params_fine, bundle.data,
-            bundle.i_test, mcfg, eval_render_config(args, rcfg),
+            bundle.i_test, mcfg, eval_render_config(args, rcfg, occ_cfg),
             chunk=args.chunk, near=near, far=bundle.far,
-            mcfg_fine=setup.mcfg_fine)
+            mcfg_fine=setup.mcfg_fine, occ_grid=occ_grid)
         EI.write_images_with_metrics(res, mean_metrics, os.path.join(
             exp_dir(args), f"test_images_dist{test_dist}_{args.scene_id}"))
         print(f"[fixed_dist {test_dist}] psnr="
@@ -405,13 +581,14 @@ def run_test_samples_error(args, bundle, mcfg, rcfg, setup):
     """The importance-sampling error of the held-out views, written to
     ``test_samples_error_{N_importance}/metrics_expecteddepth.txt``;
     returns the ``MeanTracker``."""
-    state = _state_for_eval(args, setup)
+    state, occ_cfg, occ_grid = _state_for_eval(args, setup)
     return EI.test_images_samples(
         state.params_coarse, state.params_fine, bundle.data, bundle.i_test,
-        mcfg, eval_render_config(args, rcfg),
+        mcfg, eval_render_config(args, rcfg, occ_cfg),
         os.path.join(exp_dir(args),
                      f"test_samples_error_{args.N_importance}"),
-        chunk=args.chunk, mcfg_fine=setup.mcfg_fine, ndc=bundle.ndc)
+        chunk=args.chunk, mcfg_fine=setup.mcfg_fine, ndc=bundle.ndc,
+        occ_grid=occ_grid)
 
 
 # ---------------------------------------------------------------------------
@@ -426,9 +603,6 @@ def _refuse_unported(args) -> None:
     if args.task == "export_serving":
         raise SystemExit("--task export_serving: not ported yet (ROADMAP "
                          "A13)")
-    if args.occ_grid:
-        raise SystemExit("--occ_grid: the occupancy grid is not ported yet "
-                         "(ROADMAP A10)")
     if args.profile:
         raise SystemExit("--profile: not ported yet (ROADMAP A17; "
                          "plnerf_torch.tools.profile_step profiles a step)")

@@ -8,7 +8,10 @@ other field changes meaning.  Frozen dataclasses, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
+
+if TYPE_CHECKING:
+    from .occgrid import OccGridConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,8 +79,10 @@ class RenderConfig:
     # fused head schedule: fold the relu-free feature dot into the views
     # layer and N-merge it with the alpha head (same math, fewer FLOPs)
     fused_fold_heads: bool = False
-    # occupancy-grid guided coarse sampling; not ported yet (must be None)
-    occ: Optional[Any] = None
+    # occupancy-grid guided coarse sampling (core/occgrid.py): None is
+    # uniform sampling; an OccGridConfig places the coarse samples by the
+    # grid passed to render_rays
+    occ: Optional["OccGridConfig"] = None
     # training: recompute the MLP query in the backward pass
     # (torch.utils.checkpoint) instead of keeping its activations
     remat_mlp: bool = False

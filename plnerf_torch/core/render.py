@@ -9,14 +9,16 @@ weights at draws ``u``, not detached, so gradients flow through
 ``sampling.sample_pdf_reformulation`` into tau and T (the depth script's
 render_rays, :920-934).
 
+With ``rcfg.occ`` and a grid (``occ_grid``, ``core/occgrid.py``) the
+coarse samples are placed by the grid instead of uniformly, from the same
+jitter; with ``rcfg.occ`` set it also returns the density observations
+the occupancy train step folds into the grid.
+
 RNG: one ``torch.Generator`` feeds, in order, the coarse jitter, the
 coarse density noise, the resample draws, the fine density noise and the
 ``pred_hyp`` draws.  The ``overrides`` dict (``t_rand``, ``noise``, ``u``,
 ``u_hyp``) injects exact arrays for any stream, so numpy-made draws drive
 this renderer and the JAX package alike.
-
-Not ported yet (raises ``NotImplementedError``): occupancy-grid guided
-sampling (``rcfg.occ``, ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import as_tensor
-from . import mlp, quadrature, sampling
+from . import mlp, occgrid, quadrature, sampling
 from .config import ModelConfig, RenderConfig
 
 
@@ -46,6 +48,7 @@ def render_rays(
     cam_embedding: Optional[torch.Tensor] = None,
     overrides: Optional[Dict[str, Any]] = None,
     mcfg_fine: Optional[ModelConfig] = None,
+    occ_grid: Optional[occgrid.Grid] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render a batch of rays.
 
@@ -54,9 +57,12 @@ def render_rays(
     variants, z_std and sigma0_pos_frac (and raw with ``retraw``; with
     ``compute_pred_hyp``: pred_hyp, u, weights, z_vals and, after a fine
     pass, weights0 and z_vals0).
+
+    With ``rcfg.occ`` set: ``occ_z`` (the coarse z values, then the fine
+    pass's) and ``occ_sigma`` (their relu'd densities, detached), and,
+    when ``occ_grid`` guided the coarse samples, ``occ_ray_frac``.
+    Without a grid the coarse samples stay uniform.
     """
-    if rcfg.occ is not None:
-        raise NotImplementedError("occupancy-grid sampling is not ported")
     dev = ray_batch.device
     R = ray_batch.shape[0]
     rays_o, rays_d = ray_batch[:, 0:3], ray_batch[:, 3:6]
@@ -70,8 +76,24 @@ def render_rays(
     if t_rand is None and rcfg.perturb:
         t_rand = torch.rand((R, rcfg.n_samples), generator=generator,
                             device=dev)
-    z_vals = sampling.stratified_z_vals(near, far, rcfg.n_samples,
-                                        rcfg.lindisp, t_rand)
+    guided = rcfg.occ is not None and occ_grid is not None
+    if guided:
+        z_vals, occ_ray_frac = occgrid.occ_guided_z_vals(
+            occ_grid, rays_o, rays_d, near, far, rcfg.n_samples, t_rand,
+            rcfg.occ)
+    else:
+        z_vals = sampling.stratified_z_vals(near, far, rcfg.n_samples,
+                                            rcfg.lindisp, t_rand)
+
+    def observe(z, *outs):
+        """The density observations for the grid update."""
+        if rcfg.occ is None:
+            return
+        if guided:
+            ret["occ_ray_frac"] = occ_ray_frac
+        ret["occ_z"] = z
+        ret["occ_sigma"] = torch.relu(torch.cat(
+            [o["raw"][..., 3] for o in outs], dim=-1)).detach()
 
     def run(model, z, cfg):
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
@@ -129,6 +151,7 @@ def render_rays(
             ret[k_] = out_c[k_]
         if rcfg.retraw:
             ret["raw"] = out_c["raw"]
+        observe(z_vals, out_c)
         if rcfg.compute_pred_hyp:
             ret.update(pred_hyp(out_c, z_vals, rcfg.n_samples))
         return ret
@@ -154,6 +177,7 @@ def render_rays(
     ret["z_std"] = torch.std(z_samples, dim=-1, correction=0)  # jnp.std
     if rcfg.retraw:
         ret["raw"] = out_f["raw"]
+    observe(torch.cat([z_vals, z_fine], dim=-1), out_c, out_f)
     if rcfg.compute_pred_hyp:
         ret.update(pred_hyp(out_f, z_fine, rcfg.n_importance))
         ret["weights0"] = out_c["weights"]

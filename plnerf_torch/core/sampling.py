@@ -10,7 +10,9 @@
 ``searchsorted_right`` keeps the JAX package's comparison count
 (``sum(cdf <= u)``), not a binary search: after the ``cdf[..., -1] = 1``
 overwrite the CDF need not be monotone at its end, and there the two
-disagree.  Gathers clip their indices, as the JAX package does.
+disagree.  Gathers clip their indices, as the JAX package does; on CUDA
+a gather that gradients flow through (``pred_hyp``) sums its backward in a
+fixed order (``OneHotGather``).
 
 Samplers take their uniform draws ``u`` explicitly; ``draw_u`` makes them
 from a ``torch.Generator``.
@@ -70,9 +72,35 @@ def searchsorted_right(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return (cdf[..., None, :] <= u[..., :, None]).sum(dim=-1)
 
 
+class OneHotGather(torch.autograd.Function):
+    """``torch.gather`` along the last axis whose backward sums each bin's
+    cotangents by a one-hot reduction over the gathered axis, in a fixed
+    order.  Gather's own backward scatter-adds with atomics on CUDA, so
+    two equal backward passes can differ in the last bit wherever several
+    draws fall in one bin."""
+
+    @staticmethod
+    def forward(ctx, vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.bins = vals.shape[-1]
+        return torch.gather(vals, -1, idx)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        idx, = ctx.saved_tensors
+        hit = idx[..., None] == torch.arange(ctx.bins, device=idx.device)
+        return torch.where(hit, g[..., None], 0.0).sum(-2), None
+
+
 def _gather(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """vals: [R, B], idx: [R, N] -> [R, N], indices clipped to range."""
-    return torch.gather(vals, -1, idx.clamp(0, vals.shape[-1] - 1))
+    """vals: [R, B], idx: [R, N] -> [R, N], indices clipped to range.  A
+    gather that gradients flow through on CUDA runs ``OneHotGather``, so
+    the step repeats bit for bit; on the CPU gather's own backward is
+    already serial."""
+    idx = idx.clamp(0, vals.shape[-1] - 1)
+    if vals.is_cuda and vals.requires_grad and torch.is_grad_enabled():
+        return OneHotGather.apply(vals, idx)
+    return torch.gather(vals, -1, idx)
 
 
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor

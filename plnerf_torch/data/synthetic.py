@@ -3,7 +3,9 @@ sphere scene, the multi-object scene with ground-truth depth and the
 forward-facing LLFF fixture of ``plnerf/data/synthetic.py``):
 constant-density shapes rendered by independent numpy ray-marching, so
 the trainers run without dataset files.  ``write_blender2_depth_scene``
-lays the multi-object scene out as a blender2_depth dataset."""
+lays the multi-object scene out as a blender2_depth dataset,
+``write_sphere_scene`` and ``write_fixed_dist_scene`` the sphere as a
+Blender and a blender_fixeddist dataset."""
 from __future__ import annotations
 
 import json
@@ -280,6 +282,87 @@ def write_blender2_depth_scene(
     with ThreadPoolExecutor(max(1, workers)) as ex:
         list(ex.map(render, jobs))
     return basedir
+
+
+# ---------------------------------------------------------------------------
+# The sphere scene in the Blender layout that data/blender.py loads (8 / 1 /
+# 2 views at 400x400 in chip_smoke.py's driver and occ phases and in
+# tools/occ_quality.py).
+# ---------------------------------------------------------------------------
+
+LEGO_CAMERA_ANGLE_X = 0.6911112070083618
+
+
+def _write_sphere_pngs(size: int, jobs) -> None:
+    """Render the numpy sphere for each (path, c2w) of ``jobs`` at size x
+    size with the lego camera_angle_x, as RGBA pngs in straight alpha (the
+    sphere's colour, alpha its opacity), so compositing over white gives
+    the white-background render."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..utils.misc import to8b
+    from .png import write_png
+
+    focal = 0.5 * size / np.tan(0.5 * LEGO_CAMERA_ANGLE_X)
+    color = np.array([0.8, 0.3, 0.2], np.float32)
+
+    def render(job):
+        path, c2w = job
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        rgb = render_sphere_image(c2w, size, size, focal, color=color,
+                                  white_bkgd=False)
+        alpha = np.clip(rgb[..., :1] / color[0], 0.0, 1.0)
+        rgba = np.concatenate([np.broadcast_to(color, rgb.shape), alpha], -1)
+        write_png(path, to8b(rgba))
+
+    # numpy releases the interpreter lock in the render's large ops; each
+    # 400x400 render holds ~2 GB of intermediates
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+        list(ex.map(render, jobs))
+
+
+def _write_frames(scene_dir: str, json_name: str, frames) -> None:
+    with open(os.path.join(scene_dir, json_name), "w") as f:
+        json.dump({"camera_angle_x": LEGO_CAMERA_ANGLE_X,
+                   "frames": frames}, f)
+
+
+def write_sphere_scene(scene_dir: str, size: int, views: dict) -> None:
+    """A Blender-layout scene of the numpy sphere: ``transforms_{split}.
+    json`` and RGBA pngs.  Train views ring the sphere; val and test views
+    sit between them."""
+    rng = np.random.default_rng(0)
+    jobs = []
+    for k, (split, n) in enumerate(views.items()):
+        thetas = np.linspace(-180, 180, n, endpoint=False) + 360 / 16 * k
+        frames = []
+        for i, theta in enumerate(thetas):
+            c2w = pose_spherical_np(theta, rng.uniform(-40, -20), 4.0)
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "transform_matrix": c2w.tolist()})
+            jobs.append((os.path.join(scene_dir, split, f"r_{i}.png"), c2w))
+        os.makedirs(scene_dir, exist_ok=True)
+        _write_frames(scene_dir, f"transforms_{split}.json", frames)
+    _write_sphere_pngs(size, jobs)
+
+
+def write_fixed_dist_scene(scene_dir: str, size: int, dists, n: int) -> None:
+    """The blender_fixeddist layout of the numpy sphere: ``n`` test views
+    at radius 4 x d for each distance d (``radius_{d}_test/r_i.png`` and
+    ``transforms_radius{d}_test.json``)."""
+    jobs = []
+    os.makedirs(scene_dir, exist_ok=True)
+    for d in dists:
+        frames = []
+        for i, theta in enumerate(np.linspace(-180, 180, n, endpoint=False)
+                                  + 15.0):
+            c2w = pose_spherical_np(theta, -30.0, 4.0 * d)
+            rel = f"radius_{d}_test/r_{i}"
+            frames.append({"file_path": "./" + rel,
+                           "transform_matrix": c2w.tolist()})
+            jobs.append((os.path.join(scene_dir, rel + ".png"), c2w))
+        _write_frames(scene_dir, f"transforms_radius{d}_test.json", frames)
+    _write_sphere_pngs(size, jobs)
 
 
 # ---------------------------------------------------------------------------

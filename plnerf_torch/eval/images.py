@@ -6,7 +6,8 @@
 A Python loop over fixed-size ray chunks replaces the JAX package's
 ``lax.map``; chunk ``i`` draws from a generator seeded ``seed + i``.
 Images are written with ``data/png.py``, metrics computed on the host
-(``eval/metrics.py``).
+(``eval/metrics.py``).  A model trained with the occupancy grid renders
+with it: ``occ_grid`` is required whenever ``rcfg.occ`` is set.
 """
 from __future__ import annotations
 
@@ -36,10 +37,17 @@ def render_chunks(params_c: NeRF, params_f: Optional[NeRF],
                   rays: torch.Tensor, mcfg: ModelConfig, rcfg: RenderConfig,
                   chunk: int, seed: int, keys, cam_embedding=None,
                   mcfg_fine: Optional[ModelConfig] = None,
-                  keep_hyp: bool = False) -> Dict[str, torch.Tensor]:
+                  keep_hyp: bool = False, occ_grid=None
+                  ) -> Dict[str, torch.Tensor]:
     """Render ``rays`` [n, 8|11] chunk by chunk; returns the ``keys``
     maps (and ``pred_hyp`` with ``keep_hyp``) concatenated over chunks, on
-    the rays' device."""
+    the rays' device.  ``occ_grid``: the trained occupancy grid, required
+    when ``rcfg.occ`` is set (a model trained grid-guided is scored under
+    the sample distribution it trained with)."""
+    if rcfg.occ is not None and occ_grid is None:
+        raise ValueError("rcfg.occ is set but no occ_grid was passed: "
+                         "occ-trained models must be evaluated with "
+                         "grid-guided sampling")
     keys = tuple(keys) + (("pred_hyp",) if keep_hyp else ())
     outs = []
     with torch.no_grad():
@@ -48,7 +56,7 @@ def render_chunks(params_c: NeRF, params_f: Optional[NeRF],
             ret = render.render_rays(params_c, params_f,
                                      rays[start:start + chunk], g, mcfg,
                                      rcfg, cam_embedding=cam_embedding,
-                                     mcfg_fine=mcfg_fine)
+                                     mcfg_fine=mcfg_fine, occ_grid=occ_grid)
             outs.append({k: ret[k] for k in keys if k in ret})
     return {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}
 
@@ -59,11 +67,13 @@ def render_image(params_c: NeRF, params_f: Optional[NeRF], c2w, hwf, K,
                  ndc: bool = False, render_factor: int = 0,
                  pixel_center: bool = False, cam_embedding=None,
                  mcfg_fine: Optional[ModelConfig] = None,
-                 keep_hyp: bool = False) -> Dict[str, np.ndarray]:
+                 keep_hyp: bool = False,
+                 occ_grid=None) -> Dict[str, np.ndarray]:
     """Render one full image on the models' device; returns numpy maps
     shaped [H, W, ...] (``pred_hyp`` too with ``keep_hyp``, which needs
     ``rcfg.compute_pred_hyp``).  ``render_factor`` downsamples H/W/focal;
-    ``pixel_center`` uses the depth-script ray convention."""
+    ``pixel_center`` uses the depth-script ray convention; ``occ_grid`` as
+    in ``render_chunks``."""
     H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
     if render_factor:
         H, W, focal = H // render_factor, W // render_factor, \
@@ -83,7 +93,8 @@ def render_image(params_c: NeRF, params_f: Optional[NeRF], c2w, hwf, K,
     packed, _ = render.make_ray_batch(rays_o, rays_d, near, far,
                                       rcfg.use_viewdirs, ndc, H, W, focal)
     out = render_chunks(params_c, params_f, packed, mcfg, rcfg, chunk, seed,
-                        _IMAGE_KEYS, cam_embedding, mcfg_fine, keep_hyp)
+                        _IMAGE_KEYS, cam_embedding, mcfg_fine, keep_hyp,
+                        occ_grid)
     return {k: v.cpu().numpy().reshape(H, W, *v.shape[1:])
             for k, v in out.items()}
 
@@ -103,7 +114,7 @@ def render_images_with_metrics(
     chunk: int = 32768, near: Optional[float] = None,
     far: Optional[float] = None, ndc: bool = False, seed: int = 0,
     verbose: bool = True, mcfg_fine: Optional[ModelConfig] = None,
-    pixel_center: bool = False, cam_embeddings=None):
+    pixel_center: bool = False, cam_embeddings=None, occ_grid=None):
     """Render the held-out views ``indices`` of ``dataset`` (a
     ``SceneData``) and aggregate their metrics (reference
     run_plnerf.py:284-363): per image img_loss, PSNR and SSIM of the fine
@@ -118,8 +129,9 @@ def render_images_with_metrics(
     intrinsics.  ``cam_embeddings``: {index: embedding} from test-time
     camera optimization (a view without one renders at zeros).  Image ``n``
     renders with the seeds ``seed + n * n_chunks + i`` of its chunks
-    ``i``, so no two chunks share a stream.  LPIPS is not ported (ROADMAP
-    A14): its row in the metrics is a note."""
+    ``i``, so no two chunks share a stream.  ``occ_grid`` as in
+    ``render_chunks``.  LPIPS is not ported (ROADMAP A14): its row in the
+    metrics is a note."""
     near = dataset.near if near is None else near
     far = dataset.far if far is None else far
     if near is None or far is None:
@@ -145,7 +157,7 @@ def render_images_with_metrics(
                            chunk=chunk, ndc=ndc, pixel_center=pixel_center,
                            cam_embedding=(None if cam_embeddings is None
                                           else cam_embeddings.get(img_idx)),
-                           mcfg_fine=mcfg_fine)
+                           mcfg_fine=mcfg_fine, occ_grid=occ_grid)
         rgb = np.clip(out["rgb_map"], 0.0, 1.0)
         img_loss = float(np.mean((out["rgb_map"] - target) ** 2))
         psnr = M.mse2psnr(img_loss)
@@ -190,7 +202,7 @@ def test_images_samples(
     verbose: bool = True, pixel_center: bool = False,
     mcfg_fine: Optional[ModelConfig] = None,
     valid_mask_from_dataset: bool = False, ndc: bool = False,
-    metrics_filename: str = "metrics_expecteddepth.txt"):
+    metrics_filename: str = "metrics_expecteddepth.txt", occ_grid=None):
     """The importance-sampling-error eval (reference run_plnerf.py:218-282):
     the mean distance between each termination quantile (``pred_hyp``) and
     the expected depth, over the rays of each view, averaged over views and
@@ -203,7 +215,8 @@ def test_images_samples(
     run_nerf_sample_based_depth.py:404-408).  ``ndc`` renders NDC rays, as
     the reference's render_kwargs do for LLFF scenes; the JAX package
     always renders world-space rays here.  Image ``n`` renders with the
-    seeds ``seed + n * n_chunks + i`` of its chunks ``i``."""
+    seeds ``seed + n * n_chunks + i`` of its chunks ``i``; ``occ_grid`` as
+    in ``render_chunks``."""
     rcfg = dataclasses.replace(rcfg, compute_pred_hyp=True)
     indices = list(np.asarray(indices))
     if count is not None:
@@ -223,7 +236,7 @@ def test_images_samples(
                            seed=seed + n * n_chunks, near=dataset.near,
                            far=dataset.far, chunk=chunk, ndc=ndc,
                            pixel_center=pixel_center, mcfg_fine=mcfg_fine,
-                           keep_hyp=True)
+                           keep_hyp=True, occ_grid=occ_grid)
         dists = np.abs(out["pred_hyp"] - out["depth_map"][..., None])
         if valid_mask_from_dataset and dataset.gt_valid_depths is not None:
             valid = np.asarray(dataset.gt_valid_depths[img_idx]).astype(bool)

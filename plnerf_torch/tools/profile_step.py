@@ -3,8 +3,9 @@ port of ``tools/profile_step.py`` (``torch.profiler`` in place of the
 TPU's xplane trace, read by ``utils/profile.py``).
 
     python -m plnerf_torch.tools.profile_step [--mode linear|constant]
-        [--rays 8192] [--steps 20] [--remat] [--grad_accum 1] [--fused]
-        [--mlp_dtype bfloat16] [--top 30] [--out DIR] [--device cpu]
+        [--rays 8192] [--steps 20] [--remat] [--occ] [--grad_accum 1]
+        [--fused] [--mlp_dtype bfloat16] [--top 30] [--out DIR]
+        [--device cpu]
 
 Flagship widths (two 8x256 MLPs, 128 + 64 samples in linear mode, 64 +
 128 in constant), white background, perturb on, on a fixed batch of
@@ -16,8 +17,9 @@ busy share of the wall time, and the top device and host ops (where the
 host spends the time between kernels).  ``--out DIR`` writes a Chrome
 trace to ``DIR/trace.json`` and reads it back: every host wait on the
 device grouped by the ops around it, and the device's idle gaps.
-``--occ`` (the occupancy grid) raises until the grid is ported (ROADMAP
-A10).
+``--occ`` profiles the occupancy-grid step (``make_occ_train_step``: 32
+grid-guided coarse samples, a 128^3 grid with 96 candidate bins over the
+box [-1.5, 1.5]^3, updated every step), as the JAX tool does.
 """
 from __future__ import annotations
 
@@ -29,10 +31,12 @@ from typing import List, Optional
 
 import torch
 
+from ..core import occgrid as og
 from ..core.config import ModelConfig, RenderConfig
 from ..core.rays import pack_rays
 from ..device import DeviceLike, resolve_device
-from ..train.step import TrainSetup, init_state, make_train_step
+from ..train.step import (TrainSetup, init_state, make_occ_train_step,
+                          make_train_step)
 from ..utils.profile import (profile_steps, trace_device_gaps,
                              trace_host_syncs)
 
@@ -40,12 +44,17 @@ from ..utils.profile import (profile_steps, trace_device_gaps,
 def make_setup(mode: str = "linear", remat: bool = False,
                grad_accum: int = 1, mlp_dtype: str = "bfloat16",
                fused: bool = False,
-               mcfg: ModelConfig = ModelConfig()) -> TrainSetup:
+               mcfg: ModelConfig = ModelConfig(),
+               occ: bool = False) -> TrainSetup:
     ns, ni = (128, 64) if mode == "linear" else (64, 128)
+    occ_cfg = None
+    if occ:
+        occ_cfg = og.OccGridConfig(resolution=128, candidates=96)
+        ns = 32
     rcfg = RenderConfig(n_samples=ns, n_importance=ni, mode=mode,
                         white_bkgd=True, perturb=True, mlp_dtype=mlp_dtype,
                         remat_mlp=remat, use_fused_mlp=fused,
-                        fused_fold_heads=fused)
+                        fused_fold_heads=fused, occ=occ_cfg)
     return TrainSetup(mcfg=mcfg, rcfg=rcfg, accum_chunks=grad_accum)
 
 
@@ -67,14 +76,22 @@ def profile(setup: TrainSetup, rays: int, steps: int, device: DeviceLike,
     device = resolve_device(device)
     state = init_state(torch.Generator(device=device).manual_seed(0), setup,
                        device)
-    step = make_train_step(setup)
     batch = make_batch(rays, device)
     g = torch.Generator(device=device).manual_seed(2)
     metrics = {}
+    if setup.rcfg.occ is None:
+        step = make_train_step(setup)
 
-    def run():
-        nonlocal state, metrics
-        state, metrics = step(state, batch, g)
+        def run():
+            nonlocal state, metrics
+            state, metrics = step(state, batch, g)
+    else:
+        occ_step = make_occ_train_step(setup)
+        grid = og.init_grid([-1.5] * 3, [1.5] * 3, setup.rcfg.occ, device)
+
+        def run():
+            nonlocal state, grid, metrics
+            state, grid, metrics = occ_step(state, grid, batch, g)
 
     for _ in range(3):
         run()
@@ -93,6 +110,8 @@ def profile(setup: TrainSetup, rays: int, steps: int, device: DeviceLike,
                       if device.type == "cuda" else "cpu"),
            "rays": rays, "steps": steps, "ms_per_step": dt / steps * 1e3,
            "loss": loss, "profile": prof}
+    if "occ_ray_frac" in metrics:
+        res["occ_ray_frac"] = float(metrics["occ_ray_frac"])
     if trace:
         with open(trace) as f:
             tr = json.load(f)
@@ -118,11 +137,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     ap.add_argument("--device", default=None,
                     help="default: the CUDA device; 'cpu' runs on the CPU")
     args = ap.parse_args(argv)
-    if args.occ:
-        raise NotImplementedError("occupancy-grid sampling is not ported "
-                                  "(ROADMAP A10)")
     setup = make_setup(args.mode, args.remat, args.grad_accum,
-                       args.mlp_dtype, args.fused)
+                       args.mlp_dtype, args.fused, occ=args.occ)
     res = profile(setup, args.rays, args.steps, args.device, args.top,
                   args.out)
     p = res["profile"]

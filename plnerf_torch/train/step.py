@@ -10,6 +10,12 @@ with an elementwise grad clip, the space-carving loss, per-image depth
 scale / shift trained by their own Adam and, optionally, per-image camera
 embeddings by a third.  A step updates the state's tensors and optimizers
 in place and returns the same state, its step count advanced.
+
+``make_occ_train_step`` is the NVS step with occupancy-grid guided coarse
+samples (``core/occgrid.py``): it also folds the step's own density
+evaluations into the grid and returns the new grid.  The depth step takes
+a grid the same way (``depth_grads``' batch key ``occ_grid``; the driver
+applies ``apply_occ_update``).
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..core import render
+from ..core import occgrid, render
 from ..core.config import ModelConfig, RenderConfig
 from ..core.mlp import NeRF
 from ..device import DeviceLike, make_generator, resolve_device
@@ -129,7 +135,10 @@ def _render_loss(params_c: NeRF, params_f: Optional[NeRF], batch,
                  overrides=None, scale=None, shift=None, sc_weight=None,
                  cam_emb=None) -> Tuple[torch.Tensor, Metrics]:
     """Forward + loss.  batch: dict(rays [R, 8|11], target [R, 3], and for
-    space carving target_h [H, R, 1] and sc_mask [R]); ``overrides``
+    space carving target_h [H, R, 1] and sc_mask [R]; with an occupancy
+    grid, occ_grid, and the metrics then carry the density observations
+    ``_occ_z`` / ``_occ_sigma`` for ``apply_occ_update`` and
+    ``occ_ray_frac``); ``overrides``
     injects the renderer's draws (``render_rays``).  With space carving
     the hypotheses are ``target_h * scale + shift`` and the term's weight
     is ``sc_weight`` (the setup's unless given; 0 keeps the term in the
@@ -137,12 +146,18 @@ def _render_loss(params_c: NeRF, params_f: Optional[NeRF], batch,
     embedding [input_ch_cam] or None."""
     ret = render.render_rays(params_c, params_f, batch["rays"], generator,
                              setup.mcfg, setup.rcfg, cam_embedding=cam_emb,
-                             overrides=overrides, mcfg_fine=setup.mcfg_fine)
+                             overrides=overrides, mcfg_fine=setup.mcfg_fine,
+                             occ_grid=batch.get("occ_grid"))
     img_loss = img2mse(ret["rgb_map"], batch["target"])
     loss = img_loss
     metrics = {"img_loss": img_loss.detach(),
                "psnr": mse2psnr(img_loss.detach()),
                "sigma0_pos_frac": ret["sigma0_pos_frac"].detach()}
+    if "occ_z" in ret:
+        metrics["_occ_z"] = ret["occ_z"].detach()
+        metrics["_occ_sigma"] = ret["occ_sigma"]
+        if "occ_ray_frac" in ret:
+            metrics["occ_ray_frac"] = ret["occ_ray_frac"].detach()
     if setup.space_carving_weight > 0.0:
         target_h = batch["target_h"]
         if scale is not None:
@@ -169,7 +184,9 @@ def _value_and_grad_accum(setup: TrainSetup, params, batch, generator,
     ``params`` (those the loss reaches), over ``setup.accum_chunks`` equal
     ray chunks when it is > 1 (peak activation memory of one chunk): chunk
     grads and metrics are summed and scaled by 1 / n, the mean of
-    equal-chunk means.  Returns the metrics."""
+    equal-chunk means.  The occupancy grid's density observations
+    (``_occ_*``) are concatenated back into ray order instead.  Returns the
+    metrics."""
     n = setup.accum_chunks
     if n <= 1:
         loss, metrics = loss_of(batch, generator)
@@ -179,11 +196,15 @@ def _value_and_grad_accum(setup: TrainSetup, params, batch, generator,
     if r % n:
         raise ValueError(f"{r} rays do not split into {n} equal chunks")
     acc: Optional[Metrics] = None
+    occ: Dict[str, list] = {}
     for i in range(n):
-        chunk = {k: v[i * (r // n):(i + 1) * (r // n)]
+        lo, hi = i * (r // n), (i + 1) * (r // n)
+        chunk = {k: v if k == "occ_grid" else v[lo:hi]
                  for k, v in batch.items()}
         loss, metrics = loss_of(chunk, generator)
         loss.backward()
+        for k in [k for k in metrics if k.startswith("_occ")]:
+            occ.setdefault(k, []).append(metrics.pop(k))
         acc = metrics if acc is None else {k: acc[k] + metrics[k]
                                            for k in acc}
     inv = 1.0 / n
@@ -191,7 +212,8 @@ def _value_and_grad_accum(setup: TrainSetup, params, batch, generator,
         for q in params:
             if q.grad is not None:
                 q.grad.mul_(inv)
-    return {k: m * inv for k, m in acc.items()}
+    return {**{k: m * inv for k, m in acc.items()},
+            **{k: torch.cat(v, 0) for k, v in occ.items()}}
 
 
 def build_one_step(setup: TrainSetup):
@@ -295,5 +317,38 @@ def make_depth_train_step(setup: TrainSetup):
             state.opt_latent.step()
         state.step += 1
         return state, metrics
+
+    return step_fn
+
+
+def apply_occ_update(setup: TrainSetup, occ_grid: occgrid.Grid, batch,
+                     metrics: Metrics) -> Tuple[occgrid.Grid, Metrics]:
+    """Pop the forward pass's density observations (``_occ_z``,
+    ``_occ_sigma``) out of ``metrics`` and fold them into the grid's EMA;
+    returns ``(grid, metrics)``.  ``occ_ray_frac`` stays in the metrics:
+    the mean occupied fraction of candidate bins along this batch's rays,
+    read by the sampler before the update."""
+    z = metrics.pop("_occ_z")
+    sigma = metrics.pop("_occ_sigma")
+    rays = batch["rays"]
+    pts = rays[:, None, 0:3] + rays[:, None, 3:6] * z[..., None]
+    return occgrid.update_grid(occ_grid, pts, sigma, setup.rcfg.occ), metrics
+
+
+def make_occ_train_step(setup: TrainSetup):
+    """The occupancy-grid train step: (state, grid, batch, generator) ->
+    (state, grid, metrics).  The optimization of ``make_train_step`` with
+    the coarse samples placed by the grid, then the grid updated from the
+    step's own density evaluations.  Needs ``setup.rcfg.occ``."""
+    if setup.rcfg.occ is None:
+        raise ValueError("make_occ_train_step needs setup.rcfg.occ")
+    one_step = build_one_step(setup)
+
+    def step_fn(state: TrainState, occ_grid: occgrid.Grid, batch,
+                generator=None):
+        state, metrics = one_step(state, dict(batch, occ_grid=occ_grid),
+                                  generator)
+        occ_grid, metrics = apply_occ_update(setup, occ_grid, batch, metrics)
+        return state, occ_grid, metrics
 
     return step_fn

@@ -136,7 +136,7 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked(tmp_path):
 
 @pytest.mark.parametrize("flags, item", [
     (["--task", "video"], "A8"), (["--render_only"], "A8"),
-    (["--task", "export_serving"], "A13"), (["--occ_grid"], "A10"),
+    (["--task", "export_serving"], "A13"),
     (["--profile", "3"], "A17"), (["--lpips_weights", "w.pt"], "A14"),
     (["--i_video", "5", "--num_iterations", "12"], "A8"),
     (["--steps_per_dispatch", "4"], "steps_per_dispatch 4")])

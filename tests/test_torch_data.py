@@ -203,7 +203,7 @@ def test_load_blender_fixed_dist_matches_jax(scenes, test_dist):
                 jblender.load_blender_fixed_dist(scenes["fixed"], **kw))
 
 
-def test_depth_loaders_are_refused():
+def test_both_packages_refuse_a_depth_scene_with_no_split():
     """The depth loaders (ported with depth supervision) refuse a scene
     with no split to read, as the JAX package's do."""
     for fn, ref in ((blender.load_blender2_depth,

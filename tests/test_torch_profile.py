@@ -88,9 +88,17 @@ def test_profile_step_runs_on_cpu(fused):
     assert len(res["profile"]["top_host_ops"]) == 5
 
 
-def test_profile_step_refuses_the_occupancy_grid():
-    with pytest.raises(NotImplementedError, match="A10"):
-        profile_step.main(["--occ", "--device", "cpu"])
+def test_profile_step_runs_the_occupancy_grid_step_on_cpu():
+    """``--occ``: 32 guided coarse samples on a 128^3 grid with 96
+    candidates, the grid updated every step, ``occ_ray_frac`` reported
+    (the fresh grid is all occupied inside its box)."""
+    setup = profile_step.make_setup("linear", mlp_dtype="float32",
+                                    fused=True, mcfg=TINY, occ=True)
+    assert setup.rcfg.n_samples == 32 and setup.rcfg.occ.resolution == 128
+    assert setup.rcfg.occ.candidates == 96
+    res = profile_step.profile(setup, rays=16, steps=2, device="cpu", top=5)
+    assert res["steps"] == 2 and torch.isfinite(torch.tensor(res["loss"]))
+    assert 0.0 < res["occ_ray_frac"] <= 1.0
 
 
 def test_bench_kernel_runs_on_cpu():

@@ -310,12 +310,3 @@ def test_render_rays_full_width_fused_matches_jax():
     got, ref = _render_both({}, rkw, R=8, fused=True, dense_sigma=True)
     _check_all_keys(got, ref)
     assert float(got["acc_map"].min()) > 0.1     # rays see content
-
-
-def test_render_rays_unported_branches_raise():
-    kw = dict(netdepth=2, netwidth=16, multires=4, multires_views=2)
-    m = torch_model(kw, np_params(kw))
-    rb = t(_ray_batch(4))
-    with pytest.raises(NotImplementedError):
-        render.render_rays(m, m, rb, None, ModelConfig(**kw),
-                           RenderConfig(occ=object()))
