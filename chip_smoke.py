@@ -1947,14 +1947,38 @@ def phase_depth(dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _leaves(tree, prefix: str = ""):
+    """(name, tensor) of every floating tensor in nested dicts / lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}{i}.")
+    elif isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        yield prefix[:-1], tree
+
+
+def _state_diff(a, b) -> dict:
+    """The floating tensors of two nested state dicts that differ (names,
+    count, the largest |a - b|); both must hold the same names."""
+    la, lb = dict(_leaves(a)), dict(_leaves(b))
+    if la.keys() != lb.keys():
+        raise ValueError(f"state dicts differ in names: "
+                         f"{sorted(la.keys() ^ lb.keys())[:4]}")
+    bad = [k for k in la if not torch.equal(la[k], lb[k])]
+    worst = max((float((la[k] - lb[k]).abs().max()) for k in bad),
+                default=0.0)
+    return {"tensors": len(bad), "of": len(la), "first": bad[:4],
+            "max_abs": worst}
+
+
 def _repeat(run, expect, argv, exp_root, name, steps, keys) -> dict:
     """Two runs of the driver command ``argv`` from one seed, as
     experiments ``{name}_a`` and ``{name}_b`` (two launches of each kernel
     per step, no eval render): every logged ``keys`` value, every tensor of
     the final state and, where there is one, of the final ``.occ`` sidecar
     must be bit-equal; raises otherwise."""
-    from plnerf_torch.tools.depth_repeat import state_diff
-
     states, recs, grids = {}, [], []
     for tag in ("a", "b"):
         exp = f"{name}_{tag}"
@@ -1969,9 +1993,9 @@ def _repeat(run, expect, argv, exp_root, name, steps, keys) -> dict:
                      for q in keys)]
     out = {"steps": steps, "logged_steps": sorted(recs[0]),
            "differing_logged_steps": differ,
-           "state": state_diff(states["a"].state_dict(),
+           "state": _state_diff(states["a"].state_dict(),
                                states["b"].state_dict()),
-           "grid": state_diff(*grids) if len(grids) == 2 else None,
+           "grid": _state_diff(*grids) if len(grids) == 2 else None,
            "losses": {k: r["train/loss"] for k, r in recs[0].items()}}
     if (differ or out["state"]["tensors"] or len(grids) == 1
             or (out["grid"] and out["grid"]["tensors"])):

@@ -200,6 +200,30 @@ def test_sample_pdf_matches_jax(flat):
     close(got, ref, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_one_hot_gather_matches_gather_forward_and_backward(dtype):
+    """``OneHotGather`` (the gather the CUDA path backpropagates through)
+    against ``torch.gather`` on the CPU: equal values, and equal grads
+    where many draws share a bin, the bins at both edges included."""
+    rng = np.random.default_rng(8)
+    vals = rng.normal(size=(5, 9))
+    idx = rng.integers(0, 9, (5, 24))
+    idx[:, :6] = 3                                    # six draws in one bin
+    idx[:, 6], idx[:, 7] = 0, 8
+    g = rng.normal(size=(5, 24))
+    grads = []
+    for gather in (sampling.OneHotGather.apply,
+                   lambda v, i: torch.gather(v, -1, i)):
+        v = torch.tensor(vals, dtype=dtype, requires_grad=True)
+        out = gather(v, torch.from_numpy(idx))
+        out.backward(torch.tensor(g, dtype=dtype))
+        grads.append((out.detach(), v.grad))
+    torch.testing.assert_close(grads[0][0], grads[1][0], atol=0, rtol=0)
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    torch.testing.assert_close(grads[0][1], grads[1][1], atol=tol, rtol=tol)
+    assert torch.all(grads[0][1][:, 3] != 0)
+
+
 def _cam():
     rng = np.random.default_rng(6)
     a = rng.normal(size=(3, 3))
