@@ -158,11 +158,42 @@ Phases, one line each, then the result line:
            apart), s per test image, PSNR / SSIM, ``occ_ray_frac`` and the
            grid's occupied share.
 
+13. video  the camera-path videos on the driver phase's step-400
+           checkpoint: ``run_plnerf.main --task video --render_factor 4``
+           (the 40 hemisphere poses at 100x100), ``--render_only
+           --render_test`` (the 2 test views at 400x400), a 20-step
+           continuation of a copy of the run with ``--i_video 10`` (one
+           video, at step 410), and ``run_depth.main video`` on the depth
+           phase's step-350 checkpoint (the 40 poses of its video split at
+           200x200, rgb, 16-bit depth and Turbo frames).  Launches counted
+           per run as in the driver phase.  Checks the JAX drivers' frame
+           names and counts, a decoded frame against the returned array,
+           one ``--eval_det`` path frame on the card against every 8th
+           pixel on the CPU (``REFERENCE_TOL``); logs s per frame at each
+           size.
+14. mesh   ``plnerf_torch.cli.extract_mesh.main`` on the driver phase's
+           step-400 checkpoint at ``--mesh_res 512`` (134,217,728 points in
+           64^3-point queries through the fp32 kernel, folded heads, zero
+           view directions), the bbox from the unit-sphere ``.obj`` the
+           phase writes (+-0.25), ``--adaptive_iso`` over threshold 10.
+           Holds the grid through the kernel against its plain version on
+           the card at 128^3 and at 160^3 in queries above ``FWD_CHUNK``
+           (1e-4 x max(1, max sigma)), the card against the CPU at 32^3,
+           native against numpy marching cubes on a 48^3 block of the
+           512^3 grid the surface crosses (faces equal, verts 1e-6), the
+           PLY read back, verts inside the bbox, a non-empty raw and
+           cleaned mesh; logs the grid's s, points/s beside the bound, the
+           kernel's launches and device ms (one profiled grid), the weight
+           pack's share, marching-cubes / filter / PLY s, verts and faces
+           before and after the filter, and peak device memory.
+
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without CUDA, without the repository beside it, or on any failure.
 ``--only bwd,train`` (or ``--only depth``, ``--only occ``) runs the build
-and the named phases alone and prints no result lines.
+and the named phases alone, in the order above, and prints no result
+lines; ``video`` runs the driver and depth phases first, ``mesh`` the
+driver phase (their checkpoints).
 """
 from __future__ import annotations
 
@@ -259,6 +290,24 @@ OCC_REPEAT = DRIVER_TRAIN + [
     "--i_print", "10", "--i_img", "1000000", "--i_weights",
     str(OCC_REPEAT_STEPS), "--occ_warmup", str(OCC_REPEAT_WARMUP),
     "--num_iterations", str(OCC_REPEAT_STEPS)]
+# the video phase: the driver phase's step-400 checkpoint renders the 40
+# hemisphere poses at render factor 4 (100x100), the test views at 400x400
+# (--render_only --render_test), and a copy of its run continues 20 steps
+# with --i_video 10 (firing once, at 410); the depth phase's step-350
+# checkpoint renders the 40 poses of its video split at 200x200
+VIDEO_FRAMES, VIDEO_FACTOR, VIDEO_CONT_STEPS, VIDEO_EVERY = 40, 4, 20, 10
+# the mesh phase: the reference's 512^3 grid in 64^3-point queries over the
+# GT sphere's bbox (+-0.25); native marching cubes held against numpy on a
+# 48^3 block of it
+MESH_RES, MESH_CHUNK, MESH_THRESHOLD, MESH_BLOCK = 512, 64 ** 3, 10.0, 48
+# the grid through the kernel held against its plain version on the card
+# at (resolution, query chunk): 128^3 in the CLI's queries, and 160^3 in
+# queries of 3 x 2^20 points, above the fp32 kernel's FWD_CHUNK (2^21), so
+# one call runs its ragged two-chunk schedule; the card against the CPU at
+# 32^3
+MESH_HOLDS = {"kernel_vs_plain_128": (128, MESH_CHUNK),
+              "kernel_vs_plain_160_big": (160, 3 << 20)}
+MESH_CPU_RES = 32
 # pred_hyp, a depth along the ray, at the depth maps' tolerance
 HYP_TOL = dict(REFERENCE_TOL, pred_hyp=1e-2)
 PROBE_REPLACES = {"shape": "tools/dot_decompose.py:89",     # make_shape_kernel
@@ -1181,9 +1230,11 @@ def _records(exp: str, key: str) -> dict:
         return {r["step"]: r for r in map(json.loads, f) if key in r}
 
 
-def _driver_view(argv, state, stride: int = 8, hyp: bool = False) -> dict:
-    """One test view of ``state`` through the driver's eval configs with
-    ``--eval_det``: rendered whole on the card (the kernel on), and at
+def _driver_view(argv, state, stride: int = 8, hyp: bool = False,
+                 frame=None) -> dict:
+    """One test view of ``state`` (with ``frame``, that frame of the
+    camera path at ``--render_factor``) through the driver's eval configs
+    with ``--eval_det``: rendered whole on the card (the kernel on), and at
     every ``stride``-th pixel of each axis on the CPU with the same weights
     (the kernel's plain version); the two held to ``REFERENCE_TOL`` (with
     ``hyp``, ``pred_hyp`` too, at ``HYP_TOL``).  NDC rays for LLFF."""
@@ -1207,19 +1258,25 @@ def _driver_view(argv, state, stride: int = 8, hyp: bool = False) -> dict:
     tol = HYP_TOL if hyp else REFERENCE_TOL
     bundle = load_dataset(args)
     data, vi = bundle.data, int(bundle.i_test[0])
+    pose, factor = data.poses[vi], 0
+    if frame is not None:
+        pose, factor = data.render_poses[frame], args.render_factor
     t = time.perf_counter()
     card = EI.render_image(state.params_coarse, state.params_fine,
-                           data.poses[vi], data.hwf, data.K, mcfg, rcfg,
+                           pose, data.hwf, data.K, mcfg, rcfg,
                            near=bundle.near, far=bundle.far,
                            chunk=args.chunk, ndc=bundle.ndc,
-                           mcfg_fine=setup.mcfg_fine, keep_hyp=hyp)
+                           mcfg_fine=setup.mcfg_fine, keep_hyp=hyp,
+                           render_factor=factor)
     card_s = time.perf_counter() - t
     H, W = card["rgb_map"].shape[:2]
-    c2w = torch.as_tensor(np.asarray(data.poses[vi], np.float32)[:3, :4])
-    ro, rd = raysmod.get_rays(H, W, np.asarray(data.K), c2w)
+    focal = float(data.hwf[2]) / (factor or 1)
+    K = (np.asarray(data.K) if not factor else np.array(
+        [[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]], np.float32))
+    c2w = torch.as_tensor(np.asarray(pose, np.float32)[:3, :4])
+    ro, rd = raysmod.get_rays(H, W, K, c2w)
     packed, _ = make_ray_batch(ro, rd, bundle.near, bundle.far,
-                               rcfg.use_viewdirs, bundle.ndc, H, W,
-                               float(data.hwf[2]))
+                               rcfg.use_viewdirs, bundle.ndc, H, W, focal)
     rays = packed.reshape(H, W, -1)[::stride, ::stride]
     t = time.perf_counter()
     cpu = EI.render_chunks(
@@ -1231,14 +1288,17 @@ def _driver_view(argv, state, stride: int = 8, hyp: bool = False) -> dict:
     n = rays.shape[0] * rays.shape[1]
     cpu = {k: v.numpy().reshape(n, -1) for k, v in cpu.items()}
     sub = {k: card[k][::stride, ::stride].reshape(n, -1) for k in tol}
-    gt = np.asarray(data.images[vi])
-    return {"view": vi, "card_pixels": H * W, "cpu_pixels": n,
-            "max_abs_err": _card_vs_cpu(sub, cpu, tol), "tolerance": tol,
-            "psnr_card": Mx.mse2psnr(float(np.mean(
-                (card["rgb_map"] - gt) ** 2))),
-            "psnr0_card": Mx.mse2psnr(float(np.mean(
-                (card["rgb0"] - gt) ** 2))),
-            "card_s": card_s, "cpu_s": cpu_s}
+    out = {"view": vi if frame is None else f"render_poses[{frame}]",
+           "card_pixels": H * W, "cpu_pixels": n,
+           "max_abs_err": _card_vs_cpu(sub, cpu, tol), "tolerance": tol,
+           "card_s": card_s, "cpu_s": cpu_s}
+    if frame is None:
+        gt = np.asarray(data.images[vi])
+        out["psnr_card"] = Mx.mse2psnr(float(np.mean(
+            (card["rgb_map"] - gt) ** 2)))
+        out["psnr0_card"] = Mx.mse2psnr(float(np.mean(
+            (card["rgb0"] - gt) ** 2)))
+    return out
 
 
 def _driver_runs(entry=None):
@@ -1311,9 +1371,11 @@ def sphere_data(scenes: str) -> tuple:
     return scenes, time.perf_counter() - t0
 
 
-def phase_driver(dev, bare_step_ms=None, scenes=None):
+def phase_driver(dev, bare_step_ms=None, scenes=None, keep=None):
     """Returns (forward launches, backward launches) of the driver's runs.
-    ``scenes``: where the sphere scene is or goes (``sphere_data``)."""
+    ``scenes``: where the sphere scene is or goes (``sphere_data``);
+    ``keep``: a directory for the runs' checkpoints (``keep/ckpt/smoke``,
+    left for the video and mesh phases), else a temporary one."""
     import shutil
     import tempfile
 
@@ -1322,7 +1384,7 @@ def phase_driver(dev, bare_step_ms=None, scenes=None):
     from plnerf_torch.data.synthetic import write_fixed_dist_scene
 
     t_phase = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="plnerf_driver_")
+    root = keep or tempfile.mkdtemp(prefix="plnerf_driver_")
     try:
         ckpt = os.path.join(root, "ckpt")
         data, scene_s = sphere_data(scenes or os.path.join(root, "data"))
@@ -1445,7 +1507,8 @@ def phase_driver(dev, bare_step_ms=None, scenes=None):
                  "over its images")
         return fwd, bwd
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if keep is None:
+            shutil.rmtree(root, ignore_errors=True)
 
 
 def phase_llff(dev):
@@ -1761,8 +1824,11 @@ def _depth_occ_run(run, expect, train, ckpt, runs, launches) -> None:
         run_s=runs[name], launches=launches[name])
 
 
-def phase_depth(dev):
-    """Returns (forward launches, backward launches) of the depth runs."""
+def phase_depth(dev, keep=None):
+    """Returns (forward launches, backward launches) of the depth runs.
+    ``keep``: a directory for the scene and the checkpoints
+    (``keep/data/mobj``, ``keep/ckpt/depth``, left for the video phase),
+    else a temporary one."""
     import functools
     import shutil
     import tempfile
@@ -1774,7 +1840,7 @@ def phase_depth(dev):
     from plnerf_torch.train import camera_opt
 
     t_phase = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="plnerf_depth_")
+    root = keep or tempfile.mkdtemp(prefix="plnerf_depth_")
     try:
         data_dir, ckpt = (os.path.join(root, "data"),
                           os.path.join(root, "ckpt"))
@@ -1944,7 +2010,8 @@ def phase_depth(dev):
         bwd = sum(v["fused_mlp_bwd"] for v in launches.values())
         return fwd, bwd
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if keep is None:
+            shutil.rmtree(root, ignore_errors=True)
 
 
 def _leaves(tree, prefix: str = ""):
@@ -2358,8 +2425,350 @@ def phase_occ(dev, scenes=None):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _frame_names(n: int) -> list:
+    """The JAX drivers' frame files of an n-frame path: ``render_path``'s
+    ``{i:03d}.png`` and ``write_video``'s PNG fallback ``video/{i:03d}.png``
+    (imageio without ffmpeg, ``plnerf/eval/images.py:459-473``)."""
+    return sorted([f"{i:03d}.png" for i in range(n)]
+                  + [f"video/{i:03d}.png" for i in range(n)])
+
+
+def _tree(root: str) -> list:
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def phase_video(dev, work):
+    """Returns (forward launches, backward launches) of the video runs
+    (the backward's from the continuation's steps).  ``work``: the
+    directories of the driver phase (``driver``), its scenes (``scenes``)
+    and the depth phase (``depth``), each holding its checkpoints."""
+    import shutil
+
+    from plnerf_torch.cli import config, run_depth, run_plnerf
+    from plnerf_torch.data.png import read_png
+    from plnerf_torch.eval import images as EI
+    from plnerf_torch.utils.misc import to8b
+
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(work["driver"], "ckpt")
+    where = ["--ckpt_dir", ckpt, "--expname", "smoke", "--data_dir",
+             work["scenes"], "--scene_id", "sphere", "--white_bkgd"]
+    config_txt = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "configs", "blender_linear.txt")
+    train = ["--config", config_txt, "--task", "train"] + where \
+        + DRIVER_TRAIN
+    run, expect, launches, runs = _driver_runs()
+    small = DRIVER_SIZE // VIDEO_FACTOR
+    per_frame, other = {}, {}
+
+    def frames(name, argv, folder, n, size, runner=run):
+        """``runner(name, argv)`` with every frame's render timed; checks
+        the frame files of ``folder`` and that a decoded frame equals the
+        returned array; returns the frames."""
+        with _Recording(EI, "render_image") as rec:
+            rgbs = runner(name, argv)
+        names = _tree(folder)
+        extra = [f for f in names if f not in _frame_names(n)]
+        if (len(rec.calls) != n or rgbs.shape != (n, size, size, 3)
+                or sorted(set(names) - set(extra)) != _frame_names(n)):
+            raise AssertionError(f"video {name}: {len(rec.calls)} frames, "
+                                 f"{rgbs.shape}, files {names[:4]}...")
+        last = read_png(os.path.join(folder, f"{n - 1:03d}.png"))
+        if not (np.array_equal(last, to8b(rgbs[-1]))
+                and np.isfinite(rgbs).all()):
+            raise AssertionError(f"video {name}: frame {n - 1} on disk")
+        s = [t for t, _ in rec.calls]
+        per_frame[name] = {"frames": n, "size": size,
+                           "s_per_frame": statistics.median(s),
+                           "s_per_frame_mean": sum(s) / n,
+                           "other_files": len(extra)}
+        other[name] = sorted(extra)
+        return rgbs
+
+    exp = os.path.join(ckpt, "smoke")
+    n_path = VIDEO_FRAMES
+    # 1. the hemisphere path at render factor 4 (100x100)
+    frames("video", ["--task", "video", "--render_factor",
+                     str(VIDEO_FACTOR)] + where,
+           os.path.join(exp, f"renderonly_path_{DRIVER_RESUME_STEPS:06d}"),
+           n_path, small)
+    expect("video", 2 * n_path * -(-small * small // R_CHUNK), 0)
+    # 2. --render_only --render_test: the test views at 400x400
+    n_test = DRIVER_VIEWS["test"]
+    frames("render_only", train + ["--render_only", "--render_test"],
+           os.path.join(exp, f"renderonly_test_{DRIVER_RESUME_STEPS:06d}"),
+           n_test, DRIVER_SIZE)
+    eval_chunks = -(-DRIVER_SIZE * DRIVER_SIZE // R_CHUNK)
+    expect("render_only", 2 * n_test * eval_chunks, 0)
+    # 3. a continuation of a copy of the run, whose --i_video fires once
+    cont = os.path.join(ckpt, "smoke_video")
+    shutil.copytree(exp, cont, ignore=shutil.ignore_patterns(
+        "test_images*", "renderonly*", "val"))
+    end = DRIVER_RESUME_STEPS + VIDEO_CONT_STEPS
+    fire = DRIVER_RESUME_STEPS + VIDEO_EVERY
+    state = run("i_video", train + [
+        "--expname", "smoke_video", "--num_iterations", str(end),
+        "--i_video", str(VIDEO_EVERY), "--render_factor",
+        str(VIDEO_FACTOR)])
+    expect("i_video", 2 * VIDEO_CONT_STEPS
+           + 2 * n_path * -(-small * small // R_CHUNK),
+           2 * VIDEO_CONT_STEPS)
+    fired = sorted(d for d in os.listdir(cont) if d.startswith("renderonly"))
+    if state.step != end or fired != [f"renderonly_path_{fire:06d}"] or \
+            _tree(os.path.join(cont, fired[0])) != _frame_names(n_path):
+        raise AssertionError(f"--i_video: step {state.step}, {fired}")
+    # 4. the depth driver's video: the 40 poses of the video split
+    depth = work["depth"]
+    dwhere = ["--ckpt_dir", os.path.join(depth, "ckpt"), "--expname",
+              "depth", "--data_dir", os.path.join(depth, "data"),
+              "--scene_id", "mobj", "--dataset", "blender2_depth",
+              "--set_near_plane", "2.0", "--white_bkgd"]
+    drun, dexpect, dlaunches, druns = _driver_runs(run_depth.main)
+    dfolder = os.path.join(depth, "ckpt", "depth", "video")
+    frames("depth_video", ["video"] + dwhere, dfolder, n_path, DEPTH_SIZE,
+           runner=drun)
+    runs.update(druns)
+    launches.update(dlaunches)
+    dexpect("depth_video", 2 * n_path * -(-DEPTH_SIZE * DEPTH_SIZE
+                                          // R_CHUNK), 0)
+    depth_files = other["depth_video"]
+    want = sorted([f"depth_{i:03d}.png" for i in range(n_path)]
+                  + [f"depthcolor_{i:03d}.png" for i in range(n_path)])
+    d0 = read_png(os.path.join(dfolder, "depth_000.png"))
+    c0 = read_png(os.path.join(dfolder, "depthcolor_000.png"))
+    if depth_files != want or d0.dtype != np.uint16 or c0.shape != (
+            DEPTH_SIZE, DEPTH_SIZE, 3):
+        raise AssertionError(f"depth video files {depth_files[:4]}...")
+    if other["video"] or other["render_only"]:
+        raise AssertionError(f"video: other files {other}")
+
+    # the card's --eval_det frame against the CPU's every 8th pixel
+    args = config.resolve_args(config.config_parser().parse_args(
+        ["--task", "video"] + where))
+    _, _, setup = run_plnerf.build_configs(args)
+    state400, *_ = run_plnerf._state_for_eval(args, setup)
+    view = _driver_view(["--task", "video", "--render_factor",
+                         str(VIDEO_FACTOR)] + where, state400, frame=0)
+    log("video", card=card_line(), frames=per_frame,
+        i_video={"steps": [DRIVER_RESUME_STEPS + 1, end], "fired": fire},
+        view_check=view, launches=launches, run_s=runs,
+        phase_s=time.perf_counter() - t_phase,
+        note="s_per_frame: the median render_image call of each run "
+             "(render and host copy; the PNG writes are outside it); "
+             "run_s: the entry point's wall time (scene and checkpoint "
+             "load, frames, PNGs)")
+    return (sum(v["fused_mlp_fwd"] for v in launches.values()),
+            sum(v["fused_mlp_bwd"] for v in launches.values()))
+
+
+def _write_sphere_obj(path: str, n_lat: int = 16, n_lon: int = 32) -> None:
+    """A latitude-longitude unit sphere as an .obj (the GT mesh whose bbox,
+    +-0.25, bounds the grid): poles and the equator reach +-1 on every
+    axis."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    lines = ["v 0 0 1"]
+    for i in range(1, n_lat):
+        th = np.pi * i / n_lat
+        for j in range(n_lon):
+            ph = 2 * np.pi * j / n_lon
+            lines.append(f"v {np.sin(th) * np.cos(ph):.6f} "
+                         f"{np.sin(th) * np.sin(ph):.6f} {np.cos(th):.6f}")
+    lines.append("v 0 0 -1")
+    last = 1 + (n_lat - 1) * n_lon          # 1-based index of the -z pole
+
+    def ring(i, j):
+        return 2 + (i - 1) * n_lon + j % n_lon
+
+    for j in range(n_lon):
+        lines.append(f"f 1 {ring(1, j)} {ring(1, j + 1)}")
+        lines.append(f"f {last + 1} {ring(n_lat - 1, j + 1)} "
+                     f"{ring(n_lat - 1, j)}")
+        for i in range(1, n_lat - 1):
+            a, b = ring(i, j), ring(i, j + 1)
+            c, d = ring(i + 1, j), ring(i + 1, j + 1)
+            lines += [f"f {a} {c} {d}", f"f {a} {d} {b}"]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def _grid_hold(net, cfg, box, res, chunk, tol_scale, errs, key) -> None:
+    """The grid through the fp32 kernel against its plain version
+    (``forward_plain`` on the same packed weights and inputs) on the card;
+    raises past ``tol_scale`` x max(1, max sigma)."""
+    from plnerf_torch.kernels import fused_mlp
+    from plnerf_torch.mesh import extract as MX
+
+    got = MX.extract_density_grid(net, cfg, *box, res, chunk, True)
+    forward = fused_mlp.forward
+    fused_mlp.forward = fused_mlp.forward_plain
+    try:
+        ref = MX.extract_density_grid(net, cfg, *box, res, chunk, True)
+    finally:
+        fused_mlp.forward = forward
+    err = float(np.abs(got - ref).max())
+    scale = max(1.0, float(ref.max()))
+    errs[key] = {"max_abs_err": err, "max_sigma": float(ref.max()),
+                 "points": res ** 3, "chunk": chunk}
+    if not (np.isfinite(got).all() and err <= tol_scale * scale):
+        raise AssertionError(f"grid {key}: max abs err {err} (max sigma "
+                             f"{scale}) over {tol_scale}")
+
+
+def phase_mesh(dev, work):
+    """Returns the forward launches of the mesh extraction.  ``work`` as in
+    ``phase_video``."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from plnerf_torch.cli import config, extract_mesh, run_plnerf
+    from plnerf_torch.kernels import fused_mlp
+    from plnerf_torch.mesh import extract as MX
+    from plnerf_torch.mesh import marching_cubes as MC
+
+    t_phase = time.perf_counter()
+    data = work["scenes"]
+    ckpt = os.path.join(work["driver"], "ckpt")
+    _write_sphere_obj(os.path.join(data, "nerf_meshes_reoriented",
+                                   "sphere.obj"))
+    out_dir = os.path.join(work["driver"], "meshes")
+    argv = ["--ckpt_dir", ckpt, "--expname", "smoke", "--data_dir", data,
+            "--scene_id", "sphere", "--mesh_res", str(MESH_RES),
+            "--mesh_threshold", str(MESH_THRESHOLD), "--adaptive_iso",
+            "--mesh_chunk", str(MESH_CHUNK), "--mesh_outdir", out_dir]
+    run, expect, launches, runs = _driver_runs(extract_mesh.main)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _Recording(MX, "extract_density_grid") as grid_rec, \
+            _Recording(MX, "marching_cubes") as mc_rec, \
+            _Recording(MX, "filter_connected_components") as fc_rec, \
+            _Recording(MX, "export_ply") as ply_rec:
+        path = run("mesh", argv)
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_chunks = -(-MESH_RES ** 3 // MESH_CHUNK)
+    expect("mesh", n_chunks, 0)
+    grid_s, grid = grid_rec.calls[0]
+    mc_s, (raw_v, raw_f) = mc_rec.calls[0]
+    fc_s, (clean_v, clean_f) = fc_rec.calls[0]
+    ply_s = ply_rec.calls[0][0]
+    want = (f"sphere_linear_res{MESH_RES}_thresh{MESH_THRESHOLD:g}"
+            "_cleaned.ply")
+    if os.path.basename(path) != want or os.listdir(out_dir) != [want]:
+        raise AssertionError(f"mesh file {path}")
+    if grid.shape != (MESH_RES,) * 3 or not np.isfinite(grid).all():
+        raise AssertionError(f"grid {grid.shape}")
+    if raw_f.shape[0] == 0 or clean_f.shape[0] == 0:
+        raise AssertionError(f"empty mesh: raw {raw_f.shape}, cleaned "
+                             f"{clean_f.shape}")
+    iso = MX.extract_iso_level(grid, MESH_THRESHOLD)
+    t = time.perf_counter()
+    back_v, back_f = MX.load_ply(path)
+    load_s = time.perf_counter() - t
+    box = (np.full(3, -1.25, np.float32), np.full(3, 1.25, np.float32))
+    if not (np.array_equal(back_v, clean_v) and np.array_equal(back_f,
+                                                               clean_f)):
+        raise AssertionError("the PLY does not read back")
+    if not ((back_v >= box[0] - 1e-5).all() and (back_v <= box[1] + 1e-5)
+            .all()):
+        raise AssertionError(f"verts outside the bbox: {back_v.min(0)} "
+                             f"{back_v.max(0)}")
+
+    # native against numpy marching cubes on a 48^3 block the surface
+    # crosses (around the first raw vertex, in grid coordinates)
+    lo = np.clip(np.floor(raw_v[0]).astype(int) - MESH_BLOCK // 2, 0,
+                 MESH_RES - MESH_BLOCK)
+    block = grid[lo[0]:lo[0] + MESH_BLOCK, lo[1]:lo[1] + MESH_BLOCK,
+                 lo[2]:lo[2] + MESH_BLOCK]
+    t = time.perf_counter()
+    nv, nf = MC.marching_cubes_native(block, iso)
+    native_s = time.perf_counter() - t
+    t = time.perf_counter()
+    pv, pf = MC.marching_cubes_numpy(block, iso)
+    numpy_s = time.perf_counter() - t
+    mc_err = float(np.abs(nv - pv).max()) if nv.size else 0.0
+    if nf.shape[0] == 0 or not np.array_equal(nf, pf) or mc_err > 1e-6:
+        raise AssertionError(f"marching cubes on the block at {lo}: faces "
+                             f"{nf.shape} / {pf.shape}, verts {mc_err}")
+
+    # the grid through the kernel against its plain version on the card,
+    # and the card against the CPU
+    args = config.resolve_args(extract_mesh.config_parser().parse_args(
+        argv + ["--task", "mesh"]))
+    _, _, setup = run_plnerf.build_configs(args)
+    state, _, _ = run_plnerf.restore_or_init(args, setup, dev)
+    net, cfg = state.params_fine, state.params_fine.cfg
+    errs = {}
+    for key, (res, chunk) in MESH_HOLDS.items():
+        _grid_hold(net, cfg, box, res, chunk, TOLERANCE[torch.float32],
+                   errs, key)
+    if MESH_HOLDS["kernel_vs_plain_160_big"][1] <= fused_mlp.FWD_CHUNK:
+        raise AssertionError("the big-chunk hold is not above FWD_CHUNK")
+    card = MX.extract_density_grid(net, cfg, *box, MESH_CPU_RES, MESH_CHUNK,
+                                   True)
+    t = time.perf_counter()
+    cpu = MX.extract_density_grid(copy.deepcopy(net).to("cpu"), cfg, *box,
+                                  MESH_CPU_RES, MESH_CHUNK, True)
+    cpu_s = time.perf_counter() - t
+    err = float(np.abs(card - cpu).max())
+    errs[f"card_vs_cpu_{MESH_CPU_RES}"] = {"max_abs_err": err,
+                              "max_sigma": float(cpu.max()), "cpu_s": cpu_s}
+    if err > TOLERANCE[torch.float32] * max(1.0, float(cpu.max())):
+        raise AssertionError(f"grid card vs CPU: {err}")
+
+    # the 512^3 grid's device time, kernel launches apart, in one profiled
+    # call; one weight pack's time
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        MX.extract_density_grid(net, cfg, *box, MESH_RES, MESH_CHUNK, True)
+        torch.cuda.synchronize(dev)
+    dev_ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_ms = sum(e.time_range.elapsed_us() for e in dev_ev
+                    if "fp32_kernel" in e.name) / 1e3
+    device_ms = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+    pack_ms = cuda_ms(lambda: fused_mlp.pack_weights(
+        net, cfg, torch.float32, fold_heads=True,
+        vch=cfg.input_ch_views + cfg.input_ch_cam))
+    n = MESH_RES ** 3
+    flops = 2.0 * macs_per_point(cfg, fused_mlp.FOLDED) * n
+    bound_s = flops / PEAK_FLOPS[torch.float32]
+    log("mesh", card=card_line(), res=MESH_RES, chunk=MESH_CHUNK,
+        points=n, bbox=[box[0].tolist(), box[1].tolist()],
+        threshold=MESH_THRESHOLD, iso=iso, adaptive=True,
+        grid_max=float(grid.max()), grid_mean=float(grid.mean()),
+        grid_s=grid_s, points_per_s=n / grid_s, bound_s=bound_s,
+        bound_by="operations", bound_share=bound_s / grid_s,
+        kernel_device_ms=kernel_ms, device_ms=device_ms,
+        kernel_launches=launches["mesh"]["fused_mlp_fwd"],
+        pack_ms=pack_ms, pack_share=pack_ms / (1e3 * grid_s),
+        pack_share_if_per_call=n_chunks * pack_ms / (1e3 * grid_s),
+        marching_cubes_s=mc_s, filter_s=fc_s, ply_s=ply_s,
+        ply_load_s=load_s, raw={"verts": raw_v.shape[0],
+                                "faces": raw_f.shape[0]},
+        cleaned={"verts": clean_v.shape[0], "faces": clean_f.shape[0]},
+        block={"at": lo.tolist(), "size": MESH_BLOCK, "faces": nf.shape[0],
+               "native_s": native_s, "numpy_s": numpy_s,
+               "max_abs_err": mc_err},
+        grid_holds=errs, peak_device_bytes=peak, run_s=runs["mesh"],
+        phase_s=time.perf_counter() - t_phase,
+        note="iso: --adaptive_iso over threshold 10 (half the sphere's "
+             "density of 20), min(max(10, min + std), max - std) of the "
+             "grid, so a field whose density scale is not the scene's "
+             "still has a surface at it; grid_s: "
+             "extract_density_grid's wall time (points formed on the card, "
+             "the fp32 kernel, the grid copied to the host); "
+             "kernel_device_ms / device_ms: one profiled 512^3 grid; "
+             "pack_share: one weight pack over the grid (packed once), "
+             "_if_per_call: packed for each of its calls")
+    return launches["mesh"]["fused_mlp_fwd"]
+
+
 PHASES = ("kernel", "probes", "bwd", "slice", "reference", "train",
-          "train_reference", "driver", "llff", "depth", "occ")
+          "train_reference", "driver", "llff", "depth", "occ", "video",
+          "mesh")
+# the phases each phase reads the checkpoints of
+NEEDS = {"video": ("driver", "depth"), "mesh": ("driver",)}
 
 
 def main(argv=None) -> int:
@@ -2388,28 +2797,44 @@ def main(argv=None) -> int:
     try:
         dev = resolve_device(None)
         phase_env()
-        if only:
-            fns = dict(zip(PHASES, (
-                phase_kernel, phase_probes, phase_bwd_kernel, phase_slice,
-                phase_reference, phase_train, phase_train_reference,
-                phase_driver, phase_llff, phase_depth, phase_occ)))
-            for name in only:
-                fns[name](dev)
-            return 0
-        err, t = phase_kernel(dev)
-        probe_launches, probe_fwd, probe_entries = phase_probes(dev)
-        bwd_err, bwd_t = phase_bwd_kernel(dev)
-        launches = phase_slice(dev)
-        phase_reference(dev)
-        train_fwd, train_bwd, train_summary = phase_train(dev)
-        phase_train_reference(dev)
-        # the driver and occ phases share one sphere scene
-        with tempfile.TemporaryDirectory(prefix="plnerf_scenes_") as scenes:
+        # the driver and occ phases share one sphere scene; the video and
+        # mesh phases read the driver and depth phases' checkpoints
+        with tempfile.TemporaryDirectory(prefix="plnerf_work_") as tmp:
+            work = {k: os.path.join(tmp, k)
+                    for k in ("scenes", "driver", "depth")}
+            for d in work.values():
+                os.makedirs(d)
+            if only:
+                fns = dict(zip(PHASES, (
+                    phase_kernel, phase_probes, phase_bwd_kernel,
+                    phase_slice, phase_reference, phase_train,
+                    phase_train_reference,
+                    lambda d: phase_driver(d, None, work["scenes"],
+                                           work["driver"]),
+                    phase_llff, lambda d: phase_depth(d, work["depth"]),
+                    lambda d: phase_occ(d, work["scenes"]),
+                    lambda d: phase_video(d, work),
+                    lambda d: phase_mesh(d, work))))
+                need = set(only).union(*(NEEDS.get(n, ()) for n in only))
+                for name in PHASES:
+                    if name in need:
+                        fns[name](dev)
+                return 0
+            err, t = phase_kernel(dev)
+            probe_launches, probe_fwd, probe_entries = phase_probes(dev)
+            bwd_err, bwd_t = phase_bwd_kernel(dev)
+            launches = phase_slice(dev)
+            phase_reference(dev)
+            train_fwd, train_bwd, train_summary = phase_train(dev)
+            phase_train_reference(dev)
             driver_fwd, driver_bwd = phase_driver(
-                dev, train_summary["ms_per_step_fp32"], scenes)
-            occ_fwd, occ_bwd = phase_occ(dev, scenes)
-        llff_fwd, llff_bwd = phase_llff(dev)
-        depth_fwd, depth_bwd = phase_depth(dev)
+                dev, train_summary["ms_per_step_fp32"], work["scenes"],
+                work["driver"])
+            occ_fwd, occ_bwd = phase_occ(dev, work["scenes"])
+            llff_fwd, llff_bwd = phase_llff(dev)
+            depth_fwd, depth_bwd = phase_depth(dev, work["depth"])
+            video_fwd, video_bwd = phase_video(dev, work)
+            mesh_fwd = phase_mesh(dev, work)
     except Exception:
         traceback.print_exc()
         return 1
@@ -2417,7 +2842,8 @@ def main(argv=None) -> int:
             or min(probe_launches.values()) < 1 or driver_fwd < 1
             or driver_bwd < 1 or llff_fwd < 1 or llff_bwd < 1
             or depth_fwd < 1 or depth_bwd < 1 or occ_fwd < 1
-            or occ_bwd < 1):
+            or occ_bwd < 1 or video_fwd < 1 or video_bwd < 1
+            or mesh_fwd < 1):
         print("chip_smoke: a main path launched no kernel", file=sys.stderr)
         return 1
     # the training path runs folded heads in fp32
@@ -2427,7 +2853,8 @@ def main(argv=None) -> int:
         "source": "plnerf_torch/kernels/csrc/fused_mlp_fwd.cu",
         "replaces": KERNEL_REPLACES,
         "launches": (launches + train_fwd + probe_fwd + driver_fwd
-                     + llff_fwd + depth_fwd + occ_fwd),
+                     + llff_fwd + depth_fwd + occ_fwd + video_fwd
+                     + mesh_fwd),
         "max_abs_err": err, "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]}, {
@@ -2435,7 +2862,7 @@ def main(argv=None) -> int:
         "source": "plnerf_torch/kernels/csrc/fused_mlp_bwd.cu",
         "replaces": BWD_REPLACES,
         "launches": (train_bwd + driver_bwd + llff_bwd + depth_bwd
-                     + occ_bwd),
+                     + occ_bwd + video_bwd),
         "max_abs_err": bwd_err, "ms": bt["kernel_ms"],
         "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"],
         "bound_by": bt["bound_by"], "library_ms": bt["library_ms"]}]

@@ -3,7 +3,7 @@
 run_nerf_sample_based_depth.py``):
 
     python -m plnerf_torch.cli.run_depth {train,test,test_opt,
-        test_samples_error} --dataset blender2_depth [--device cpu] ...
+        test_samples_error,video} --dataset blender2_depth [--device cpu] ...
 
 Differences from the NVS driver, all the reference's:
 
@@ -24,8 +24,10 @@ Tasks: ``train``; ``test`` and ``test_opt`` (held-out views with PSNR /
 SSIM / depth RMSE; with camera channels, ``test_opt`` or a model trained
 with ``--opt_ch_cam`` first fits each view's embedding,
 ``train/camera_opt.py``); ``test_samples_error`` (the importance-sampling
-error over the valid-depth pixels).  Result folders are named as the JAX
-driver names them.  Datasets: blender2_depth, blender_depth.
+error over the valid-depth pixels); ``video`` (the 40 hemisphere poses of
+the ``video`` split, rgb and depth frames as PNGs in ``video/``).  Result
+folders are named as the JAX driver names them.  Datasets:
+blender2_depth, blender_depth.
 
 ``--occ_grid``: grid-guided coarse samples, the grid updated by each
 step and checkpointed as a ``.occ`` sidecar, as in ``run_plnerf``; here
@@ -36,10 +38,10 @@ without the grid (uniform samples), as in the JAX driver.
 Runs on the CUDA device unless ``--device cpu`` is given, and raises where
 there is none.  ``--use_kernel`` (for ``--use_pallas``) is AUTO, on
 whenever the device is CUDA, as in ``run_plnerf``.  Refused with
-``SystemExit`` naming their ROADMAP item: the ``video`` task (A8),
-``--lpips_weights`` (A14), more than one CUDA device without
-``--no_mesh`` (A15), and ``--steps_per_dispatch`` above 1 (the port runs
-one step per loop iteration).
+``SystemExit`` naming their ROADMAP item: ``--lpips_weights`` (A14),
+more than one CUDA device without ``--no_mesh`` (A15), and
+``--steps_per_dispatch`` above 1 (the port runs one step per loop
+iteration).
 
 Randomness: each step's image is ``np.random.default_rng(--random_seed)
 .choice(i_train)``, the sequence the JAX driver draws; its pixels and the
@@ -76,7 +78,7 @@ from .run_plnerf import (_occ_advisory, _resolve_kernel, eval_render_config,
                          occ_cfg_from_args, occ_for_eval, occ_train_grid,
                          save_checkpoint)
 
-TASKS = ("train", "test", "test_opt", "test_samples_error")
+TASKS = ("train", "test", "test_opt", "test_samples_error", "video")
 
 
 def config_parser() -> ConfigArgumentParser:
@@ -86,7 +88,7 @@ def config_parser() -> ConfigArgumentParser:
     p = ConfigArgumentParser()
     a = p.add_argument
     a("task", type=str, nargs="?", default="train",
-      help="train | test | test_opt | test_samples_error")
+      help="train | test | test_opt | test_samples_error | video")
     a("--config", type=str, default=None)
     a("--expname", type=str, default=None)
     a("--dataset", type=str, default="blender2_depth")
@@ -400,10 +402,27 @@ def run_test(args, data, setup: TrainSetup, mcfg: ModelConfig, test_rcfg,
     return mm
 
 
+def run_video(args, data, setup: TrainSetup, mcfg: ModelConfig, test_rcfg,
+              state, occ_grid) -> np.ndarray:
+    """The ``video`` split's poses (the test views where the scene has
+    none) with pixel-centre rays and no camera embedding, into
+    ``video/``: ``{i:03d}.png``, ``write_video``'s ``video/{i:03d}.png``,
+    and the 16-bit and Turbo depth frames of ``write_depth_video_frames``
+    (reference render_video, :283-300).  Returns the rgbs."""
+    i_video = (np.asarray(data.i_split[3]) if len(data.i_split) > 3
+               else np.asarray(data.i_split[2]))
+    savedir = os.path.join(exp_dir(args), "video")
+    rgbs, _, depths = EI.render_path(
+        state.params_coarse, state.params_fine,
+        np.asarray(data.poses)[i_video], data.hwf, data.K, mcfg, test_rcfg,
+        near=data.near, far=data.far, chunk=args.chunk, savedir=savedir,
+        pixel_center=True, mcfg_fine=setup.mcfg_fine, occ_grid=occ_grid)
+    EI.write_video(os.path.join(savedir, "video.mp4"), rgbs, fps=10)
+    EI.write_depth_video_frames(savedir, depths, far=data.far)
+    return rgbs
+
+
 def _refuse_unported(args) -> None:
-    if args.task == "video":
-        raise SystemExit("--task video: videos are not ported yet "
-                         "(ROADMAP A8)")
     if args.lpips_weights:
         raise SystemExit("--lpips_weights: LPIPS is not ported yet "
                          "(ROADMAP A14)")
@@ -421,8 +440,8 @@ def _refuse_unported(args) -> None:
 
 
 def run(args):
-    """Run ``args.task``; returns the final ``TrainState`` (train) or the
-    metrics' ``MeanTracker`` (the eval tasks)."""
+    """Run ``args.task``; returns the final ``TrainState`` (train), the
+    metrics' ``MeanTracker`` (the eval tasks) or the frames (video)."""
     _refuse_unported(args)
     if args.task != "train":
         # eval-time sample-budget override; mutating args keeps rcfg and
@@ -454,6 +473,8 @@ def run(args):
             valid_mask_from_dataset=True,
             metrics_filename="metrics_depth_samples.txt",
             mcfg_fine=setup.mcfg_fine, occ_grid=occ_grid)
+    if args.task == "video":
+        return run_video(args, data, setup, mcfg, test_rcfg, state, occ_grid)
     return run_test(args, data, setup, mcfg, test_rcfg, state, occ_grid)
 
 

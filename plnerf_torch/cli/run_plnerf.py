@@ -1,8 +1,10 @@
 """PL-NeRF driver (port of ``plnerf/cli/run_plnerf.py``, the reference
 ``run_plnerf.py`` CLI):
 
-    python -m plnerf_torch.cli.run_plnerf --config configs/blender_linear.txt \\
-        --task train|test|test_fixed_dist|test_samples_error [--device cpu] ...
+    python -m plnerf_torch.cli.run_plnerf \\
+        --config configs/blender_linear.txt \\
+        --task train|test|test_fixed_dist|test_samples_error|video \\
+        [--render_only] [--device cpu] ...
 
 * ``train``: two-Adam NVS training with the constant-quadrature warm-up,
   the precrop, both ray-batching policies (one image per step, or the
@@ -14,6 +16,11 @@
   ``FIXED_DIST_NEAR``, one ``test_images_dist{d}_{scene_id}`` folder each.
 * ``test_samples_error``: the importance-sampling error of the held-out
   views, ``test_samples_error_{N_importance}/metrics_expecteddepth.txt``.
+* ``video`` and ``--render_only`` (whatever the task): the camera path
+  (``render_poses``, or the test views with ``--render_test``) at
+  ``--render_factor``, frames in ``renderonly_{path|test}_{step:06d}``;
+  ``--i_video`` renders it inside a training run.  The frames are PNGs
+  (``eval/images.write_video``): the port encodes no mp4.
 
 ``--occ_grid`` (``configs/blender_linear_occ.txt``): the coarse samples
 are placed by an occupancy grid (``core/occgrid.py``) that the train step
@@ -31,8 +38,7 @@ sidecars), unless ``--occ_keep_degenerate``.
 Datasets: llff, blender, blender2, blender_fixeddist, DTU, DTU2
 (``cli/datasets.py``).  Runs on the CUDA device unless ``--device cpu`` is
 given, and raises where there is none.  Not ported yet, each refused with
-``SystemExit`` naming its ROADMAP item: the ``video`` task,
-``--render_only`` and ``--i_video`` (A8), ``export_serving`` (A13),
+``SystemExit`` naming its ROADMAP item: ``export_serving`` (A13),
 ``--profile`` (A17), ``--lpips_weights`` (A14).
 
 Differences from the JAX driver:
@@ -302,22 +308,12 @@ def _dead_coarse_advisory(m: dict, step: int, warned: bool,
     return True
 
 
-def _refuse_training_videos(args, start: int) -> None:
-    """A video render inside the run (``i_video`` firing before its end)
-    needs the render_path task (ROADMAP A8)."""
-    first = (start // args.i_video + 1) * args.i_video
-    if first < args.num_iterations:
-        raise SystemExit(f"--i_video {args.i_video} fires at iter {first}: "
-                         "videos are not ported yet (ROADMAP A8)")
-
-
 def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
                  mcfg: ModelConfig, rcfg: RenderConfig):
     """The train loop; returns the final ``TrainState``."""
     device = resolve_device(args.device)
     data = bundle.data
     state, start, ckpt_path = restore_or_init(args, setup, device)
-    _refuse_training_videos(args, start)
     logger = MetricsLogger(exp_dir(args))
 
     use_batching = not args.no_batching
@@ -448,6 +444,11 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
             _oom_retry(lambda c: run_test(
                 args, bundle, mcfg, rcfg, state=state, suffix=f"_{i:06d}",
                 setup=setup, chunk=c, occ=(occ_cfg, occ_state)), ev_chunk)
+
+        if i % args.i_video == 0 and i < n_iters:
+            _oom_retry(lambda c: run_video(
+                args, bundle, mcfg, rcfg, setup, state=state, step=i,
+                chunk=c, occ=(occ_cfg, occ_state)), ev_chunk)
 
     save_checkpoint(args, state, occ_state)
     logger.close()
@@ -591,15 +592,40 @@ def run_test_samples_error(args, bundle, mcfg, rcfg, setup):
         occ_grid=occ_grid)
 
 
+def run_video(args, bundle, mcfg, rcfg, setup, state=None, step=None,
+              chunk=None, occ=(None, None)):
+    """Render the camera path (``render_poses``; with --render_test the
+    test views) into ``renderonly_{path|test}_{step:06d}``: the frames
+    ``{i:03d}.png`` and ``write_video``'s ``video/{i:03d}.png``.  Returns
+    the rgbs [N, H, W, 3].  Without ``state``, the checkpoint under
+    evaluation, its step and its grid; with it, ``step`` and ``occ`` =
+    (occ_cfg, grid)."""
+    if state is None:
+        state, *occ = _state_for_eval(args, setup)
+        step = state.step
+    occ_cfg, occ_grid = occ
+    data = bundle.data
+    poses = (np.asarray(data.poses)[bundle.i_test] if args.render_test
+             else np.asarray(data.render_poses))
+    savedir = os.path.join(exp_dir(args), "renderonly_{}_{:06d}".format(
+        "test" if args.render_test else "path", step))
+    rgbs, _, _ = EI.render_path(
+        state.params_coarse, state.params_fine, poses, data.hwf, data.K,
+        mcfg, eval_render_config(args, rcfg, occ_cfg), near=bundle.near,
+        far=bundle.far, chunk=chunk or args.chunk, savedir=savedir,
+        render_factor=args.render_factor, ndc=bundle.ndc,
+        mcfg_fine=setup.mcfg_fine, occ_grid=occ_grid)
+    EI.write_video(os.path.join(savedir, "video.mp4"), rgbs, fps=30)
+    print("Done rendering", savedir)
+    return rgbs
+
+
 # ---------------------------------------------------------------------------
 
-TASKS = ("train", "test", "test_fixed_dist", "test_samples_error")
+TASKS = ("train", "test", "test_fixed_dist", "test_samples_error", "video")
 
 
 def _refuse_unported(args) -> None:
-    if args.task == "video" or args.render_only:
-        raise SystemExit(f"--task {args.task} / --render_only: videos are "
-                         "not ported yet (ROADMAP A8)")
     if args.task == "export_serving":
         raise SystemExit("--task export_serving: not ported yet (ROADMAP "
                          "A13)")
@@ -619,8 +645,8 @@ def _refuse_unported(args) -> None:
 
 def run(args, vanilla: bool = False):
     """Run ``args.task``; returns the final ``TrainState`` (train), the
-    metrics' ``MeanTracker`` (test, test_samples_error) or {dist:
-    MeanTracker} (test_fixed_dist)."""
+    metrics' ``MeanTracker`` (test, test_samples_error), {dist:
+    MeanTracker} (test_fixed_dist) or the frames (video, --render_only)."""
     _refuse_unported(args)
     if args.task != "train":
         # eval-time sample-budget override; mutating args keeps rcfg and
@@ -633,6 +659,8 @@ def run(args, vanilla: bool = False):
     if args.task == "test_fixed_dist":
         return run_test_fixed_dist(args, mcfg, rcfg, setup)
     bundle = load_dataset(args)
+    if args.render_only or args.task == "video":
+        return run_video(args, bundle, mcfg, rcfg, setup)
     if args.task == "train":
         return run_training(args, bundle, setup, mcfg, rcfg)
     if args.task == "test_samples_error":

@@ -1,6 +1,7 @@
 """Full-image rendering, metric evaluation and result writers (port of
 ``render_image``, ``test_render_config``, ``render_images_with_metrics``,
-``test_images_samples`` and ``write_images_with_metrics`` from
+``test_images_samples``, ``write_images_with_metrics``, ``render_path``,
+``write_video`` and ``write_depth_video_frames`` from
 ``plnerf/eval/images.py``), single device.
 
 A Python loop over fixed-size ray chunks replaces the JAX package's
@@ -28,6 +29,7 @@ from ..data.png import write_png
 from ..device import make_generator, module_device
 from ..utils.misc import MeanTracker, to8b, to16b
 from . import metrics as M
+from .turbo import TURBO
 
 # keys returned to the host per pixel
 _IMAGE_KEYS = ("rgb_map", "disp_map", "acc_map", "depth_map", "rgb0", "depth0")
@@ -273,3 +275,69 @@ def write_images_with_metrics(images: Dict[str, np.ndarray],
     with open(os.path.join(result_dir, "metrics.txt"), "w") as f:
         mean_metrics.print(f)
     mean_metrics.print()
+
+
+def render_path(params_c: NeRF, params_f: Optional[NeRF], render_poses, hwf,
+                K, mcfg: ModelConfig, rcfg: RenderConfig, near: float,
+                far: float, chunk: int = 32768,
+                savedir: Optional[str] = None, render_factor: int = 0,
+                ndc: bool = False, verbose: bool = True,
+                pixel_center: bool = False,
+                mcfg_fine: Optional[ModelConfig] = None, occ_grid=None):
+    """Render a camera path; returns (rgbs [N, H, W, 3], disps [N, H, W],
+    depths [N, H, W]) and, with ``savedir``, writes frame ``i`` as
+    ``{i:03d}.png`` there (reference run_plnerf.py:178-216).  Frame ``i``
+    renders with ``seed=i``, the counterpart of the JAX package's
+    ``PRNGKey(i)``; the other arguments as in ``render_image``."""
+    rgbs, disps, depths = [], [], []
+    t = time.time()
+    for i, c2w in enumerate(np.asarray(render_poses)):
+        out = render_image(params_c, params_f, c2w, hwf, K, mcfg, rcfg,
+                           seed=i, near=near, far=far, chunk=chunk, ndc=ndc,
+                           render_factor=render_factor,
+                           pixel_center=pixel_center, mcfg_fine=mcfg_fine,
+                           occ_grid=occ_grid)
+        rgbs.append(out["rgb_map"])
+        disps.append(out["disp_map"])
+        depths.append(out["depth_map"])
+        if verbose:
+            print(f"frame {i}: {time.time() - t:.2f}s")
+            t = time.time()
+        if savedir is not None:
+            os.makedirs(savedir, exist_ok=True)
+            write_png(os.path.join(savedir, f"{i:03d}.png"), to8b(rgbs[-1]))
+    return np.stack(rgbs, 0), np.stack(disps, 0), np.stack(depths, 0)
+
+
+def write_video(path: str, frames: np.ndarray, fps: int = 30) -> bool:
+    """Write ``frames`` [N, H, W, 3] as ``{stem}/{i:03d}.png`` beside
+    ``path`` (its name less the extension) and return False.
+
+    A deliberate difference from the JAX package, which encodes an mp4
+    through imageio's ffmpeg backend and falls back to exactly these
+    frames, returning False, where that backend is missing
+    (``plnerf/eval/images.py:459-473``).  The port encodes no video: it
+    depends on neither imageio nor ffmpeg.  PNG frames carry no rate, so
+    ``fps``, the rate to encode them at, is printed with their folder."""
+    stem = os.path.splitext(path)[0]
+    os.makedirs(stem, exist_ok=True)
+    for i, fr in enumerate(frames):
+        write_png(os.path.join(stem, f"{i:03d}.png"), to8b(fr))
+    print(f"wrote {len(frames)} frames to {stem} (no video encoder; "
+          f"encode at {fps} fps)")
+    return False
+
+
+def write_depth_video_frames(savedir: str, depths: np.ndarray,
+                             far: float) -> None:
+    """Per frame ``i``: ``depth_{i:03d}.png``, 16-bit ``depth / far``, and
+    ``depthcolor_{i:03d}.png``, its 8-bit value through the Turbo colormap
+    (reference render_video, run_nerf_sample_based_depth.py:283-300).  The
+    JAX package writes cv2's BGR colormap with ``cv2.imwrite``, so its file
+    holds Turbo's RGB, as this one does."""
+    os.makedirs(savedir, exist_ok=True)
+    for i, d in enumerate(depths):
+        write_png(os.path.join(savedir, f"depth_{i:03d}.png"),
+                  to16b(d / far))
+        write_png(os.path.join(savedir, f"depthcolor_{i:03d}.png"),
+                  TURBO[to8b(d / far)])

@@ -308,7 +308,8 @@ def forward_chunked(p: PackedMLP, x: torch.Tensor, v: Optional[torch.Tensor],
     reading its points' rows of x and its own view rows of v."""
     out = []
     for r0, cn in fwd_chunks(x.shape[0], v_div):
-        vc = None if v is None else v[r0 // v_div:]
+        vc = (None if v is None
+              else v[r0 // v_div:-(-(r0 + cn) // v_div)])
         out.append(forward_plain(p, x[r0:r0 + cn], vc, v_div))
     return torch.cat(out) if out else forward_plain(p, x, v, v_div)
 

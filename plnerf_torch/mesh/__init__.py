@@ -1,0 +1,1 @@
+"""mesh modules of the PyTorch port (see the package docstring)."""

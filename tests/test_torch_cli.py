@@ -135,10 +135,8 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked(tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--task", "video"], "A8"), (["--render_only"], "A8"),
     (["--task", "export_serving"], "A13"),
     (["--profile", "3"], "A17"), (["--lpips_weights", "w.pt"], "A14"),
-    (["--i_video", "5", "--num_iterations", "12"], "A8"),
     (["--steps_per_dispatch", "4"], "steps_per_dispatch 4")])
 def test_unported_paths_are_refused(scene_dir, tmp_path, flags, item):
     data_dir, scene_id = scene_dir
@@ -154,16 +152,26 @@ def test_unported_paths_are_refused(scene_dir, tmp_path, flags, item):
     (["--i_video", "5", "--num_iterations", "12"], "--i_video 5")])
 def test_remaining_a8_paths_name_themselves(scene_dir, tmp_path, flags,
                                             name):
-    """The video paths, the rest of A8, are refused before anything is
-    written, by a message that names the path and its item."""
+    """The video paths (A8, ported) run on the CPU: each writes its frames
+    into the ``renderonly_path_{step:06d}`` folder the JAX driver names,
+    40 frames of the camera path and the ``video/`` copies; ``--i_video
+    5`` fires at steps 5 and 10 of a 12-step run.  Nothing is refused."""
     data_dir, scene_id = scene_dir
     args = TINY + CPU + ["--data_dir", data_dir, "--scene_id", scene_id,
-                         "--ckpt_dir", str(tmp_path), "--expname", "e"]
-    with pytest.raises(SystemExit) as exc:
-        run_plnerf.main(args + flags)
-    msg = str(exc.value)
-    assert name in msg and "ROADMAP A8" in msg and "video" in msg
-    assert not os.path.exists(tmp_path / "e" / "000012.ckpt")
+                         "--ckpt_dir", str(tmp_path), "--expname", "e",
+                         "--render_factor", "8"]
+    if name == "--task video":                 # it reads args.json
+        run_plnerf.main(args + ["--num_iterations", "0"])
+    run_plnerf.main(args + flags)
+    exp = tmp_path / "e"
+    folders = sorted(d for d in os.listdir(exp) if d.startswith("renderonly"))
+    steps = [5, 10] if name == "--i_video 5" else [0]
+    assert folders == [f"renderonly_path_{s:06d}" for s in steps], name
+    for d in folders:
+        frames = sorted(os.listdir(exp / d))
+        assert frames == [f"{i:03d}.png" for i in range(40)] + ["video"]
+        assert png.read_png(str(exp / d / "039.png")).shape == (4, 4, 3)
+        assert len(os.listdir(exp / d / "video")) == 40
 
 
 def test_llff_config_trains_resumes_and_tests(tmp_path):

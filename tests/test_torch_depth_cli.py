@@ -120,7 +120,6 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked(scene_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["video"], "ROADMAP A8"),
     (["test", "--lpips_weights", "w.pt"], "ROADMAP A14"),
     (["train", "--steps_per_dispatch", "4"], "steps_per_dispatch 4")])
 def test_unported_paths_are_refused(scene_dir, tmp_path, flags, item):

@@ -157,7 +157,10 @@ def test_port_imports_neither_jax_nor_plnerf():
             "plnerf_torch.data.llff", "plnerf_torch.data.dtu",
             "plnerf_torch.data.common", "plnerf_torch.data.png",
             "plnerf_torch.checkpoint.io", "plnerf_torch.eval.metrics",
-            "plnerf_torch.utils.logging"} <= set(mods)
+            "plnerf_torch.utils.logging", "plnerf_torch.mesh.extract",
+            "plnerf_torch.mesh.marching_cubes",
+            "plnerf_torch.cli.extract_mesh",
+            "plnerf_torch.eval.turbo"} <= set(mods)
     # JAX, the JAX package and its tools, and the image libraries the JAX
     # package reads and writes with (none is on the card's machine)
     banned = ("jax", "plnerf", "tools", "cv2", "imageio", "PIL")
