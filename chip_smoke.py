@@ -51,6 +51,17 @@ Phases, one line each, then the result line:
            The kernels' launch counters are set to 0 before and read after.
 6. ref     the card's render of 512 rays against the CPU render (the
            kernel's plain version) of the same weights.
+6a. export the serving artifact (``plnerf_torch.serving.export``) of the
+           slice phase's weights and render configs (perturb kept), fp32
+           and bf16, ``baked`` and ``args`` weights, each with a
+           whole-batch module for one 400x400 image: export and load
+           times, then ``ServingRenderer.load``'s three 32,768-ray
+           requests (seeds 0-2) and one 400x400 image, through the
+           whole-batch module and through the chunk module, held against
+           ``from_params`` on the same requests (``EXPORT_TOL``; equality
+           expected) and timed beside it.  The forward launch counter is
+           set to 0 before the artifacts' calls and read after; each path
+           must launch the kernel exactly as often as ``from_params``.
 7. train   the NVS training step of configs/blender_linear.txt at full
            width (two 8x256 MLPs, 128 + 64 samples, 1024 rays per step
            from one image, two Adams under the exponential decay, fused
@@ -63,6 +74,13 @@ Phases, one line each, then the result line:
            kernel twice (coarse, fine) and the loss must fall.  Then three
            more fp32 steps under torch.profiler: device time by kernel and
            the backward's share of it.
+7a. interop the train phase's final state written as a reference ``.tar``
+           (``checkpoint.convert_torch.save_reference_checkpoint``, the
+           fine Adam's moments in the reference's parameter order), read
+           back on the card by ``load_reference_checkpoint`` and by
+           ``checkpoint.io.restore_checkpoint`` into a fresh state (same
+           networks and moments); both render the same 512 rays (eval_det)
+           bit-equal to the state they came from.
 8. train_reference  three steps from the same weights on the same injected
            batch (256 rays, perturb off) on the card (kernels) and on the
            CPU (plain versions), and the card's first step with the
@@ -227,6 +245,11 @@ PROBE_ROWS = 8192 * 321            # the TPU probes' N
 # probe kernel vs plain version, scaled by max|ref|: fp32 sums only
 # (shape, independent) or a bf16 recast between dots (the rest)
 # the card's eval_det render against the CPU's on the same weights and rays
+# the artifact against from_params: equality expected (the same ATen ops
+# and kernels on the same inputs); this bounds what a rounding difference
+# in a traced op could give
+EXPORT_TOL = 1e-5
+EXPORT_HW = 400                    # the export phase's image
 REFERENCE_TOL = {"rgb_map": 1e-3, "acc_map": 1e-3, "depth_map": 1e-2,
                  "rgb0": 1e-3, "depth0": 1e-2}
 PROBE_TOLERANCE = {"sums": 1e-5, "recast": 2e-2}
@@ -840,6 +863,197 @@ def phase_reference(dev):
     log("reference", rays=512, max_abs_err=errs, tolerance=REFERENCE_TOL)
 
 
+def _max_diff(got: dict, ref: dict) -> dict:
+    """Max abs difference of every map, NaN where both are NaN counted as
+    equal (disparity's 0/0 on an empty ray)."""
+    out = {}
+    for k, r in ref.items():
+        d = np.abs(got[k].astype(np.float64) - r.astype(np.float64))
+        both = np.isnan(got[k]) & np.isnan(r)
+        out[k] = float(np.where(both, 0.0, d).max())
+    return out
+
+
+def _hold_maps(got: dict, ref: dict, what: str) -> dict:
+    """``got`` against ``ref`` within EXPORT_TOL (equality expected: the
+    same ATen ops and the same kernel on the same inputs); returns the max
+    differences."""
+    if set(got) != set(ref):
+        raise AssertionError(f"{what}: keys {sorted(got)} != {sorted(ref)}")
+    diff = _max_diff(got, ref)
+    for k, r in ref.items():
+        if not np.allclose(got[k], r, rtol=EXPORT_TOL, atol=EXPORT_TOL,
+                           equal_nan=True):
+            raise AssertionError(f"{what}: {k} differs by {diff[k]}")
+    return diff
+
+
+def phase_export(dev):
+    """The serving artifact of the slice phase's weights: exported and
+    loaded for fp32 and bf16, baked and args weights, each held against
+    ``from_params`` on three 32,768-ray requests (perturb kept, seeds 0-2)
+    and one 400x400 image, through the chunk module and the whole-batch
+    module.  Returns the forward launches of the artifacts' calls."""
+    from plnerf_torch.kernels import fused_mlp
+    from plnerf_torch.serving import export as SE
+    from plnerf_torch.serving.runtime import ServingRenderer
+
+    test, _, bf16 = _renderers(dev)
+    requests = [_blender_rays(dev, R_CHUNK, seed) for seed in range(3)]
+    c2w, K = _blender_camera(7)
+    f = K[0, 0] * EXPORT_HW / 800
+    hwf = (EXPORT_HW, EXPORT_HW, f)
+    c = EXPORT_HW / 2
+    K2 = np.array([[f, 0, c], [0, f, c], [0, 0, 1]], np.float32)
+
+    def run(srv, fused=True):
+        """The three requests, then the image, timed, with the forward
+        launches they made."""
+        saved = srv._fused
+        if not fused:
+            srv._fused = None
+        try:
+            outs, ms, before = [], [], fused_mlp.launches
+            for seed, rays in enumerate(requests):
+                t0 = time.perf_counter()
+                outs.append(srv.render_rays(rays, seed=seed))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            img = srv.render_image(c2w, hwf, K2, seed=0)
+            img_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            srv._fused = saved
+        return outs, ms, img, img_ms, fused_mlp.launches - before
+
+    refs = {}
+    for name, srv in (("float32", test), ("bfloat16", bf16)):
+        run(srv)                                   # warm
+        refs[name] = run(srv)
+        _check_maps(refs[name][0][0], R_CHUNK)
+
+    arts, rec = {}, {}
+    with tempfile.TemporaryDirectory(prefix="plnerf_serving_") as tmp:
+        for name, srv in (("float32", test), ("bfloat16", bf16)):
+            for mode in ("baked", "args"):
+                out = os.path.join(tmp, f"{name}_{mode}")
+                t0 = time.perf_counter()
+                man = SE.export_renderer(
+                    srv.params_c, srv.params_f, srv.mcfg, srv.rcfg, out,
+                    chunk=R_CHUNK, fused_n_rays=EXPORT_HW ** 2,
+                    weights_mode=mode)
+                export_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                arts[name, mode] = ServingRenderer.load(out, device=dev)
+                load_s = time.perf_counter() - t0
+                size = sum(os.path.getsize(os.path.join(out, x))
+                           for x in os.listdir(out))
+                rec[f"{name}_{mode}"] = {
+                    "export_s": export_s, "load_s": load_s,
+                    "artifact_mb": size / 2 ** 20,
+                    "draw_inputs": [d["name"] for d in man["draw_inputs"]]}
+        for art in arts.values():
+            run(art)                               # warm
+        torch.cuda.synchronize()
+
+        fused_mlp.launches = 0                     # main path starts here
+        got = {key: (run(art), run(art, fused=False))
+               for key, art in arts.items()}
+        launches = fused_mlp.launches              # main path ends here
+
+    for (name, mode), (whole, chunked) in got.items():
+        ref = refs[name]
+        r = rec[f"{name}_{mode}"]
+        # each path: 3 requests of one chunk and an image of 5 chunks, two
+        # passes each: from_params's count
+        for path, (outs, ms, img, img_ms, n) in (("whole_batch", whole),
+                                                 ("chunks", chunked)):
+            if n != ref[4] or n < 1:
+                raise AssertionError(f"{name} {mode} {path}: {n} forward "
+                                     f"launches, from_params {ref[4]}")
+            diffs = [_hold_maps(o, q, f"{name} {mode} request {i}")
+                     for i, (o, q) in enumerate(zip(outs, ref[0]))]
+            diffs.append(_hold_maps(img, ref[2], f"{name} {mode} image"))
+            r[path] = {"launches": n, "ms_per_request": ms,
+                       "image_ms": img_ms,
+                       "max_abs_diff": max(max(d.values()) for d in diffs)}
+        r["from_params"] = {"launches": ref[4], "ms_per_request": ref[1],
+                            "image_ms": ref[3]}
+    log("export", card=card_line(), rays_per_request=R_CHUNK,
+        image=f"{EXPORT_HW}x{EXPORT_HW}", tolerance=EXPORT_TOL, artifacts=rec,
+        launches=launches)
+    return launches
+
+
+def phase_interop(dev, state):
+    """The train phase's state through a reference ``.tar``: written by
+    ``save_reference_checkpoint`` (the fine Adam's moments in the
+    reference's order), read back on the card by
+    ``load_reference_checkpoint`` and by ``restore_checkpoint`` into a
+    fresh state, which must hold the same networks and moments and render
+    the same 512 rays bit for bit."""
+    from plnerf_torch.checkpoint import convert_torch
+    from plnerf_torch.checkpoint import io as ckio
+    from plnerf_torch.core.mlp import NeRF
+    from plnerf_torch.eval.images import test_render_config
+    from plnerf_torch.serving.runtime import ServingRenderer
+    from plnerf_torch.train.step import init_state
+
+    lin, _ = _train_setups()
+    sd = state.state_dict()
+    with tempfile.TemporaryDirectory(prefix="plnerf_tar_") as tmp:
+        path = os.path.join(tmp, f"{state.step:06d}.tar")
+        t0 = time.perf_counter()
+        kind = convert_torch.save_reference_checkpoint(
+            path, state.step, sd["params_coarse"], sd["params_fine"],
+            fine_adam=convert_torch.adam_moments(
+                sd["opt_fine"], [sd["params_fine"]]))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = convert_torch.load_reference_checkpoint(path, dev)
+        load_s = time.perf_counter() - t0
+        fresh = init_state(torch.Generator(device=dev).manual_seed(1), lin,
+                           dev)
+        ckio.restore_checkpoint(path, fresh, dev)
+        size = os.path.getsize(path)
+    if kind != "real Adam moments" or loaded["step"] != state.step:
+        raise AssertionError(f"{kind}, step {loaded['step']}")
+    nets = []
+    for key in ("params_coarse", "params_fine"):
+        net = NeRF(lin.mcfg, device=dev)
+        net.load_state_dict(loaded[key])
+        nets.append(net)
+    for a, b in ((fresh.params_coarse, state.params_coarse),
+                 (fresh.params_fine, state.params_fine)):
+        for (n, p), (_, q) in zip(a.named_parameters(), b.named_parameters()):
+            if not torch.equal(p, q):
+                raise AssertionError(f"restored {n} differs")
+    ps = [p for g in state.opt_fine.param_groups for p in g["params"]]
+    qs = [p for g in fresh.opt_fine.param_groups for p in g["params"]]
+    for p, q in zip(ps, qs):
+        for slot in ("exp_avg", "exp_avg_sq"):
+            if not torch.equal(state.opt_fine.state[p][slot],
+                               fresh.opt_fine.state[q][slot]):
+                raise AssertionError(f"restored Adam {slot} differs")
+    rcfg = test_render_config(lin.rcfg, perturb=False)
+    rays = _blender_rays(dev, 512, 13)
+    ref = ServingRenderer.from_params(
+        state.params_coarse, state.params_fine, lin.mcfg, rcfg, chunk=512,
+        device=dev).render_rays(rays)
+    diffs = {}
+    for name, (pc, pf) in (("load_reference_checkpoint", nets),
+                           ("restore_checkpoint", (fresh.params_coarse,
+                                                   fresh.params_fine))):
+        got = ServingRenderer.from_params(pc, pf, lin.mcfg, rcfg, chunk=512,
+                                          device=dev).render_rays(rays)
+        for k in ref:
+            if not np.array_equal(got[k], ref[k], equal_nan=True):
+                raise AssertionError(f"{name}: {k} is not bit-equal")
+        diffs[name] = _max_diff(got, ref)
+    log("interop", step=state.step, tar_mb=size / 2 ** 20, kind=kind,
+        save_s=save_s, load_s=load_s, rays=512, bit_equal=True,
+        max_abs_diff=diffs)
+
+
 def _card_vs_cpu(card: dict, cpu: dict, tol=REFERENCE_TOL) -> dict:
     """Max abs errors of the card's maps against the CPU's, held to
     ``tol``."""
@@ -1057,8 +1271,9 @@ def _profile_steps(step, state, batches, dev) -> dict:
     return profile_steps(run, len(batches), dev)
 
 
-def phase_train(dev):
-    """Returns (forward launches, backward launches, timing summary)."""
+def phase_train(dev, keep=None):
+    """Returns (forward launches, backward launches, timing summary);
+    ``keep["state"]`` is the final train state."""
     from plnerf_torch.kernels import fused_mlp
     from plnerf_torch.train import batching
     from plnerf_torch.train.step import init_state, make_train_step
@@ -1134,6 +1349,8 @@ def phase_train(dev):
         loss_last_bf16=rec[-1]["loss"], psnr_last_fp32=fp32[-1]["psnr"],
         **summary, profile_3_fp32_steps=profile,
         losses=[round(r["loss"], 6) for r in rec])
+    if keep is not None:
+        keep["state"] = state
     return fwd, bwd, summary
 
 
@@ -1655,7 +1872,9 @@ def _depth_kernel_holds(dev, args, data, state) -> dict:
     eval_rays = make_ray_batch(ro, rd, data.near, data.far, True)[0][
         :R_CHUNK]
     calls = []
-    fwd, bwd = fused_mlp.forward_cuda, fused_mlp.backward_cuda
+    # the path's forward goes through fused_mlp.forward (the op), its
+    # backward through backward_cuda: both record (p, x, v, v_div, ...)
+    fwd, bwd = fused_mlp.forward, fused_mlp.backward_cuda
 
     def record(kind, fn):
         def wrapped(*a):
@@ -1668,18 +1887,18 @@ def _depth_kernel_holds(dev, args, data, state) -> dict:
         s = dataclasses.replace(setup, rcfg=dataclasses.replace(
             setup.rcfg, mlp_dtype=dtype))
         calls.clear()
-        fused_mlp.forward_cuda = record("fwd_train", fwd)
+        fused_mlp.forward = record("fwd_train", fwd)
         fused_mlp.backward_cuda = record("bwd_train", bwd)
         try:
             tstep.depth_grads(s, state, batch,
                               torch.Generator(device=dev).manual_seed(14))
-            fused_mlp.forward_cuda = record("fwd_eval", fwd)
+            fused_mlp.forward = record("fwd_eval", fwd)
             EI.render_chunks(state.params_coarse, state.params_fine,
                              eval_rays, mcfg, EI.test_render_config(
                                  s.rcfg, perturb=False), R_CHUNK, 0,
                              ("rgb_map",))
         finally:
-            fused_mlp.forward_cuda, fused_mlp.backward_cuda = fwd, bwd
+            fused_mlp.forward, fused_mlp.backward_cuda = fwd, bwd
         for o in (state.opt_fine, state.opt_ss, state.opt_latent):
             o.zero_grad(set_to_none=True)
         kinds = [k for k, _ in calls]
@@ -2098,7 +2317,9 @@ def _occ_kernel_holds(dev, args, state, grid, batch, eval_rays) -> dict:
     if setup.rcfg.mlp_dtype != "bfloat16" or not setup.rcfg.use_fused_mlp:
         raise AssertionError(f"occ recipe config {setup.rcfg}")
     calls = []
-    fwd, bwd = fused_mlp.forward_cuda, fused_mlp.backward_cuda
+    # the path's forward goes through fused_mlp.forward (the op), its
+    # backward through backward_cuda: both record (p, x, v, v_div, ...)
+    fwd, bwd = fused_mlp.forward, fused_mlp.backward_cuda
 
     def record(kind, fn):
         def wrapped(*a):
@@ -2106,7 +2327,7 @@ def _occ_kernel_holds(dev, args, state, grid, batch, eval_rays) -> dict:
             return fn(*a)
         return wrapped
 
-    fused_mlp.forward_cuda = record("fwd_train", fwd)
+    fused_mlp.forward = record("fwd_train", fwd)
     fused_mlp.backward_cuda = record("bwd_train", bwd)
     try:
         loss, m = tstep._render_loss(
@@ -2114,13 +2335,13 @@ def _occ_kernel_holds(dev, args, state, grid, batch, eval_rays) -> dict:
             dict(batch, occ_grid=grid),
             torch.Generator(device=dev).manual_seed(16), setup)
         loss.backward()
-        fused_mlp.forward_cuda = record("fwd_eval", fwd)
+        fused_mlp.forward = record("fwd_eval", fwd)
         EI.render_chunks(state.params_coarse, state.params_fine, eval_rays,
                          mcfg, EI.test_render_config(setup.rcfg,
                                                      perturb=False),
                          R_CHUNK, 0, ("rgb_map",), occ_grid=grid)
     finally:
-        fused_mlp.forward_cuda, fused_mlp.backward_cuda = fwd, bwd
+        fused_mlp.forward, fused_mlp.backward_cuda = fwd, bwd
     for o in (state.opt_fine, state.opt_coarse):
         o.zero_grad(set_to_none=True)
     rows = {}
@@ -2764,11 +2985,12 @@ def phase_mesh(dev, work):
     return launches["mesh"]["fused_mlp_fwd"]
 
 
-PHASES = ("kernel", "probes", "bwd", "slice", "reference", "train",
-          "train_reference", "driver", "llff", "depth", "occ", "video",
-          "mesh")
-# the phases each phase reads the checkpoints of
-NEEDS = {"video": ("driver", "depth"), "mesh": ("driver",)}
+PHASES = ("kernel", "probes", "bwd", "slice", "reference", "export",
+          "train", "interop", "train_reference", "driver", "llff", "depth",
+          "occ", "video", "mesh")
+# the phases each phase reads the checkpoints (interop: the state) of
+NEEDS = {"video": ("driver", "depth"), "mesh": ("driver",),
+         "interop": ("train",)}
 
 
 def main(argv=None) -> int:
@@ -2804,10 +3026,13 @@ def main(argv=None) -> int:
                     for k in ("scenes", "driver", "depth")}
             for d in work.values():
                 os.makedirs(d)
+            kept = {}
             if only:
                 fns = dict(zip(PHASES, (
                     phase_kernel, phase_probes, phase_bwd_kernel,
-                    phase_slice, phase_reference, phase_train,
+                    phase_slice, phase_reference, phase_export,
+                    lambda d: phase_train(d, kept),
+                    lambda d: phase_interop(d, kept["state"]),
                     phase_train_reference,
                     lambda d: phase_driver(d, None, work["scenes"],
                                            work["driver"]),
@@ -2825,7 +3050,9 @@ def main(argv=None) -> int:
             bwd_err, bwd_t = phase_bwd_kernel(dev)
             launches = phase_slice(dev)
             phase_reference(dev)
-            train_fwd, train_bwd, train_summary = phase_train(dev)
+            export_fwd = phase_export(dev)
+            train_fwd, train_bwd, train_summary = phase_train(dev, kept)
+            phase_interop(dev, kept.pop("state"))
             phase_train_reference(dev)
             driver_fwd, driver_bwd = phase_driver(
                 dev, train_summary["ms_per_step_fp32"], work["scenes"],
@@ -2843,7 +3070,7 @@ def main(argv=None) -> int:
             or driver_bwd < 1 or llff_fwd < 1 or llff_bwd < 1
             or depth_fwd < 1 or depth_bwd < 1 or occ_fwd < 1
             or occ_bwd < 1 or video_fwd < 1 or video_bwd < 1
-            or mesh_fwd < 1):
+            or mesh_fwd < 1 or export_fwd < 1):
         print("chip_smoke: a main path launched no kernel", file=sys.stderr)
         return 1
     # the training path runs folded heads in fp32
@@ -2854,7 +3081,7 @@ def main(argv=None) -> int:
         "replaces": KERNEL_REPLACES,
         "launches": (launches + train_fwd + probe_fwd + driver_fwd
                      + llff_fwd + depth_fwd + occ_fwd + video_fwd
-                     + mesh_fwd),
+                     + mesh_fwd + export_fwd),
         "max_abs_err": err, "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]}, {

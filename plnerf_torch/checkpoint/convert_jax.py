@@ -7,7 +7,9 @@ stores ``[out, in]``, so every weight is transposed.  The depth trainer's
 per-image tensors and optax Adam moments (``mu``, ``nu``, ``count``) load
 as they are, so the two packages can start, or resume, from one state.
 Inputs are numpy arrays (or anything ``np.asarray`` takes); nothing here
-imports JAX.
+imports JAX.  ``train_state_dict`` maps a whole JAX ``TrainState``, as
+``checkpoint.flax_msgpack`` reads it from a JAX checkpoint, into the
+port's ``TrainState.state_dict`` form.
 """
 from __future__ import annotations
 
@@ -117,3 +119,73 @@ def load_depth_fields(state, depth_scales: Optional[Any] = None,
         with torch.no_grad():
             tensor.copy_(torch.as_tensor(np.asarray(value, np.float32)
                                          ).reshape(tensor.shape))
+
+
+def find_adam(node: Any) -> Optional[dict]:
+    """The optax ``ScaleByAdamState`` ({count, mu, nu}) inside a JAX
+    optimizer state read from a checkpoint (the JAX package's
+    ``tools/export_reference_ckpt._find_adam``)."""
+    if isinstance(node, dict):
+        if {"count", "mu", "nu"} <= set(node):
+            return node
+        children = node.values()
+    elif isinstance(node, list):
+        children = node
+    else:
+        return None
+    for v in children:
+        found = find_adam(v)
+        if found is not None:
+            return found
+    return None
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def train_state_dict(raw: Dict[str, Any], target, device) -> Dict[str, Any]:
+    """A JAX ``TrainState`` read from a checkpoint (digit-keyed dicts as
+    lists) -> the port's ``TrainState.state_dict`` form on ``device``, for
+    ``target`` (a port ``TrainState``, whose modules give the parameter
+    order): params transposed, each optimizer's Adam moments in its
+    parameters' order (the joint optimizer's coarse then fine; the depth
+    Adam's scales then shifts), the depth fields as they are."""
+    def t(a):
+        return torch.as_tensor(_f32(a), device=device)
+
+    out: Dict[str, Any] = {"step": int(np.asarray(raw["step"]))}
+    for name in ("params_coarse", "params_fine"):
+        if raw.get(name) is not None:
+            out[name] = {k: t(v) for k, v in
+                         params_to_state_dict(raw[name]).items()}
+    for name in ("depth_scales", "depth_shifts", "cam_embeddings"):
+        if raw.get(name) is not None:
+            out[name] = t(raw[name])
+
+    def leaves(name, mu):
+        if name in ("opt_coarse", "opt_fine"):
+            trees = mu if isinstance(mu, list) else [mu]
+            fine = (target.params_coarse if target.params_fine is None
+                    or name == "opt_coarse" else target.params_fine)
+            mods = ([target.params_coarse, target.params_fine]
+                    if len(trees) == 2 else [fine])
+            return [a for m, tr in zip(mods, trees)
+                    for a in params_leaves(m, tr)]
+        return list(mu) if isinstance(mu, list) else [mu]
+
+    for name in ("opt_coarse", "opt_fine", "opt_ss", "opt_latent"):
+        adam = find_adam(raw.get(name))
+        if adam is None:
+            continue
+        count = int(np.asarray(adam["count"]))
+        state = {}
+        if count:
+            state = {str(i): {"step": float(count), "exp_avg": t(m),
+                              "exp_avg_sq": t(v)}
+                     for i, (m, v) in enumerate(zip(
+                         leaves(name, adam["mu"]), leaves(name, adam["nu"])))}
+        out[name] = {"count": count, "state": state}
+    return out

@@ -16,8 +16,15 @@ the card restores on the CPU and back.
 
 Sidecars share a checkpoint's step stem (``aux_path``): the occupancy
 grid trained beside the parameters is ``{step:06d}.occ``, a dict of
-tensors written the same way.  The JAX package's flax ``.occ`` files are
-not read (ROADMAP A11).
+tensors written the same way.
+
+The JAX package's files (flax msgpack state dicts) are read too:
+``restore_checkpoint`` and ``restore_aux`` tell them from the port's by
+their first bytes (a ``torch.save`` file is a zip archive, a flax file
+starts with a msgpack map), read them with ``flax_msgpack`` and map a JAX
+``TrainState`` into the port's with ``convert_jax.train_state_dict``, so
+``--ft_path`` may name a checkpoint that the JAX package trained.  A
+reference ``.tar`` (``convert_torch``) restores through the same path.
 """
 from __future__ import annotations
 
@@ -26,6 +33,8 @@ import re
 from typing import Any, Optional
 
 import torch
+
+from . import convert_jax, convert_torch, flax_msgpack
 
 CKPT_RE = re.compile(r"^(\d+)\.ckpt$")
 
@@ -55,8 +64,12 @@ def save_aux(ckpt_path: str, suffix: str, tensors: dict) -> str:
 def restore_aux(path: str, template: dict, device) -> dict:
     """A sidecar written by ``save_aux``, on ``device``, holding exactly
     the keys of ``template`` with its shapes and dtypes (raises
-    otherwise)."""
-    loaded = torch.load(path, map_location=device, weights_only=True)
+    otherwise).  A JAX package sidecar (flax) loads the same way."""
+    if flax_msgpack.is_flax_file(path):
+        loaded = {k: torch.as_tensor(v, device=device)
+                  for k, v in flax_msgpack.read_state(path).items()}
+    else:
+        loaded = torch.load(path, map_location=device, weights_only=True)
     if set(loaded) != set(template):
         raise ValueError(f"{path}: keys {sorted(loaded)}, expected "
                          f"{sorted(template)}")
@@ -91,8 +104,16 @@ def restore_checkpoint(path: str, target, device):
 
     Forward compatibility: a field of ``target`` that the checkpoint
     predates keeps its fresh initialization, and a non-None one is named
-    in a note."""
-    state_dict = torch.load(path, map_location=device, weights_only=True)
+    in a note.  A JAX package checkpoint (flax) or a reference ``.tar`` is
+    mapped into ``target``'s form first (``convert_jax.train_state_dict``,
+    ``convert_torch.train_state_dict``)."""
+    if flax_msgpack.is_flax_file(path):
+        state_dict = convert_jax.train_state_dict(
+            flax_msgpack.read_state(path), target, device)
+    else:
+        state_dict = torch.load(path, map_location=device, weights_only=True)
+        if convert_torch.is_reference_checkpoint(state_dict):
+            state_dict = convert_torch.train_state_dict(state_dict, target)
     for k, v in target.state_dict().items():
         if k not in state_dict and v is not None:
             print(f"NOTE: checkpoint {os.path.basename(path)} predates "

@@ -204,12 +204,16 @@ def add_base_flags(parser: ConfigArgumentParser) -> None:
     a("--remat", action="store_true",
       help="recompute the MLP in backward (torch.utils.checkpoint) to "
            "raise the ray-batch memory ceiling")
-    # export_serving flags: parsed, the task is not ported (ROADMAP A13)
-    a("--serve_out", type=str, default=None)
+    # --task export_serving (serving/export.py)
+    a("--serve_out", type=str, default=None,
+      help="artifact directory; default <ckpt_dir>/<expname>/serving")
     a("--serve_weights", type=str, default="baked",
-      choices=["baked", "args"])
-    a("--serve_platforms", type=str, default=None)
-    a("--serve_image", type=str, default=None)
+      choices=["baked", "args"],
+      help="weights inside the programs, or in weights.pt as an input")
+    a("--serve_platforms", type=str, default=None,
+      help="comma list of devices; only the export device is accepted")
+    a("--serve_image", type=str, default=None,
+      help="HxW: also export a whole-batch module for H*W rays")
     a("--sigma_bias_init", type=float, default=0.0,
       help="constant added to the density head's bias at init; 0.0 = "
            "exact reference init.  ~0.1 prevents the dead-coarse "

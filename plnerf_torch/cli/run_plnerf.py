@@ -3,7 +3,8 @@
 
     python -m plnerf_torch.cli.run_plnerf \\
         --config configs/blender_linear.txt \\
-        --task train|test|test_fixed_dist|test_samples_error|video \\
+        --task train|test|test_fixed_dist|test_samples_error|video|\\
+               export_serving \\
         [--render_only] [--device cpu] ...
 
 * ``train``: two-Adam NVS training with the constant-quadrature warm-up,
@@ -21,6 +22,12 @@
   ``--render_factor``, frames in ``renderonly_{path|test}_{step:06d}``;
   ``--i_video`` renders it inside a training run.  The frames are PNGs
   (``eval/images.write_video``): the port encodes no mp4.
+* ``export_serving``: the checkpoint under evaluation as a serving
+  artifact (``serving/export.py``) in ``--serve_out`` (default
+  ``<expname>/serving``), under the test task's render config;
+  ``--serve_weights baked|args``, ``--serve_image HxW`` (a whole-batch
+  module), ``--serve_platforms`` (only the run's device).  Needs no
+  dataset.
 
 ``--occ_grid`` (``configs/blender_linear_occ.txt``): the coarse samples
 are placed by an occupancy grid (``core/occgrid.py``) that the train step
@@ -37,9 +44,10 @@ sidecars), unless ``--occ_keep_degenerate``.
 
 Datasets: llff, blender, blender2, blender_fixeddist, DTU, DTU2
 (``cli/datasets.py``).  Runs on the CUDA device unless ``--device cpu`` is
-given, and raises where there is none.  Not ported yet, each refused with
-``SystemExit`` naming its ROADMAP item: ``export_serving`` (A13),
-``--profile`` (A17), ``--lpips_weights`` (A14).
+given, and raises where there is none.  ``--ft_path`` may name a
+checkpoint of the port, of the JAX package or a reference ``.tar``
+(``checkpoint/io.py``).  Not ported yet, each refused with ``SystemExit``
+naming its ROADMAP item: ``--profile`` (A17), ``--lpips_weights`` (A14).
 
 Differences from the JAX driver:
 
@@ -64,6 +72,10 @@ Differences from the JAX driver:
 * An eval task's occupancy grid is the sidecar of the checkpoint it
   loaded: with ``--no_reload`` (the fresh init) a fresh grid, where the
   JAX driver reads the latest checkpoint's sidecar.
+* The serving artifact runs the fused forward kernel under --use_kernel
+  AUTO on CUDA (as an operator inside the exported program); the JAX
+  driver strips Pallas from an export.  The artifact runs on the device
+  it was exported on only.
 * The degenerate-guidance guard reads ``occ_ray_frac`` (a host sync) only
   on the steps where it can fire, past the grace window; the JAX driver
   reads it after every dispatch window.  The decisions are the same.
@@ -622,13 +634,60 @@ def run_video(args, bundle, mcfg, rcfg, setup, state=None, step=None,
 
 # ---------------------------------------------------------------------------
 
-TASKS = ("train", "test", "test_fixed_dist", "test_samples_error", "video")
+def run_export_serving(args, mcfg, rcfg, setup):
+    """--task export_serving: export the checkpoint under evaluation (and
+    its grid) into a serving artifact (``serving/export.py``) on the run's
+    device, under the eval task's render config (``eval_render_config``:
+    the perturb quirk, --eval_det, --eval_N_*).  ``--serve_platforms``
+    may name only that device (``_refuse_unported``).  Returns the
+    manifest."""
+    from ..serving import export as sexport
+
+    platforms = args.serve_platforms.split(",") if args.serve_platforms \
+        else None
+    state, occ_cfg, occ_grid = _state_for_eval(args, setup)
+    out_dir = args.serve_out or os.path.join(exp_dir(args), "serving")
+    fused_n = None
+    if args.serve_image:
+        h, w = (int(x) for x in args.serve_image.lower().split("x"))
+        fused_n = h * w
+    manifest = sexport.export_renderer(
+        state.params_coarse, state.params_fine, mcfg,
+        eval_render_config(args, rcfg, occ_cfg), out_dir, chunk=args.chunk,
+        mcfg_fine=setup.mcfg_fine, occ_grid=occ_grid, platforms=platforms,
+        fused_n_rays=fused_n, weights_mode=args.serve_weights,
+        provenance={"expname": args.expname, "step": int(state.step),
+                    "mode": args.mode, "N_samples": args.N_samples,
+                    "N_importance": args.N_importance,
+                    # the geometry a client needs to build rays as the
+                    # model was trained (the artifact takes packed rays)
+                    "dataset": args.dataset,
+                    "ndc": bool(args.dataset == "llff"
+                                and not getattr(args, "no_ndc", False)),
+                    "set_near_plane": getattr(args, "set_near_plane",
+                                              None)})
+    print(f"Exported serving artifact to {out_dir} "
+          f"(platforms={manifest['platforms']}, chunk={manifest['chunk']}, "
+          f"outputs={manifest['output_keys']})")
+    return manifest
+
+
+# ---------------------------------------------------------------------------
+
+TASKS = ("train", "test", "test_fixed_dist", "test_samples_error", "video",
+         "export_serving")
 
 
 def _refuse_unported(args) -> None:
-    if args.task == "export_serving":
-        raise SystemExit("--task export_serving: not ported yet (ROADMAP "
-                         "A13)")
+    """Refuse, before anything is read or written, what is not ported and
+    what cannot run: an export for a device other than the run's."""
+    if args.task == "export_serving" and args.serve_platforms:
+        dev = resolve_device(args.device).type
+        if any(p != dev for p in args.serve_platforms.split(",")):
+            raise SystemExit(
+                f"--serve_platforms {args.serve_platforms}: the artifact "
+                f"runs only on the device it is exported on ({dev}); pass "
+                "--device to choose it")
     if args.profile:
         raise SystemExit("--profile: not ported yet (ROADMAP A17; "
                          "plnerf_torch.tools.profile_step profiles a step)")
@@ -646,7 +705,8 @@ def _refuse_unported(args) -> None:
 def run(args, vanilla: bool = False):
     """Run ``args.task``; returns the final ``TrainState`` (train), the
     metrics' ``MeanTracker`` (test, test_samples_error), {dist:
-    MeanTracker} (test_fixed_dist) or the frames (video, --render_only)."""
+    MeanTracker} (test_fixed_dist), the frames (video, --render_only) or
+    the artifact's manifest (export_serving)."""
     _refuse_unported(args)
     if args.task != "train":
         # eval-time sample-budget override; mutating args keeps rcfg and
@@ -658,6 +718,8 @@ def run(args, vanilla: bool = False):
     mcfg, rcfg, setup = build_configs(args, vanilla=vanilla)
     if args.task == "test_fixed_dist":
         return run_test_fixed_dist(args, mcfg, rcfg, setup)
+    if args.task == "export_serving":
+        return run_export_serving(args, mcfg, rcfg, setup)
     bundle = load_dataset(args)
     if args.render_only or args.task == "video":
         return run_video(args, bundle, mcfg, rcfg, setup)

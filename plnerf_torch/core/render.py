@@ -18,7 +18,9 @@ RNG: one ``torch.Generator`` feeds, in order, the coarse jitter, the
 coarse density noise, the resample draws, the fine density noise and the
 ``pred_hyp`` draws.  The ``overrides`` dict (``t_rand``, ``noise``, ``u``,
 ``u_hyp``) injects exact arrays for any stream, so numpy-made draws drive
-this renderer and the JAX package alike.
+this renderer and the JAX package alike; ``noise0``, where given, is the
+coarse pass's noise (``noise`` then is the fine pass's), as the serving
+artifact passes both.
 """
 from __future__ import annotations
 
@@ -95,7 +97,7 @@ def render_rays(
         ret["occ_sigma"] = torch.relu(torch.cat(
             [o["raw"][..., 3] for o in outs], dim=-1)).detach()
 
-    def run(model, z, cfg):
+    def run(model, z, cfg, noise_key="noise"):
         pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
 
         def query(p):
@@ -109,7 +111,9 @@ def render_rays(
             raw = query(pts)
         noise = 0.0
         if rcfg.raw_noise_std > 0.0:
-            noise = _maybe(overrides, "noise", dev)
+            noise = _maybe(overrides, noise_key, dev)
+            if noise is None and noise_key != "noise":
+                noise = _maybe(overrides, "noise", dev)
             if noise is None:
                 noise = torch.randn(raw[..., 3].shape, generator=generator,
                                     device=dev) * rcfg.raw_noise_std
@@ -141,7 +145,7 @@ def render_rays(
                             and rcfg.trim_first_weight else w),
                 "z_vals": z}
 
-    out_c = run(params_coarse, z_vals, mcfg)
+    out_c = run(params_coarse, z_vals, mcfg, "noise0")
     ret: Dict[str, torch.Tensor] = {
         # dead-coarse detector: fraction of raw coarse densities > 0
         "sigma0_pos_frac": (out_c["raw"][..., 3] > 0).float().mean()}

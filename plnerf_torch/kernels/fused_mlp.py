@@ -118,13 +118,54 @@ def _stream_index(p: "PackedMLP", device: torch.device) -> torch.Tensor:
            str(device))
     if key not in _STREAM_INDEX:
         ids, off = [], 0
-        for w in p.weights:
-            ids.append(torch.arange(off, off + w.numel(),
-                                    dtype=torch.float64).reshape(w.shape))
-            off += w.numel()
+        for shape in _block_shapes(p)[0]:
+            n = shape[0] * shape[1]
+            ids.append(torch.arange(off, off + n,
+                                    dtype=torch.float64).reshape(shape))
+            off += n
         _STREAM_INDEX[key] = wgmma_stream(dataclasses.replace(
             p, weights=ids)).long().to(device)
     return _STREAM_INDEX[key]
+
+
+def _block_shapes(p: "PackedMLP"
+                  ) -> Tuple[List[Tuple[int, int]], List[int]]:
+    """The [K, N] shape of every weight block and the length of every bias
+    of ``pack_weights``'s layout, in its order, from the layout's integers
+    alone."""
+    ws, bs = [], []
+    for i in range(p.n_layers):
+        if (p.skip_mask >> i) & 1:
+            ws += [(p.in_p, p.w_p), (p.w_p, p.w_p)]
+        else:
+            ws.append((p.in_p if i == 0 else p.w_p, p.w_p))
+        bs.append(p.w_p)
+    if p.head == SPLIT:
+        ws += [(p.w_p, p.w_p + ALIGN), (p.w_p, p.h_p), (p.v_p, p.h_p),
+               (p.h_p, ALIGN)]
+        bs += [p.w_p + ALIGN, p.h_p, ALIGN]
+    elif p.head == FOLDED:
+        ws += [(p.w_p, p.h_p + ALIGN), (p.v_p, p.h_p + ALIGN), (p.h_p, ALIGN)]
+        bs += [p.h_p + ALIGN, ALIGN]
+    else:
+        ws.append((p.w_p, ALIGN))
+        bs.append(ALIGN)
+    return ws, bs
+
+
+def _unflat(p: "PackedMLP", wbuf: torch.Tensor, bbuf: torch.Tensor
+            ) -> "PackedMLP":
+    """The blocks of ``PackedMLP.flat``'s two buffers (the inverse of
+    ``flat``; bf16 undoes the ``wgmma_stream`` order)."""
+    if p.dtype == torch.bfloat16:
+        rm = torch.empty_like(wbuf)
+        rm[_stream_index(p, wbuf.device)] = wbuf
+        wbuf = rm
+    wshapes, bsizes = _block_shapes(p)
+    ws = torch.split(wbuf, [k * n for k, n in wshapes])
+    return dataclasses.replace(
+        p, weights=[w.view(s) for w, s in zip(ws, wshapes)],
+        biases=list(torch.split(bbuf, bsizes)))
 
 
 def _products(p: "PackedMLP") -> List[Tuple[List[int], int, int]]:
@@ -344,6 +385,14 @@ def forward_cuda(p: PackedMLP, x: torch.Tensor, v: Optional[torch.Tensor],
     """Launch the CUDA kernels on the current stream; raw [N, 4] fp32.
     bf16: one launch of the fused walk; fp32: the per-layer products of
     each of ``fwd_chunks`` in turn, on one workspace."""
+    wbuf, bbuf = p.flat()
+    return _launch(p, wbuf, bbuf, x, v, v_div)
+
+
+def _launch(p: PackedMLP, wbuf: torch.Tensor, bbuf: torch.Tensor,
+            x: torch.Tensor, v: Optional[torch.Tensor],
+            v_div: int) -> torch.Tensor:
+    """``forward_cuda`` on the buffers of ``PackedMLP.flat``."""
     global launches
     dev = x.device
     if dev.type != "cuda":
@@ -359,7 +408,6 @@ def forward_cuda(p: PackedMLP, x: torch.Tensor, v: Optional[torch.Tensor],
                              f"{v_div} per row")
     else:
         v, v_div = None, 1
-    wbuf, bbuf = p.flat()
     if wbuf.device != dev:
         raise ValueError(f"weights on {wbuf.device}, inputs on {dev}")
     raw = torch.empty((n, 4), dtype=torch.float32, device=dev)
@@ -393,6 +441,57 @@ def forward_cuda(p: PackedMLP, x: torch.Tensor, v: Optional[torch.Tensor],
     return raw
 
 
+def _layout(n_layers: int, skip_mask: int, in_p: int, w_p: int, v_p: int,
+            h_p: int, head: int, bf16: bool) -> PackedMLP:
+    """A ``PackedMLP`` with the op's layout integers and no blocks (the op
+    does not know the unpadded widths: ``in_ch`` / ``vch`` hold the padded
+    ones)."""
+    return PackedMLP(head=head, n_layers=n_layers, skip_mask=skip_mask,
+                     in_ch=in_p, vch=v_p, in_p=in_p, w_p=w_p, v_p=v_p,
+                     h_p=h_p, dtype=torch.bfloat16 if bf16 else torch.float32,
+                     weights=[], biases=[])
+
+
+@torch.library.custom_op("plnerf_torch::fused_mlp_fwd", mutates_args=())
+def fused_mlp_fwd(x: torch.Tensor, v: Optional[torch.Tensor],
+                  wbuf: torch.Tensor, bbuf: torch.Tensor, v_div: int,
+                  n_layers: int, skip_mask: int, in_p: int, w_p: int,
+                  v_p: int, h_p: int, head: int, bf16: bool) -> torch.Tensor:
+    """The fused forward as an operator that ``torch.export`` records by
+    name (``torch.ops.plnerf_torch.fused_mlp_fwd``): raw [N, 4] fp32 of the
+    packed MLP whose ``PackedMLP.flat`` buffers are ``wbuf`` / ``bbuf``.
+    The dispatcher picks the implementation by the tensors' device: CUDA
+    launches the kernel (``_launch``, or raises), the CPU runs
+    ``forward_plain``; any other device is refused here."""
+    raise ValueError(f"fused_mlp_fwd: unsupported device {x.device}")
+
+
+@fused_mlp_fwd.register_kernel("cuda")
+def _fused_mlp_fwd_cuda(x, v, wbuf, bbuf, v_div, *layout):
+    return _launch(_layout(*layout), wbuf, bbuf, x, v, v_div)
+
+
+@fused_mlp_fwd.register_kernel("cpu")
+def _fused_mlp_fwd_cpu(x, v, wbuf, bbuf, v_div, *layout):
+    p = _layout(*layout)
+    return forward_plain(_unflat(p, wbuf, bbuf), x, v, v_div)
+
+
+@fused_mlp_fwd.register_fake
+def _fused_mlp_fwd_fake(x, v, wbuf, bbuf, v_div, *layout):
+    return x.new_empty((x.shape[0], 4), dtype=torch.float32)
+
+
+def forward_flat(p: PackedMLP, wbuf: torch.Tensor, bbuf: torch.Tensor,
+                 x: torch.Tensor, v: Optional[torch.Tensor],
+                 v_div: int = 1) -> torch.Tensor:
+    """raw [N, 4] through the op, from weights already flattened by
+    ``PackedMLP.flat`` (``p`` supplies only the layout)."""
+    return torch.ops.plnerf_torch.fused_mlp_fwd(
+        x, v, wbuf, bbuf, v_div, p.n_layers, p.skip_mask, p.in_p, p.w_p,
+        p.v_p, p.h_p, p.head, p.dtype == torch.bfloat16)
+
+
 def _flat_views(views_embed: torch.Tensor, lead: torch.Size
                 ) -> Tuple[torch.Tensor, int]:
     """[R, 1, ch] per-ray views stay per ray (divisor S = lead[-1]);
@@ -409,23 +508,55 @@ def prepare(model: NeRF, pts_embed: torch.Tensor,
             dtype=torch.float32, fold_heads: bool = False):
     """Pack the weights and pad the flattened inputs for the kernel:
     returns (packed, x [N, in_p], v [N / v_div, v_p] or None, v_div)."""
-    lead = pts_embed.shape[:-1]
+    x, v, v_div = _flatten(pts_embed, views_embed, cfg)
+    p = pack_weights(model, cfg, dtype, fold_heads,
+                     None if v is None else v.shape[-1])
+    return (p,) + _pad(p, x, v, dtype) + (v_div,)
+
+
+def _flatten(pts_embed: torch.Tensor, views_embed: Optional[torch.Tensor],
+             cfg: ModelConfig):
+    """(x [N, in_ch], v [N / v_div, vch] or None, v_div), unpadded."""
     x = pts_embed.reshape(-1, pts_embed.shape[-1])
-    v, v_div = None, 1
-    vch = None
-    if cfg.use_viewdirs:
-        if views_embed is None:
-            raise ValueError("use_viewdirs model called without views")
-        v, v_div = _flat_views(views_embed, lead)
-        vch = v.shape[-1]
-    p = pack_weights(model, cfg, dtype, fold_heads, vch)
+    if not cfg.use_viewdirs:
+        return x, None, 1
+    if views_embed is None:
+        raise ValueError("use_viewdirs model called without views")
+    return (x,) + _flat_views(views_embed, pts_embed.shape[:-1])
+
+
+def _pad(p: PackedMLP, x: torch.Tensor, v: Optional[torch.Tensor], dtype):
+    """x and v padded to the layout's widths in the compute dtype."""
     if x.shape[-1] != p.in_ch:
         raise ValueError(f"pts_embed has {x.shape[-1]} channels, the model "
                          f"takes {p.in_ch}")
     x = F.pad(x, (0, p.in_p - p.in_ch)).to(dtype).contiguous()
     if v is not None:
-        v = F.pad(v, (0, p.v_p - vch)).to(dtype).contiguous()
-    return p, x, v, v_div
+        if v.shape[-1] != p.vch:
+            raise ValueError(f"views_embed has {v.shape[-1]} channels, the "
+                             f"packed model takes {p.vch}")
+        v = F.pad(v, (0, p.v_p - p.vch)).to(dtype).contiguous()
+    return x, v
+
+
+class PackedNet(torch.nn.Module):
+    """A ``NeRF`` packed once for the forward op, for forward-only use
+    (the serving artifact): the two ``PackedMLP.flat`` buffers as module
+    buffers and the layout without its blocks.  ``apply`` (and so
+    ``core.mlp.query_network`` with ``use_fused``) takes it in place of
+    the ``NeRF``, so a traced render holds the op and the buffers, never
+    the packing."""
+
+    def __init__(self, model: NeRF, cfg: ModelConfig, dtype=torch.float32,
+                 fold_heads: bool = False):
+        super().__init__()
+        if (cfg.netdepth - 1) in cfg.skips:
+            raise ValueError("a final-layer skip has no packed layout")
+        p = pack_weights(model, cfg, dtype, fold_heads)
+        wbuf, bbuf = p.flat()
+        self.register_buffer("wbuf", wbuf)
+        self.register_buffer("bbuf", bbuf)
+        self.layout = dataclasses.replace(p, weights=[], biases=[])
 
 
 def _layer_blocks(p: PackedMLP) -> Tuple[List[Tuple[Optional[int], int]], int]:
@@ -664,13 +795,10 @@ def unpack_grads(p: PackedMLP, model: NeRF, dW, dB):
 
 def forward(p: PackedMLP, x: torch.Tensor, v: Optional[torch.Tensor],
             v_div: int = 1) -> torch.Tensor:
-    """raw [N, 4] of the packed MLP: a CPU tensor runs ``forward_plain``,
-    a CUDA tensor ``forward_cuda``."""
-    if x.device.type == "cpu":
-        return forward_plain(p, x, v, v_div)
-    if x.device.type == "cuda":
-        return forward_cuda(p, x, v, v_div)
-    raise ValueError(f"unsupported device {x.device}")
+    """raw [N, 4] of the packed MLP through the op ``fused_mlp_fwd``: a
+    CPU tensor runs ``forward_plain``, a CUDA tensor the kernel."""
+    wbuf, bbuf = p.flat()
+    return forward_flat(p, wbuf, bbuf, x, v, v_div)
 
 
 class FusedMLPFunction(torch.autograd.Function):
@@ -719,12 +847,21 @@ def apply(model: NeRF, pts_embed: torch.Tensor,
     """Drop-in for ``core.mlp.apply_mlp`` on embedded inputs of any
     leading shape: raw [..., 4].  CPU tensors run ``forward_plain`` (and
     ``backward_plain``), CUDA tensors ``forward_cuda`` (and
-    ``backward_cuda``)."""
+    ``backward_cuda``).  A ``PackedNet`` runs the forward op on its
+    buffers, without gradients."""
+    lead = pts_embed.shape[:-1]
+    if isinstance(model, PackedNet):
+        p = model.layout
+        if p.dtype != dtype:
+            raise ValueError(f"model packed in {p.dtype}, called in {dtype}")
+        x, v, v_div = _flatten(pts_embed, views_embed, cfg)
+        x, v = _pad(p, x, v, dtype)
+        raw = forward_flat(p, model.wbuf, model.bbuf, x, v, v_div)
+        return softplus10_density(raw, cfg).reshape(tuple(lead) + (4,))
     if (cfg.netdepth - 1) in cfg.skips:
         # a final-layer skip would feed the heads a two-block input; no
         # shipped topology does this
         return apply_mlp(model, pts_embed, views_embed, cfg, dtype)
-    lead = pts_embed.shape[:-1]
     p, x, v, v_div = prepare(model, pts_embed, views_embed, cfg, dtype,
                              fold_heads)
     params = list(model.parameters())

@@ -135,7 +135,8 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked(tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--task", "export_serving"], "A13"),
+    (["--task", "export_serving", "--serve_platforms", "tpu"],
+     "serve_platforms tpu"),
     (["--profile", "3"], "A17"), (["--lpips_weights", "w.pt"], "A14"),
     (["--steps_per_dispatch", "4"], "steps_per_dispatch 4")])
 def test_unported_paths_are_refused(scene_dir, tmp_path, flags, item):

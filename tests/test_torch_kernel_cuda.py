@@ -144,6 +144,37 @@ def test_cuda_forward_is_deterministic(cuda_device, dtype, head):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("head", list(FWD_HEADS))
+def test_cuda_registered_op_is_the_kernel(cuda_device, dtype, head,
+                                          monkeypatch):
+    """``torch.ops.plnerf_torch.fused_mlp_fwd`` (what an exported serving
+    program calls) on CUDA tensors launches the kernel: bit-equal to
+    ``forward_cuda``, one launch counted.  When the kernel cannot be
+    built it raises and never runs the plain version."""
+    with torch.no_grad():
+        p, x, v, v_div = _fwd_inputs(head, dtype, cuda_device, 13, 61)
+        ref = fused_mlp.forward_cuda(p, x, v, v_div)
+        wbuf, bbuf = p.flat()
+        before = fused_mlp.launches
+        got = fused_mlp.forward_flat(p, wbuf, bbuf, x, v, v_div)
+        torch.cuda.synchronize()
+    assert fused_mlp.launches == before + 1
+    assert torch.equal(got, ref)
+
+    def broken(name):
+        raise RuntimeError(f"nvcc failed for {name}.cu")
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(fused_mlp, "_library", lambda: broken("fused_mlp_fwd"))
+    monkeypatch.setattr(fused_mlp, "forward_plain", plain)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc failed"):
+        fused_mlp.forward_flat(p, wbuf, bbuf, x, v, v_div)
+
+
 def _inputs(cfg, fold, dtype, dev, R=37, S=29):
     g = torch.Generator(device=dev).manual_seed(0)
     m = NeRF(cfg, g, device=dev)

@@ -145,7 +145,8 @@ def _port_modules():
 
 
 def test_port_imports_neither_jax_nor_plnerf():
-    """Nor ``tools``, ``cv2``, ``imageio`` or ``PIL``."""
+    """Nor ``tools``, ``cv2``, ``imageio``, ``PIL``, ``flax`` or
+    ``msgpack``."""
     mods = [m for _, m in _port_modules()]
     assert {"plnerf_torch.kernels.fused_mlp", "plnerf_torch.kernels.dot_probe",
             "plnerf_torch.tools.dot_decompose",
@@ -160,10 +161,18 @@ def test_port_imports_neither_jax_nor_plnerf():
             "plnerf_torch.utils.logging", "plnerf_torch.mesh.extract",
             "plnerf_torch.mesh.marching_cubes",
             "plnerf_torch.cli.extract_mesh",
-            "plnerf_torch.eval.turbo"} <= set(mods)
-    # JAX, the JAX package and its tools, and the image libraries the JAX
-    # package reads and writes with (none is on the card's machine)
-    banned = ("jax", "plnerf", "tools", "cv2", "imageio", "PIL")
+            "plnerf_torch.eval.turbo", "plnerf_torch.serving.export",
+            "plnerf_torch.serving.runtime",
+            "plnerf_torch.checkpoint.flax_msgpack",
+            "plnerf_torch.checkpoint.convert_torch",
+            "plnerf_torch.tools.export_reference_ckpt",
+            "plnerf_torch.tools.serving_bench",
+            "plnerf_torch.data.fault_injection"} <= set(mods)
+    # JAX, the JAX package and its tools, the image libraries the JAX
+    # package reads and writes with, and the checkpoint format's libraries
+    # (none is on the card's machine)
+    banned = ("jax", "plnerf", "tools", "cv2", "imageio", "PIL", "flax",
+              "msgpack")
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"bad = sorted(k for k in sys.modules if k.split('.')[0] in "
