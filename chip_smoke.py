@@ -92,8 +92,14 @@ Phases, one line each, then the result line:
            sphere, 8 / 1 / 2 views at 400x400, the lego camera_angle_x):
            train 300 steps (precrop and constant-quadrature boundaries cut
            to 50 / 100, checkpoints and val renders every 150), resume to
-           400, test from the step-400 checkpoint and test the fresh init
-           (``--no_reload``), then ``--task test_fixed_dist`` from the
+           400 with ``--profile 5`` (steps 304-308 traced: the trace file
+           and its top device kernels), test from the step-400 checkpoint
+           with ``--lpips_weights`` (seeded random weights the phase
+           writes: a finite lpips row, the card's LPIPS of the two test
+           images held against the CPU's on the same arrays at 1e-5
+           relative, s per image at 400x400 and 800x800) and test the
+           fresh init (``--no_reload``), then ``--task test_fixed_dist``
+           (with the LPIPS weights) from the
            step-400 checkpoint on a blender_fixeddist layout of the sphere
            it writes (``transforms_radius{d}_test.json``, one 400x400 view
            at each distance of ``FIXED_DIST_NEAR``).  The kernels' launch
@@ -135,7 +141,8 @@ Phases, one line each, then the result line:
            test views): the depth recipe at full width (linear, 128 + 64
            samples, 1024 rays, space carving 0.007 from step 50, scale /
            shift frozen from 150, 4 camera channels trained), 300 steps
-           and a resume to 350, ``--task test --eval_det`` at 350 and on
+           and a resume to 350, ``--task test --eval_det`` at 350 (with
+           ``--lpips_weights``: a finite lpips row) and on
            the fresh init (3 epochs of camera optimization per view, the
            driver's 100 cut), ``test_samples_error --eval_det``,
            ``optimize_camera_embedding`` called on one test view, and step
@@ -204,6 +211,22 @@ Phases, one line each, then the result line:
            kernel's launches and device ms (one profiled grid), the weight
            pack's share, marching-cubes / filter / PLY s, verts and faces
            before and after the filter, and peak device memory.
+15. dp     data parallelism under ``torchrun --standalone --nproc_per_node
+           1`` (NCCL, world size 1): the driver phase's recipe for 20
+           steps and a resume to 40 (checkpoints at both, a val render at
+           40), ``--task test`` and ``extract_mesh --mesh_res 128``, each
+           launched as ``python -m`` of the driver by torchrun, against
+           the same runs without it in this process: the logged metrics,
+           both checkpoints' tensors, the test set's files, the val render
+           and the PLY bit-equal, and the kernels' launch counts (read in
+           the launched process) equal; ms per step of both.  With a
+           second card, world size 2 against 1 with perturb off (losses
+           1e-6 relative, parameters 1e-5 relative L2, the test files and
+           the PLY of one checkpoint bit-equal); otherwise ``w2`` says
+           it was not run.  Then the export phase's baked fp32 artifact
+           through ``ServingRenderer.load(devices=[cuda:0, cuda:0])`` (and
+           [cuda:0, cuda:1] with a second card): its three 32,768-ray
+           requests and a 400x400 image bit-equal to one device.
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -211,7 +234,9 @@ result, without CUDA, without the repository beside it, or on any failure.
 ``--only bwd,train`` (or ``--only depth``, ``--only occ``) runs the build
 and the named phases alone, in the order above, and prints no result
 lines; ``video`` runs the driver and depth phases first, ``mesh`` the
-driver phase (their checkpoints).
+driver phase (their checkpoints), ``dp`` the export phase (its
+artifact).  ``--dp_worker`` is the dp phase's own entry for the processes
+torchrun starts.
 """
 from __future__ import annotations
 
@@ -259,6 +284,11 @@ DRIVER_SIZE = 400
 LEGO_CAMERA_ANGLE_X = 0.6911112070083618
 DRIVER_STEPS, DRIVER_RESUME_STEPS = 300, 400
 DRIVER_PRINT = 50
+# --profile on the resumed run: 5 steps from its fourth
+DRIVER_PROFILE = 5
+# LPIPS on the card against the CPU on the same arrays and weights (cuDNN
+# pinned to fp32)
+LPIPS_TOL = 1e-5
 DRIVER_TRAIN = ["--precrop_iters", "50", "--constant_init", "100",
                 "--i_print", str(DRIVER_PRINT), "--i_weights", "150",
                 "--i_img", "150",
@@ -333,6 +363,17 @@ MESH_HOLDS = {"kernel_vs_plain_128": (128, MESH_CHUNK),
 MESH_CPU_RES = 32
 # pred_hyp, a depth along the ray, at the depth maps' tolerance
 HYP_TOL = dict(REFERENCE_TOL, pred_hyp=1e-2)
+# the dp phase: the driver phase's recipe for 20 steps and a resume to 40
+# (a checkpoint at each, a val render at 40, prints every 10), its test
+# task and a 128^3 mesh, with and without torchrun
+DP_STEPS, DP_RESUME_STEPS, DP_PRINT = 20, 40, 10
+DP_TRAIN = DRIVER_TRAIN + ["--i_print", str(DP_PRINT), "--i_weights",
+                           str(DP_STEPS), "--i_img", str(DP_RESUME_STEPS)]
+DP_MESH = ["--mesh_res", "128", "--adaptive_iso", "--mesh_threshold", "10",
+           "--min_component_faces", "100", "--bbox_min", "-1.5", "-1.5",
+           "-1.5", "--bbox_max", "1.5", "1.5", "1.5"]
+DP_TIMEOUT_S = 300
+DRIVER, MESH = "plnerf_torch.cli.run_plnerf", "plnerf_torch.cli.extract_mesh"
 PROBE_REPLACES = {"shape": "tools/dot_decompose.py:89",     # make_shape_kernel
                   "mixed": "tools/dot_decompose.py:161",    # make_mixed_kernel
                   "merged": "tools/dot_decompose.py:230",   # make_merged_kernel
@@ -888,12 +929,14 @@ def _hold_maps(got: dict, ref: dict, what: str) -> dict:
     return diff
 
 
-def phase_export(dev):
+def phase_export(dev, keep=None):
     """The serving artifact of the slice phase's weights: exported and
     loaded for fp32 and bf16, baked and args weights, each held against
     ``from_params`` on three 32,768-ray requests (perturb kept, seeds 0-2)
     and one 400x400 image, through the chunk module and the whole-batch
-    module.  Returns the forward launches of the artifacts' calls."""
+    module.  Returns the forward launches of the artifacts' calls.
+    ``keep``: a directory for the artifacts (``keep/float32_baked``, ...,
+    left for the dp phase), else a temporary one."""
     from plnerf_torch.kernels import fused_mlp
     from plnerf_torch.serving import export as SE
     from plnerf_torch.serving.runtime import ServingRenderer
@@ -935,7 +978,7 @@ def phase_export(dev):
     with tempfile.TemporaryDirectory(prefix="plnerf_serving_") as tmp:
         for name, srv in (("float32", test), ("bfloat16", bf16)):
             for mode in ("baked", "args"):
-                out = os.path.join(tmp, f"{name}_{mode}")
+                out = os.path.join(keep or tmp, f"{name}_{mode}")
                 t0 = time.perf_counter()
                 man = SE.export_renderer(
                     srv.params_c, srv.params_f, srv.mcfg, srv.rcfg, out,
@@ -1622,10 +1665,15 @@ def phase_driver(dev, bare_step_ms=None, scenes=None, keep=None):
         # two val renders (i_img at 150, 300), two launches per chunk each
         expect("train", 2 * DRIVER_STEPS + 2 * 2 * eval_chunks,
                2 * DRIVER_STEPS)
+        # --profile: steps 304-308 of the resumed run traced
         state = run("resume", train + ["--num_iterations",
-                                       str(DRIVER_RESUME_STEPS)])
+                                       str(DRIVER_RESUME_STEPS),
+                                       "--profile", str(DRIVER_PROFILE)])
         resumed = DRIVER_RESUME_STEPS - DRIVER_STEPS
         expect("resume", 2 * resumed, 2 * resumed)      # started at 300
+        profile = _profile_trace(os.path.join(
+            exp, "profile", f"trace_{DRIVER_STEPS + 4:06d}.json"),
+            DRIVER_PROFILE)
         ckpts = [os.path.basename(p) for p in ckio.list_checkpoints(exp)]
         if state.step != DRIVER_RESUME_STEPS or ckpts != [
                 "000150.ckpt", "000300.ckpt", "000400.ckpt"]:
@@ -1639,23 +1687,33 @@ def phase_driver(dev, bare_step_ms=None, scenes=None, keep=None):
         test = ["--task", "test", "--white_bkgd"] + where
         n_test = DRIVER_VIEWS["test"]
         scores = {}
-        for name, extra in (("test", []), ("test_init", ["--no_reload"])):
-            mm = run(name, test + extra)
+        lp_path = write_lpips_weights(os.path.join(root, "lpips_alex.npz"))
+        lp_flag = ["--lpips_weights", lp_path]
+        for name, extra in (("test", lp_flag),
+                            ("test_init", ["--no_reload"])):
+            with _Recording(run_plnerf.EI,
+                            "render_images_with_metrics") as rec:
+                mm = run(name, test + extra)
             expect(name, 2 * n_test * eval_chunks, 0)
             result_dir, = [d for d in os.listdir(exp)
                            if d.startswith("test_images_")]
-            with open(os.path.join(exp, result_dir, "metrics.txt")) as f:
+            metrics_txt = os.path.join(exp, result_dir, "metrics.txt")
+            with open(metrics_txt) as f:
                 text = f.read()
             if "psnr: " not in text or "ssim: " not in text:
                 raise AssertionError(f"metrics.txt: {text!r}")
-            scores[name] = {k: mm.get(k) for k in ("psnr", "ssim")}
+            scores[name] = {k: mm.as_dict().get(k)
+                            for k in ("psnr", "ssim", "lpips")}
+            if name == "test":
+                lpips = _lpips_hold(dev, lp_path, rec.calls[0][1][1],
+                                    _lpips_row(metrics_txt))
         if not scores["test"]["psnr"] > scores["test_init"]["psnr"]:
             raise AssertionError(f"held-out PSNR {scores}")
         view = _driver_view(test, state)
 
         # the fixed-distance sweep from the step-400 checkpoint
         with _Recording(run_plnerf.EI, "render_images_with_metrics") as rec:
-            sweep = run("test_fixed_dist", test[2:] + [
+            sweep = run("test_fixed_dist", test[2:] + lp_flag + [
                 "--task", "test_fixed_dist", "--eval_data_dir", data,
                 "--eval_scene_id", "fixdist"])
         n_dist = len(run_plnerf.FIXED_DIST_NEAR)
@@ -1669,6 +1727,8 @@ def phase_driver(dev, bare_step_ms=None, scenes=None, keep=None):
                     raise AssertionError(f"{sub}/metrics.txt")
             fixed[d] = {"near": run_plnerf.FIXED_DIST_NEAR[d],
                         "psnr": mm.get("psnr"), "ssim": mm.get("ssim"),
+                        "lpips": _lpips_row(os.path.join(sub,
+                                                         "metrics.txt")),
                         "s_per_image": s_ / FIXED_DIST_VIEWS}
         if len(fixed) != n_dist or len(rec.calls) != n_dist:
             raise AssertionError(f"fixed-dist results {fixed}")
@@ -1710,6 +1770,7 @@ def phase_driver(dev, bare_step_ms=None, scenes=None, keep=None):
             psnr_init=scores["test_init"]["psnr"],
             ssim_init=scores["test_init"]["ssim"],
             psnr_400=scores["test"]["psnr"], ssim_400=scores["test"]["ssim"],
+            lpips_400=scores["test"]["lpips"], lpips=lpips, profile=profile,
             view_check=view, fixed_dist=fixed,
             launches=launches, launches_per_train_step={
                 "fused_mlp_fwd": 2.0, "fused_mlp_bwd": 2.0},
@@ -1721,11 +1782,96 @@ def phase_driver(dev, bare_step_ms=None, scenes=None, keep=None):
                  "over the steps (scene load, init and the last save "
                  "too); s per test image: the test task's wall time "
                  "(scene and checkpoint load, renders, SSIM, png writes) "
-                 "over its images")
+                 "over its images; the resumed run traced steps "
+                 f"{DRIVER_STEPS + 4}-{DRIVER_STEPS + 3 + DRIVER_PROFILE} "
+                 "under --profile (their window's time includes the "
+                 "profiler's); lpips: seeded random weights, so the "
+                 "number checks the metric's path, not the model's "
+                 "perceptual quality")
         return fwd, bwd
     finally:
         if keep is None:
             shutil.rmtree(root, ignore_errors=True)
+
+
+def write_lpips_weights(path: str, seed: int = 0) -> str:
+    """Seeded random LPIPS weights in the exported ``.npz`` layout (HWIO
+    convolutions, [C, 1] heads): the metric's path on the card with
+    nothing downloaded.  Returns ``path``."""
+    from plnerf_torch.eval.lpips import LPIPS
+
+    sd = LPIPS.init_random(torch.Generator().manual_seed(seed)).state_dict()
+    out = {}
+    for i in range(5):
+        out[f"conv{i}_w"] = sd[f"conv{i}_w"].permute(2, 3, 1, 0).numpy()
+        out[f"conv{i}_b"] = sd[f"conv{i}_b"].numpy()
+        out[f"lin{i}_w"] = sd[f"lin{i}_w"].reshape(1, -1).T.numpy()
+    np.savez(path, **out)
+    return path
+
+
+def _lpips_row(metrics_txt: str) -> float:
+    """The finite ``lpips`` row of a metrics.txt; raises otherwise."""
+    with open(metrics_txt) as f:
+        rows = dict(line.rstrip("\n").split(": ", 1) for line in f)
+    value = float(rows.get("lpips", "nan"))
+    if not np.isfinite(value):
+        raise AssertionError(f"{metrics_txt}: lpips {rows.get('lpips')}")
+    return value
+
+
+def _lpips_hold(dev, path: str, res: dict, row: float) -> dict:
+    """LPIPS of the test task's images on the card against the CPU's on
+    the same arrays and weights (1e-5 relative), their mean against the
+    driver's metrics.txt row, and seconds per image on the card at the
+    images' size and at twice it (one pair upsampled)."""
+    from plnerf_torch.eval.lpips import load_lpips
+
+    card, cpu = load_lpips(path, dev), load_lpips(path, "cpu")
+    pairs = list(zip(res["rgbs"], res["target_rgbs"]))
+    got = [card(a, b) for a, b in pairs]
+    ref = [cpu(a, b) for a, b in pairs]
+    rel = max(abs(g - r) / abs(r) for g, r in zip(got, ref))
+    if rel > LPIPS_TOL or abs(np.mean(got) - row) > LPIPS_TOL * abs(row):
+        raise AssertionError(f"lpips card {got}, CPU {ref}, row {row}")
+
+    def seconds(a, b, reps=3):
+        card(a, b)                                  # warm
+        times = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            card(a, b)                              # float(): synced
+            times.append(time.perf_counter() - t)
+        return statistics.median(times)
+
+    a, b = pairs[0]
+    up = [np.repeat(np.repeat(x, 2, 0), 2, 1) for x in (a, b)]
+    return {"card": got, "cpu": ref, "max_rel_err": rel,
+            "tolerance": LPIPS_TOL, "metrics_txt": row,
+            f"s_per_image_{a.shape[0]}x{a.shape[1]}": seconds(a, b),
+            f"s_per_image_{up[0].shape[0]}x{up[0].shape[1]}":
+                seconds(*up)}
+
+
+def _profile_trace(path: str, steps: int) -> dict:
+    """The --profile window's Chrome trace: its top device kernels by ms
+    per step; raises unless it holds both fused MLP kernels."""
+    from plnerf_torch.utils.profile import FUSED_MLP_GROUPS
+
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    ms = {}
+    for e in events:
+        ms[e["name"]] = ms.get(e["name"], 0.0) + e["dur"] / 1e3 / steps
+    top = [[k[:80], v] for k, v in sorted(ms.items(),
+                                         key=lambda kv: -kv[1])[:5]]
+    groups = {g for g, pats in FUSED_MLP_GROUPS.items()
+              for name in ms if any(p in name for p in pats)}
+    if not {"fused_mlp_fwd", "fused_mlp_bwd_data"} <= groups:
+        raise AssertionError(f"{path}: kernels {sorted(ms)[:8]}")
+    return {"trace": os.path.basename(path), "steps": steps,
+            "kernels": len(ms), "top_device_ops_ms_per_step": top}
 
 
 def phase_llff(dev):
@@ -2123,13 +2269,18 @@ def phase_depth(dev, keep=None):
         # eval: test-time camera optimization (the model trained its
         # embeddings) cut from 100 epochs per view to DEPTH_CAM_EPOCHS
         scores = {}
+        lp_path = write_lpips_weights(os.path.join(root, "lpips_alex.npz"))
         orig = run_depth.optimize_camera_embedding
         run_depth.optimize_camera_embedding = functools.partial(
             orig, epochs=DEPTH_CAM_EPOCHS)
         try:
-            for name, extra in (("test", []),
+            for name, extra in (("test", ["--lpips_weights", lp_path]),
                                 ("test_init", ["--no_reload"])):
                 mm = run(name, test + extra)
+                if name == "test":
+                    depth_lpips = _lpips_row(os.path.join(
+                        exp, f"test_images_linear_{N_COARSE}_{N_FINE}"
+                        "with_optimization_mobj", "metrics.txt"))
                 # a camera-optimization batch: both passes forward, the
                 # fine pass backward (its loss is the fine colour's; the
                 # importance samples are detached)
@@ -2210,7 +2361,7 @@ def phase_depth(dev, keep=None):
                                    for k, v in window_s.items()},
             s_per_test_image=runs["test"] / n_test,
             s_per_samples_error_image=runs["samples_error"] / n_test,
-            run_s=runs, scores=scores,
+            run_s=runs, scores=scores, lpips_350=depth_lpips,
             importance_sampling_error=err.get("importance_sampling_error"),
             camera_opt={"view": ti, "epochs": DEPTH_CAM_EPOCHS,
                         "batches": cam_batches, "psnr_by_epoch": history,
@@ -2985,12 +3136,296 @@ def phase_mesh(dev, work):
     return launches["mesh"]["fused_mlp_fwd"]
 
 
+def dp_worker(argv) -> int:
+    """``chip_smoke.py --dp_worker OUT MODULE ARGS...``, a process of a
+    ``torchrun`` launch: runs ``python -m MODULE ARGS`` as that launch
+    would run it, the kernels' launch counters set to 0 just before and
+    read just after into ``OUT.rank{RANK}.json`` with its seconds."""
+    import runpy
+
+    import torch.distributed as dist
+
+    out, module, *args = argv
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from plnerf_torch.kernels import fused_mlp
+
+    sys.argv = [module] + args
+    fused_mlp.launches = fused_mlp.bwd_launches = 0     # path starts
+    t = time.perf_counter()
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    torch.cuda.synchronize()
+    rec = {"fused_mlp_fwd": fused_mlp.launches,          # path ends
+           "fused_mlp_bwd": fused_mlp.bwd_launches,
+           "s": time.perf_counter() - t}
+    with open(f"{out}.rank{os.environ['RANK']}.json", "w") as f:
+        json.dump(rec, f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def _torchrun(nproc: int, module: str, argv, out: str) -> dict:
+    """``torchrun --standalone --nproc_per_node nproc -m module argv``
+    through ``dp_worker`` (its output in ``out.log``): every rank's launch
+    counts and seconds, and the launch's wall seconds.  A rank that fails
+    fails the launch, which raises; the launch's process group is killed
+    at the time limit."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), os.path.abspath(__file__),
+           "--dp_worker", out, module] + list(argv)
+    t = time.perf_counter()
+    with open(out + ".log", "w") as log_f:
+        proc = subprocess.Popen(cmd, stdout=log_f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    wall = time.perf_counter() - t
+    if rc != 0:
+        with open(out + ".log") as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"torchrun {module} {argv}: exit {rc}\n{tail}")
+    ranks = {}
+    for r in range(nproc):
+        with open(f"{out}.rank{r}.json") as f:
+            ranks[r] = json.load(f)
+    return {"ranks": ranks, "wall_s": wall}
+
+
+def _files_equal(a: str, b: str) -> list:
+    """The names of the files under directory ``a`` whose bytes differ
+    from ``b``'s (or that ``b`` lacks)."""
+    bad = []
+    for name in sorted(os.listdir(a)):
+        pa, pb = os.path.join(a, name), os.path.join(b, name)
+        if os.path.isdir(pa):
+            bad += [f"{name}/{x}" for x in _files_equal(pa, pb)]
+            continue
+        with open(pa, "rb") as fa:
+            same = os.path.exists(pb) and fa.read() == open(pb, "rb").read()
+        if not same:
+            bad.append(name)
+    return bad
+
+
+def _logged(exp: str) -> dict:
+    """metrics.jsonl's records by (step, kind) without their clock fields
+    (``ts``, ``steps_per_sec``)."""
+    out = {}
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        for r in map(json.loads, f):
+            rec = {k: v for k, v in r.items()
+                   if k not in ("ts", "train/steps_per_sec")}
+            out[(r["step"], min(k for k in rec if k != "step"))] = rec
+    return out
+
+
+def _window_ms(exp: str) -> dict:
+    """ms per step of each i_print window, from metrics.jsonl."""
+    return {k: 1e3 / r["train/steps_per_sec"]
+            for k, r in _records(exp, "train/steps_per_sec").items()}
+
+
+def phase_dp(dev, work):
+    """Returns (forward launches, backward launches) of the runs.  ``work``
+    as in ``phase_video``, with the export phase's artifacts in
+    ``work["serving"]``."""
+    import shutil
+
+    from plnerf_torch.cli import extract_mesh
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="plnerf_dp_")
+    try:
+        data, _ = sphere_data(work["scenes"])
+        ckpt = os.path.join(root, "ckpt")
+        config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "configs", "blender_linear.txt")
+
+        def where(exp):
+            return ["--ckpt_dir", ckpt, "--expname", exp, "--data_dir", data,
+                    "--scene_id", "sphere"]
+
+        def commands(exp, extra=(), ft=None):
+            """(name, module, argv) of the train, resume, test and mesh
+            runs of experiment ``exp``; ``ft``: the checkpoint the test
+            and mesh runs evaluate (default the run's own)."""
+            train = (["--config", config, "--task", "train"] + where(exp)
+                     + DP_TRAIN + list(extra))
+            ev = where(exp) + (["--ft_path", ft] if ft else [])
+            return [
+                ("train", DRIVER, train + ["--num_iterations",
+                                           str(DP_STEPS)]),
+                ("resume", DRIVER, train + ["--num_iterations",
+                                            str(DP_RESUME_STEPS)]),
+                ("test", DRIVER, ["--task", "test", "--white_bkgd"] + ev),
+                ("mesh", MESH, ev + DP_MESH + [
+                    "--mesh_outdir", os.path.join(root, "mesh_" + exp)])]
+
+        # the plain runs, in this process; then the same under torchrun
+        run, _, launches, runs = _driver_runs()
+        mrun, _, mlaunches, mruns = _driver_runs(extract_mesh.main)
+        for name, module, argv in commands("plain"):
+            (mrun if module == MESH else run)(name, argv)
+        launches.update(mlaunches)
+        runs.update(mruns)
+        dp1 = {name: _torchrun(1, module, argv,
+                               os.path.join(root, f"dp1_{name}"))
+               for name, module, argv in commands("dp1")}
+
+        exp = {w: os.path.join(ckpt, w) for w in ("plain", "dp1")}
+        checks = {
+            "logged": [k for k, v in _logged(exp["plain"]).items()
+                       if _logged(exp["dp1"]).get(k) != v],
+            "state": {c: _state_diff(*(torch.load(
+                os.path.join(exp[w], c), map_location="cpu",
+                weights_only=True) for w in ("plain", "dp1")))["tensors"]
+                for c in (f"{DP_STEPS:06d}.ckpt",
+                          f"{DP_RESUME_STEPS:06d}.ckpt")},
+            # the test set, the val render (the checkpoints above)
+            "files": [f for f in _files_equal(exp["plain"], exp["dp1"])
+                      if f not in ("args.json", "metrics.jsonl")
+                      and not f.endswith(".ckpt")],
+            "mesh": _files_equal(os.path.join(root, "mesh_plain"),
+                                 os.path.join(root, "mesh_dp1")),
+            "launches": [n for n, d in dp1.items() if launches[n] != {
+                k: d["ranks"][0][k] for k in launches[n]}]}
+        if any(checks["state"].values()) or any(
+                v for k, v in checks.items() if k != "state"):
+            raise AssertionError(f"torchrun (1 rank) against the plain "
+                                 f"runs: {checks}")
+
+        w2 = "not run: 1 card"
+        if torch.cuda.device_count() >= 2:
+            w2 = _dp_two_ranks(commands, ckpt, root)
+
+        serving = _dp_serving(dev, os.path.join(work["serving"],
+                                                "float32_baked"))
+        ms = {w: _window_ms(exp[w]) for w in exp}
+        log("dp", card=card_line(), recipe="configs/blender_linear.txt",
+            steps=DP_RESUME_STEPS, resumed_from=DP_STEPS,
+            launcher="torchrun --standalone --nproc_per_node 1 (NCCL)",
+            checks=checks, ms_per_step_by_window=ms,
+            ms_per_step={w: statistics.mean(
+                v for k, v in ms[w].items()
+                if k not in (DP_PRINT, DP_STEPS + DP_PRINT)) for w in ms},
+            run_s={"plain": runs, "torchrun_wall": {
+                n: d["wall_s"] for n, d in dp1.items()},
+                "torchrun_rank0": {n: d["ranks"][0]["s"]
+                                   for n, d in dp1.items()}},
+            launches={"plain": launches, "torchrun": {
+                n: {k: v for k, v in d["ranks"][0].items() if k != "s"}
+                for n, d in dp1.items()}},
+            w2=w2, serving=serving,
+            phase_s=time.perf_counter() - t_phase,
+            note="ms_per_step: the mean of the i_print windows but the "
+                 "first of each process (20 and 40; metrics.jsonl's "
+                 "steps_per_sec); torchrun_wall "
+                 "includes the launcher, the process start and the "
+                 "process group's rendezvous")
+        fwd = sum(v["fused_mlp_fwd"] for v in launches.values()) + sum(
+            d["ranks"][0]["fused_mlp_fwd"] for d in dp1.values())
+        bwd = sum(v["fused_mlp_bwd"] for v in launches.values()) + sum(
+            d["ranks"][0]["fused_mlp_bwd"] for d in dp1.values())
+        return fwd, bwd
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _dp_two_ranks(commands, ckpt: str, root: str) -> dict:
+    """World size 2 against world size 1, both under torchrun with perturb
+    off: logged losses 1e-6 relative, the final parameters 1e-5 relative
+    L2; the test maps and the grid of world size 1's checkpoint bit-equal
+    (raises otherwise)."""
+    out = {}
+    for w in (1, 2):
+        ft = (None if w == 1 else os.path.join(
+            ckpt, "pp1", f"{DP_RESUME_STEPS:06d}.ckpt"))
+        for name, module, argv in commands(f"pp{w}", ["--perturb", "0"],
+                                           ft):
+            out[w, name] = _torchrun(w, module, argv,
+                                     os.path.join(root, f"pp{w}_{name}"))
+    exp = {w: os.path.join(ckpt, f"pp{w}") for w in (1, 2)}
+    losses = [{k: r["train/loss"] for k, r in _records(
+        exp[w], "train/loss").items()} for w in (1, 2)]
+    loss_rel = max(abs(losses[1][k] - v) / abs(v)
+                   for k, v in losses[0].items())
+    states = [torch.load(os.path.join(exp[w], f"{DP_RESUME_STEPS:06d}.ckpt"),
+                         map_location="cpu", weights_only=True)
+              for w in (1, 2)]
+    a, b = (torch.cat([t.reshape(-1) for _, t in sorted(_leaves(
+        {k: s[k] for k in ("params_coarse", "params_fine")}))])
+        for s in states)
+    params_rel = rel_l2(b, a)
+    test = [d for d in os.listdir(exp[1]) if d.startswith("test_images_")]
+    files = _files_equal(os.path.join(exp[1], test[0]),
+                         os.path.join(exp[2], test[0]))
+    mesh = _files_equal(os.path.join(root, "mesh_pp1"),
+                        os.path.join(root, "mesh_pp2"))
+    rec = {"loss_max_rel": loss_rel, "params_rel_l2": params_rel,
+           "test_files_differing": files, "mesh_files_differing": mesh,
+           "launches_w2": {n: out[2, n]["ranks"] for n in
+                           ("train", "resume", "test", "mesh")},
+           "ms_per_step": {w: _window_ms(exp[w]) for w in (1, 2)}}
+    if loss_rel > 1e-6 or params_rel > 1e-5 or files or mesh:
+        raise AssertionError(f"world size 2 against 1: {rec}")
+    return rec
+
+
+def _dp_serving(dev, art: str) -> dict:
+    """The export phase's baked fp32 artifact through
+    ``ServingRenderer.load(devices=[cuda:0, cuda:0])`` (and [cuda:0,
+    cuda:1] where a second card exists): the three 32,768-ray requests
+    and one 400x400 image (5 chunks, round-robin) bit-equal to one
+    device's chunk path."""
+    from plnerf_torch.serving.runtime import ServingRenderer
+
+    one = ServingRenderer.load(art, device=dev)
+    one._fused = None
+    requests = [_blender_rays(dev, R_CHUNK, seed) for seed in range(3)]
+    c2w, K = _blender_camera(7)
+    f = K[0, 0] * EXPORT_HW / 800
+    c = EXPORT_HW / 2
+    K2 = np.array([[f, 0, c], [0, f, c], [0, 0, 1]], np.float32)
+
+    def serve(srv):
+        t = time.perf_counter()
+        outs = [srv.render_rays(r, seed=s) for s, r in enumerate(requests)]
+        outs.append(srv.render_image(c2w, (EXPORT_HW, EXPORT_HW, f), K2,
+                                     seed=0))
+        return outs, time.perf_counter() - t
+
+    ref, _ = serve(one)
+    sets = [[dev, dev]]
+    if torch.cuda.device_count() >= 2:
+        sets.append([torch.device("cuda", 0), torch.device("cuda", 1)])
+    out = {}
+    for devs in sets:
+        srv = ServingRenderer.load(art, devices=devs)
+        serve(srv)                                          # warm
+        got, s = serve(srv)
+        bad = [(i, k) for i, (g, r) in enumerate(zip(got, ref))
+               for k in r if not np.array_equal(g[k], r[k])]
+        if bad or srv._fused is not None:
+            raise AssertionError(f"devices {devs}: maps differ {bad}")
+        out[",".join(str(d) for d in devs)] = {"bit_equal": True, "s": s}
+    if len(sets) == 1:
+        out["cuda:0,cuda:1"] = "not run: 1 card"
+    return out
+
+
 PHASES = ("kernel", "probes", "bwd", "slice", "reference", "export",
           "train", "interop", "train_reference", "driver", "llff", "depth",
-          "occ", "video", "mesh")
-# the phases each phase reads the checkpoints (interop: the state) of
+          "occ", "video", "mesh", "dp")
+# the phases each phase reads the checkpoints (interop: the state; dp:
+# the artifacts) of
 NEEDS = {"video": ("driver", "depth"), "mesh": ("driver",),
-         "interop": ("train",)}
+         "interop": ("train",), "dp": ("export",)}
 
 
 def main(argv=None) -> int:
@@ -3001,8 +3436,13 @@ def main(argv=None) -> int:
                     help="comma-separated phases out of " + ", ".join(PHASES)
                     + " (env always runs): their lines only, no result "
                     "lines")
+    ap.add_argument("--dp_worker", nargs=argparse.REMAINDER,
+                    help="OUT MODULE ARGS...: one process of the dp "
+                    "phase's torchrun launches (dp_worker)")
     args = ap.parse_args(argv)
     only = args.only.split(",") if args.only else None
+    if args.dp_worker:
+        return dp_worker(args.dp_worker)
     if only and not set(only) <= set(PHASES):
         ap.error(f"--only takes {', '.join(PHASES)}")
     if not torch.cuda.is_available():
@@ -3023,14 +3463,15 @@ def main(argv=None) -> int:
         # mesh phases read the driver and depth phases' checkpoints
         with tempfile.TemporaryDirectory(prefix="plnerf_work_") as tmp:
             work = {k: os.path.join(tmp, k)
-                    for k in ("scenes", "driver", "depth")}
+                    for k in ("scenes", "driver", "depth", "serving")}
             for d in work.values():
                 os.makedirs(d)
             kept = {}
             if only:
                 fns = dict(zip(PHASES, (
                     phase_kernel, phase_probes, phase_bwd_kernel,
-                    phase_slice, phase_reference, phase_export,
+                    phase_slice, phase_reference,
+                    lambda d: phase_export(d, work["serving"]),
                     lambda d: phase_train(d, kept),
                     lambda d: phase_interop(d, kept["state"]),
                     phase_train_reference,
@@ -3039,7 +3480,8 @@ def main(argv=None) -> int:
                     phase_llff, lambda d: phase_depth(d, work["depth"]),
                     lambda d: phase_occ(d, work["scenes"]),
                     lambda d: phase_video(d, work),
-                    lambda d: phase_mesh(d, work))))
+                    lambda d: phase_mesh(d, work),
+                    lambda d: phase_dp(d, work))))
                 need = set(only).union(*(NEEDS.get(n, ()) for n in only))
                 for name in PHASES:
                     if name in need:
@@ -3050,7 +3492,7 @@ def main(argv=None) -> int:
             bwd_err, bwd_t = phase_bwd_kernel(dev)
             launches = phase_slice(dev)
             phase_reference(dev)
-            export_fwd = phase_export(dev)
+            export_fwd = phase_export(dev, work["serving"])
             train_fwd, train_bwd, train_summary = phase_train(dev, kept)
             phase_interop(dev, kept.pop("state"))
             phase_train_reference(dev)
@@ -3062,6 +3504,7 @@ def main(argv=None) -> int:
             depth_fwd, depth_bwd = phase_depth(dev, work["depth"])
             video_fwd, video_bwd = phase_video(dev, work)
             mesh_fwd = phase_mesh(dev, work)
+            dp_fwd, dp_bwd = phase_dp(dev, work)
     except Exception:
         traceback.print_exc()
         return 1
@@ -3070,7 +3513,7 @@ def main(argv=None) -> int:
             or driver_bwd < 1 or llff_fwd < 1 or llff_bwd < 1
             or depth_fwd < 1 or depth_bwd < 1 or occ_fwd < 1
             or occ_bwd < 1 or video_fwd < 1 or video_bwd < 1
-            or mesh_fwd < 1 or export_fwd < 1):
+            or mesh_fwd < 1 or export_fwd < 1 or dp_fwd < 1 or dp_bwd < 1):
         print("chip_smoke: a main path launched no kernel", file=sys.stderr)
         return 1
     # the training path runs folded heads in fp32
@@ -3081,7 +3524,7 @@ def main(argv=None) -> int:
         "replaces": KERNEL_REPLACES,
         "launches": (launches + train_fwd + probe_fwd + driver_fwd
                      + llff_fwd + depth_fwd + occ_fwd + video_fwd
-                     + mesh_fwd + export_fwd),
+                     + mesh_fwd + export_fwd + dp_fwd),
         "max_abs_err": err, "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]}, {
@@ -3089,7 +3532,7 @@ def main(argv=None) -> int:
         "source": "plnerf_torch/kernels/csrc/fused_mlp_bwd.cu",
         "replaces": BWD_REPLACES,
         "launches": (train_bwd + driver_bwd + llff_bwd + depth_bwd
-                     + occ_bwd + video_bwd),
+                     + occ_bwd + video_bwd + dp_bwd),
         "max_abs_err": bwd_err, "ms": bt["kernel_ms"],
         "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"],
         "bound_by": bt["bound_by"], "library_ms": bt["library_ms"]}]

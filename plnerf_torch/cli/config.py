@@ -11,8 +11,8 @@ Every flag name and default of the JAX package is kept, so each
 ``configs/*.txt`` parses to the same values.  The port differs in two
 flags: ``--use_kernel`` (the fused CUDA MLP, a tri-state) replaces
 ``--use_pallas``, and ``--device`` picks ``cpu`` or ``cuda`` (unset: the
-CUDA device, raising where there is none).  Flags of paths not ported yet
-parse and are refused by the driver (``cli/run_plnerf.py``).
+CUDA device, raising where there is none).  ``--steps_per_dispatch``
+parses and is refused above 1 by the drivers (``cli/run_plnerf.py``).
 """
 from __future__ import annotations
 
@@ -187,7 +187,10 @@ def add_base_flags(parser: ConfigArgumentParser) -> None:
     a("--dtu_split", type=str, default=None)
     # --- additions of the JAX package and the port (not in reference) ---
     a("--lpips_weights", type=str, default=None,
-      help="LPIPS weights for eval (not ported yet: ROADMAP A14)")
+      help="LPIPS (AlexNet) weights for the eval tasks: the .npz of "
+           "tools/export_lpips_weights.py or a torch state dict; unset "
+           "reads $PLNERF_LPIPS_WEIGHTS, then weights/lpips_alex.npz, and "
+           "without a file metrics.txt notes LPIPS as UNAVAILABLE")
     a("--mlp_dtype", type=str, default="float32",
       help="float32 | bfloat16 matmul dtype for the NeRF MLP")
     a("--use_kernel", action=argparse.BooleanOptionalAction, default=None,
@@ -237,12 +240,13 @@ def add_base_flags(parser: ConfigArgumentParser) -> None:
            "+0.045 SSIM at identical cost (BASELINE.md). Writes into "
            "the same test_images dir as the default eval.")
     a("--no_mesh", action="store_true",
-      help="accepted; the port runs on one device (ROADMAP A15)")
+      help="one device: refused under torchrun with more than one "
+           "process (without torchrun the run uses one device anyway)")
     add_occ_flags(a)
     a("--seed", type=int, default=0)
     a("--profile", type=int, default=0,
-      help="profiler trace of N training steps (not ported yet: "
-           "ROADMAP A17; 0 = off)")
+      help="torch.profiler trace of N training steps, from the 4th step "
+           "of the run, into <expname>/profile/ (rank 0; 0 = off)")
     a("--debug", action="store_true",
       help="per-print NaN/Inf scan over training metrics (the reference's "
            "DEBUG flag, run_plnerf.py:42,754-757)")
@@ -291,9 +295,11 @@ _TEST_OVERRIDES = [
 ]
 
 
-def resolve_args(args: argparse.Namespace) -> argparse.Namespace:
-    """Train: dump args.json into <ckpt_dir>/<expname>/.  Other tasks:
-    reload args.json and keep only the ``_TEST_OVERRIDES`` CLI fields."""
+def resolve_args(args: argparse.Namespace,
+                 write: bool = True) -> argparse.Namespace:
+    """Train: dump args.json into <ckpt_dir>/<expname>/ (unless not
+    ``write``: a data-parallel rank other than 0).  Other tasks: reload
+    args.json and keep only the ``_TEST_OVERRIDES`` CLI fields."""
     if args.task == "train":
         if args.expname is None:
             import datetime
@@ -302,6 +308,8 @@ def resolve_args(args: argparse.Namespace) -> argparse.Namespace:
             args.expname = "{}_{}".format(
                 datetime.datetime.fromtimestamp(time.time()).strftime(
                     "%Y%m%d_%H%M%S"), args.scene_id)
+        if not write:
+            return args
         exp_dir = os.path.join(args.ckpt_dir, args.expname)
         os.makedirs(exp_dir, exist_ok=True)
         with open(os.path.join(exp_dir, "args.json"), "w") as f:

@@ -16,8 +16,12 @@ Runs on the CUDA device unless ``--device cpu`` is given, and raises
 where there is none.  ``--use_kernel`` is AUTO as in ``run_plnerf``: on a
 CUDA device the grid goes through the fp32 fused forward kernel
 (``mesh/extract.py``); the JAX driver's grid runs the unfused XLA MLP.
-The JAX driver's sharded grid over several devices is not ported (ROADMAP
-A15): the grid runs on one device.
+
+Under ``torchrun --nproc_per_node N -m plnerf_torch.cli.extract_mesh
+...`` each rank evaluates its own queries of the grid and rank 0 gathers
+it, runs marching cubes and the filter and writes the PLY (the
+counterpart of the JAX driver's sharded grid); the other ranks return
+None.
 """
 from __future__ import annotations
 
@@ -27,8 +31,10 @@ import numpy as np
 
 from ..device import resolve_device
 from ..mesh import extract as MX
+from ..parallel import mesh as pmesh
 from .config import ConfigArgumentParser, add_base_flags, resolve_args
-from .run_plnerf import _resolve_kernel, build_configs, restore_or_init
+from .run_plnerf import (_resolve_kernel, build_configs, join_mesh,
+                         restore_or_init)
 
 
 def config_parser() -> ConfigArgumentParser:
@@ -82,11 +88,12 @@ def resolve_bbox(args):
     return (np.full(3, -1.25, np.float32), np.full(3, 1.25, np.float32))
 
 
-def run(args) -> str:
-    """Extract, clean and write the mesh; returns the PLY's path."""
+def run(args, mesh=None):
+    """Extract, clean and write the mesh; returns the PLY's path (None on
+    a rank other than 0 of ``mesh``)."""
     device = resolve_device(args.device)
     _, _, setup = build_configs(args)
-    state, start, path = restore_or_init(args, setup, device)
+    state, start, path = restore_or_init(args, setup, device, mesh)
     if path is None:
         print("WARNING: extracting from an untrained network")
     net = (state.params_fine if state.params_fine is not None
@@ -94,10 +101,14 @@ def run(args) -> str:
 
     bmin, bmax = resolve_bbox(args)
     print("bbox:", bmin, bmax)
-    verts, faces = MX.extract_geometry(
+    geometry = MX.extract_geometry(
         net, net.cfg, bmin, bmax, resolution=args.mesh_res,
         threshold=args.mesh_threshold, adaptive=args.adaptive_iso,
-        chunk=args.mesh_chunk, use_kernel=_resolve_kernel(args, device))
+        chunk=args.mesh_chunk, use_kernel=_resolve_kernel(args, device),
+        mesh=mesh)
+    if geometry is None:
+        return None
+    verts, faces = geometry
     print(f"raw mesh: {verts.shape[0]} verts, {faces.shape[0]} faces")
     verts, faces = MX.filter_connected_components(
         verts, faces, min_len=args.min_component_faces)
@@ -112,15 +123,18 @@ def run(args) -> str:
     return out
 
 
-def main(argv=None) -> str:
+def main(argv=None):
     """Parse ``argv``; resolve the device before anything is read (raises
-    without CUDA unless ``--device cpu``); reload the experiment's
-    args.json with the mesh flags and the eval overrides from the command
-    line; run."""
+    without CUDA unless ``--device cpu``); join the process group under
+    ``torchrun``; reload the experiment's args.json with the mesh flags and
+    the eval overrides from the command line; run, printing from rank
+    0."""
     args = config_parser().parse_args(argv)
     resolve_device(args.device)
+    mesh = join_mesh(args)
     args.task = "mesh"
-    return run(resolve_args(args))
+    with pmesh.main_stdout(mesh):
+        return run(resolve_args(args), mesh)
 
 
 if __name__ == "__main__":

@@ -37,11 +37,18 @@ without the grid (uniform samples), as in the JAX driver.
 
 Runs on the CUDA device unless ``--device cpu`` is given, and raises where
 there is none.  ``--use_kernel`` (for ``--use_pallas``) is AUTO, on
-whenever the device is CUDA, as in ``run_plnerf``.  Refused with
-``SystemExit`` naming their ROADMAP item: ``--lpips_weights`` (A14),
-more than one CUDA device without ``--no_mesh`` (A15), and
-``--steps_per_dispatch`` above 1 (the port runs one step per loop
-iteration).
+whenever the device is CUDA, as in ``run_plnerf``.  ``test`` /
+``test_opt`` score LPIPS as ``run_plnerf`` does (``--lpips_weights``).
+``--steps_per_dispatch`` above 1 is refused (the port runs one step per
+loop iteration).
+
+Data parallelism: ``torchrun --nproc_per_node N -m
+plnerf_torch.cli.run_depth train ...`` as ``run_plnerf`` describes it
+(``--N_rand`` must divide by N; each rank takes its rows of the image's
+rays and of its depth hypotheses).  Test-time camera optimization runs on
+rank 0 and its embeddings are broadcast (the JAX driver runs it
+unsharded).  Without ``torchrun`` a machine with several cards uses one
+and prints a line naming ``torchrun``.
 
 Randomness: each step's image is ``np.random.default_rng(--random_seed)
 .choice(i_train)``, the sequence the JAX driver draws; its pixels and the
@@ -67,6 +74,7 @@ from ..data import blender as dblender
 from ..device import make_generator, resolve_device
 from ..eval import images as EI
 from ..eval import metrics as Mx
+from ..parallel import mesh as pmesh
 from ..train import batching
 from ..train.camera_opt import optimize_camera_embedding
 from ..train.step import (TrainSetup, apply_occ_update, init_state,
@@ -74,9 +82,10 @@ from ..train.step import (TrainSetup, apply_occ_update, init_state,
 from ..utils.logging import MetricsLogger
 from .config import (ConfigArgumentParser, add_occ_flags, resolve_args,
                      str2bool)
-from .run_plnerf import (_occ_advisory, _resolve_kernel, eval_render_config,
-                         occ_cfg_from_args, occ_for_eval, occ_train_grid,
-                         save_checkpoint)
+from .run_plnerf import (_lpips, _occ_advisory, _resolve_kernel,
+                         eval_render_config, join_mesh, occ_cfg_from_args,
+                         occ_for_eval, occ_train_grid, save_checkpoint,
+                         state_tensors)
 
 TASKS = ("train", "test", "test_opt", "test_samples_error", "video")
 
@@ -149,7 +158,7 @@ def config_parser() -> ConfigArgumentParser:
     a("--train_skip", default=1, type=int)
     # additions of the JAX package and the port
     a("--lpips_weights", type=str, default=None,
-      help="LPIPS weights for eval (not ported yet: ROADMAP A14)")
+      help="LPIPS weights for test / test_opt (see run_plnerf)")
     a("--steps_per_dispatch", type=int, default=1,
       help="kept for config parity with the JAX driver, which scans N "
            "steps in one program; the port accepts only 1")
@@ -161,8 +170,8 @@ def config_parser() -> ConfigArgumentParser:
       help="where to run; unset means the CUDA device (raises without "
            "one)")
     a("--no_mesh", action="store_true",
-      help="run on one device where several are visible (the port has no "
-           "data parallelism yet, ROADMAP A15)")
+      help="one device: refused under torchrun with more than one "
+           "process")
     a("--eval_N_samples", type=int, default=None,
       help="eval tasks: sample-budget override (see run_plnerf)")
     a("--eval_N_importance", type=int, default=None)
@@ -255,12 +264,13 @@ def depth_batch(images: torch.Tensor, poses: torch.Tensor,
 
 
 def init_depth_state(args, setup: TrainSetup, n_images: int,
-                     device: torch.device):
+                     device: torch.device, mesh=None):
     """Returns ``(state, start, path)``: a fresh state seeded
     ``--random_seed`` (scales times ``--scale_init``, shifts plus
     ``--shift_init``), then, unless ``--no_reload``, the experiment's
     latest checkpoint when there is one; ``path`` is the file restored or
-    None."""
+    None.  Every rank of ``mesh`` reads it, then takes rank 0's
+    tensors."""
     state = init_state(make_generator(args.random_seed, device), setup,
                        device, n_images=n_images)
     with torch.no_grad():
@@ -270,19 +280,22 @@ def init_depth_state(args, setup: TrainSetup, n_images: int,
     if path:
         ckio.restore_checkpoint(path, state, device)
         print(f"Resumed from {path} at step {state.step}")
+    pmesh.replicate(state_tensors(state), mesh)
     return state, state.step, path
 
 
 def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
-                 rcfg: RenderConfig):
-    """The train loop; returns the final ``TrainState``."""
+                 rcfg: RenderConfig, mesh=None):
+    """The train loop; returns the final ``TrainState``.  ``mesh``: this
+    rank's place in a data-parallel run."""
     device = resolve_device(args.device)
+    main = pmesh.is_main(mesh)
     i_train, i_val, i_test = [np.asarray(s) for s in data.i_split[:3]]
     if len(i_val) == 0:
         i_val = i_test
-    state, start, ckpt_path = init_depth_state(args, setup,
-                                               data.images.shape[0], device)
-    logger = MetricsLogger(exp_dir(args))
+    state, start, ckpt_path = init_depth_state(
+        args, setup, data.images.shape[0], device, mesh)
+    logger = MetricsLogger(exp_dir(args), enabled=main)
     occ_cfg = occ_cfg_from_args(args)
     occ_state, occ_warm_end = None, 0
     if occ_cfg is not None:
@@ -299,12 +312,12 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
     depths = dev(np.asarray(data.gt_depths)[..., 0])
     sc_mask = np.asarray(data.gt_valid_depths).astype(np.float32)
     sc_mask = dev(sc_mask[..., 0] if sc_mask.ndim == 4 else sc_mask)
-    step_fn = make_depth_train_step(setup)
+    step_fn = make_depth_train_step(setup, mesh)
     occ_setup = occ_step = None
     if occ_cfg is not None:
         occ_setup = dataclasses.replace(setup, rcfg=dataclasses.replace(
             rcfg, occ=occ_cfg))
-        occ_step = make_depth_train_step(occ_setup)
+        occ_step = make_depth_train_step(occ_setup, mesh)
     g = make_generator(args.random_seed, device)
     rng = np.random.default_rng(args.random_seed)
     t0 = time.time()
@@ -319,8 +332,9 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
         if occ_on:
             state, metrics = occ_step(state, dict(batch, occ_grid=occ_state),
                                       g)
-            occ_state, metrics = apply_occ_update(occ_setup, occ_state,
-                                                  batch, metrics)
+            occ_state, metrics = apply_occ_update(
+                occ_setup, occ_state, pmesh.shard_batch(batch, mesh),
+                metrics, mesh)
         else:
             state, metrics = step_fn(state, batch, g)
         steps_since_print += 1
@@ -350,7 +364,7 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
                 data.hwf, data.intrinsics[vi], mcfg,
                 EI.test_render_config(rcfg, occ=occ_cfg), near=data.near,
                 far=data.far, chunk=args.chunk, pixel_center=True,
-                mcfg_fine=setup.mcfg_fine, occ_grid=occ_state)
+                mcfg_fine=setup.mcfg_fine, occ_grid=occ_state, mesh=mesh)
             val_mse = float(np.mean(
                 (out["rgb_map"] - np.asarray(data.images[vi])) ** 2))
             rec = {"mse": val_mse, "psnr": Mx.mse2psnr(val_mse)}
@@ -361,19 +375,22 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
                                                   valid)
             logger.scalars(i, rec, prefix="val/")
             logger.image(i, "val/rgb", np.clip(out["rgb_map"], 0, 1))
-        if i % args.i_weights == 0:
+        if i % args.i_weights == 0 and main:
             save_checkpoint(args, state, occ_state)
-    save_checkpoint(args, state, occ_state)
+    if main:
+        save_checkpoint(args, state, occ_state)
+    # the checkpoint is whole before any rank goes on
+    pmesh.barrier(mesh)
     logger.close()
     return state
 
 
 def run_test(args, data, setup: TrainSetup, mcfg: ModelConfig, test_rcfg,
-             state, occ_grid=None):
+             state, occ_grid=None, mesh=None):
     """``test`` / ``test_opt``: the held-out views, each first fitted its
     camera embedding where the model has camera channels and the task is
-    ``test_opt`` or the model trained them (without the grid); returns the
-    ``MeanTracker``."""
+    ``test_opt`` or the model trained them (without the grid; on rank 0,
+    the embeddings then broadcast); returns the ``MeanTracker``."""
     i_test = np.asarray(data.i_split[2])
     with_opt = (mcfg.input_ch_cam > 0
                 and (args.task == "test_opt" or args.opt_ch_cam))
@@ -383,17 +400,22 @@ def run_test(args, data, setup: TrainSetup, mcfg: ModelConfig, test_rcfg,
     cam_embeddings = None
     if with_opt:
         cam_embeddings = {
-            int(ti): optimize_camera_embedding(
+            int(ti): (optimize_camera_embedding(
                 state.params_coarse, state.params_fine,
                 np.asarray(data.images[ti]), data.poses[ti],
                 data.intrinsics[ti], mcfg, test_rcfg, near=data.near,
-                far=data.far, n_rand=args.N_rand)
+                far=data.far, n_rand=args.N_rand) if pmesh.is_main(mesh)
+                else torch.zeros(mcfg.input_ch_cam,
+                                 device=resolve_device(args.device)))
             for ti in i_test}
+        pmesh.replicate(list(cam_embeddings.values()), mesh)
     mm, res = EI.render_images_with_metrics(
         state.params_coarse, state.params_fine, data, i_test, mcfg,
         test_rcfg, chunk=args.chunk, pixel_center=True,
         cam_embeddings=cam_embeddings, mcfg_fine=setup.mcfg_fine,
-        occ_grid=occ_grid)
+        occ_grid=occ_grid, lpips_fn=_lpips(args, mesh), mesh=mesh)
+    if not pmesh.is_main(mesh):
+        return mm
     result_dir = os.path.join(
         exp_dir(args),
         f"test_images_{args.mode}_{args.N_samples}_{args.N_importance}"
@@ -403,7 +425,7 @@ def run_test(args, data, setup: TrainSetup, mcfg: ModelConfig, test_rcfg,
 
 
 def run_video(args, data, setup: TrainSetup, mcfg: ModelConfig, test_rcfg,
-              state, occ_grid) -> np.ndarray:
+              state, occ_grid, mesh=None) -> np.ndarray:
     """The ``video`` split's poses (the test views where the scene has
     none) with pixel-centre rays and no camera embedding, into
     ``video/``: ``{i:03d}.png``, ``write_video``'s ``video/{i:03d}.png``,
@@ -416,32 +438,29 @@ def run_video(args, data, setup: TrainSetup, mcfg: ModelConfig, test_rcfg,
         state.params_coarse, state.params_fine,
         np.asarray(data.poses)[i_video], data.hwf, data.K, mcfg, test_rcfg,
         near=data.near, far=data.far, chunk=args.chunk, savedir=savedir,
-        pixel_center=True, mcfg_fine=setup.mcfg_fine, occ_grid=occ_grid)
-    EI.write_video(os.path.join(savedir, "video.mp4"), rgbs, fps=10)
-    EI.write_depth_video_frames(savedir, depths, far=data.far)
+        pixel_center=True, mcfg_fine=setup.mcfg_fine, occ_grid=occ_grid,
+        mesh=mesh)
+    if pmesh.is_main(mesh):
+        EI.write_video(os.path.join(savedir, "video.mp4"), rgbs, fps=10)
+        EI.write_depth_video_frames(savedir, depths, far=data.far)
     return rgbs
 
 
 def _refuse_unported(args) -> None:
-    if args.lpips_weights:
-        raise SystemExit("--lpips_weights: LPIPS is not ported yet "
-                         "(ROADMAP A14)")
     if args.steps_per_dispatch > 1:
         raise SystemExit(f"--steps_per_dispatch {args.steps_per_dispatch}: "
                          "the port runs one step per loop iteration; only 1 "
                          "is accepted")
-    if (args.device != "cpu" and torch.cuda.device_count() > 1
-            and not args.no_mesh):
-        raise SystemExit(f"{torch.cuda.device_count()} CUDA devices: data "
-                         "parallelism is not ported yet (ROADMAP A15); pass "
-                         "--no_mesh to run on one")
+    if args.task == "train" and not args.no_mesh:
+        pmesh.refuse_unsplit(args.N_rand)
     if args.task not in TASKS:
         raise SystemExit(f"Unknown task {args.task}")
 
 
-def run(args):
+def run(args, mesh=None):
     """Run ``args.task``; returns the final ``TrainState`` (train), the
-    metrics' ``MeanTracker`` (the eval tasks) or the frames (video)."""
+    metrics' ``MeanTracker`` (the eval tasks) or the frames (video).
+    ``mesh``: this rank's place under ``torchrun``."""
     _refuse_unported(args)
     if args.task != "train":
         # eval-time sample-budget override; mutating args keeps rcfg and
@@ -453,10 +472,10 @@ def run(args):
     mcfg, rcfg, setup = build_configs(args)
     data = load_depth_dataset(args)
     if args.task == "train":
-        return run_training(args, data, setup, mcfg, rcfg)
+        return run_training(args, data, setup, mcfg, rcfg, mesh)
     device = resolve_device(args.device)
     state, start, path = init_depth_state(args, setup, data.images.shape[0],
-                                          device)
+                                          device, mesh)
     if start == 0 and not args.no_reload:
         print("WARNING: no checkpoint found — evaluating fresh init")
     occ_cfg, occ_grid = occ_for_eval(args, path, device)
@@ -472,21 +491,28 @@ def run(args):
             chunk=args.chunk, pixel_center=True,
             valid_mask_from_dataset=True,
             metrics_filename="metrics_depth_samples.txt",
-            mcfg_fine=setup.mcfg_fine, occ_grid=occ_grid)
+            mcfg_fine=setup.mcfg_fine, occ_grid=occ_grid, mesh=mesh)
     if args.task == "video":
-        return run_video(args, data, setup, mcfg, test_rcfg, state, occ_grid)
-    return run_test(args, data, setup, mcfg, test_rcfg, state, occ_grid)
+        return run_video(args, data, setup, mcfg, test_rcfg, state, occ_grid,
+                         mesh)
+    return run_test(args, data, setup, mcfg, test_rcfg, state, occ_grid,
+                    mesh)
 
 
 def main(argv=None):
     """Parse ``argv``; before anything is read or written, resolve the
     device (raises without CUDA unless ``--device cpu``) and refuse what is
-    not ported; then run with the args.json round trip of
-    ``cli/config.resolve_args``."""
+    not ported; join the process group under ``torchrun``; then run with
+    the args.json round trip of ``cli/config.resolve_args``, printing from
+    rank 0."""
     args = config_parser().parse_args(argv)
     resolve_device(args.device)
     _refuse_unported(args)
-    return run(resolve_args(args))
+    mesh = join_mesh(args)
+    args = resolve_args(args, write=pmesh.is_main(mesh))
+    args.expname = pmesh.broadcast_object(args.expname, mesh)
+    with pmesh.main_stdout(mesh):
+        return run(args, mesh)
 
 
 if __name__ == "__main__":

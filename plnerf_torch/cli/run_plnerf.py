@@ -46,8 +46,23 @@ Datasets: llff, blender, blender2, blender_fixeddist, DTU, DTU2
 (``cli/datasets.py``).  Runs on the CUDA device unless ``--device cpu`` is
 given, and raises where there is none.  ``--ft_path`` may name a
 checkpoint of the port, of the JAX package or a reference ``.tar``
-(``checkpoint/io.py``).  Not ported yet, each refused with ``SystemExit``
-naming its ROADMAP item: ``--profile`` (A17), ``--lpips_weights`` (A14).
+(``checkpoint/io.py``).  The eval tasks score LPIPS with
+``--lpips_weights`` (else ``$PLNERF_LPIPS_WEIGHTS``, else
+``weights/lpips_alex.npz``; without a file metrics.txt notes it as
+UNAVAILABLE).  ``--profile N`` traces N training steps from the fourth
+with ``torch.profiler`` into ``<expname>/profile/`` and prints the top
+device ops.
+
+Data parallelism (``parallel/mesh.py``):
+
+    torchrun --nproc_per_node N -m plnerf_torch.cli.run_plnerf --config ...
+
+runs one process per card: every rank draws the same global batch of
+``--N_rand`` rays (which must divide by N) and trains on its rows, the
+gradients averaged by one all-reduce per step; eval renders, the density
+grid and videos split their chunks over the ranks.  Rank 0 writes the
+checkpoints, ``metrics.jsonl``, val renders, test sets, videos and the
+profile, and prints; every rank reads a checkpoint to resume.
 
 Differences from the JAX driver:
 
@@ -79,6 +94,16 @@ Differences from the JAX driver:
 * The degenerate-guidance guard reads ``occ_ray_frac`` (a host sync) only
   on the steps where it can fire, past the grace window; the JAX driver
   reads it after every dispatch window.  The decisions are the same.
+* The JAX driver takes every device by itself (``get_mesh``); the port
+  spreads over several only under ``torchrun``, and on a machine with
+  several cards without it prints one line naming ``torchrun``.
+  ``--no_mesh`` under a launch of more than one process is refused.
+* The fused kernels stay on under data parallelism: each rank runs them
+  on its own rows.  The JAX driver turns AUTO Pallas off under a mesh,
+  since GSPMD cannot partition a Mosaic call.
+* Eval renders under data parallelism equal the one-device renders bit for
+  bit (chunk ``i`` keeps its seed on whichever rank renders it); the JAX
+  driver's sharded renders fold the mesh axis index into each chip's key.
 """
 from __future__ import annotations
 
@@ -95,9 +120,12 @@ from ..core.config import ModelConfig, RenderConfig
 from ..device import make_generator, resolve_device
 from ..eval import images as EI
 from ..eval import metrics as Mx
+from ..eval.lpips import load_lpips
+from ..parallel import mesh as pmesh
 from ..train import batching
 from ..train.step import (TrainSetup, init_state, make_occ_train_step,
                           make_train_step)
+from ..utils import profile as uprofile
 from ..utils.logging import MetricsLogger
 from .datasets import DatasetBundle, load_dataset
 from .config import config_parser, resolve_args
@@ -152,20 +180,36 @@ def exp_dir(args) -> str:
     return os.path.join(args.ckpt_dir, args.expname)
 
 
-def restore_or_init(args, setup: TrainSetup, device: torch.device):
+def restore_or_init(args, setup: TrainSetup, device: torch.device,
+                    mesh=None):
     """Returns ``(state, start, path)``: a fresh state seeded ``--seed``,
     restored from ``--ft_path`` or, unless ``--no_reload``, the
     experiment's latest checkpoint when there is one; ``path`` is the file
-    restored (its sidecars sit beside it), None for the fresh state."""
+    restored (its sidecars sit beside it), None for the fresh state.
+    Every rank of ``mesh`` reads the checkpoint, then takes rank 0's
+    parameters."""
     state = init_state(make_generator(args.seed, device), setup, device)
     path = args.ft_path
     if not path and not args.no_reload:
         path = ckio.latest_checkpoint(exp_dir(args))
+    start = 0
     if path and os.path.exists(path):
         ckio.restore_checkpoint(path, state, device)
         print(f"Resumed from {path} at step {state.step}")
-        return state, state.step, path
-    return state, 0, None
+        start = state.step
+    else:
+        path = None
+    pmesh.replicate(state_tensors(state), mesh)
+    return state, start, path
+
+
+def state_tensors(state) -> list:
+    """The parameters of both networks and the per-image tensors."""
+    out = list(state.params_coarse.parameters())
+    if state.params_fine is not None:
+        out += list(state.params_fine.parameters())
+    return out + [t for t in (state.depth_scales, state.depth_shifts,
+                              state.cam_embeddings) if t is not None]
 
 
 def occ_cfg_from_args(args):
@@ -321,12 +365,14 @@ def _dead_coarse_advisory(m: dict, step: int, warned: bool,
 
 
 def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
-                 mcfg: ModelConfig, rcfg: RenderConfig):
-    """The train loop; returns the final ``TrainState``."""
+                 mcfg: ModelConfig, rcfg: RenderConfig, mesh=None):
+    """The train loop; returns the final ``TrainState``.  ``mesh``: this
+    rank's place in a data-parallel run (the module docstring)."""
     device = resolve_device(args.device)
+    main = pmesh.is_main(mesh)
     data = bundle.data
-    state, start, ckpt_path = restore_or_init(args, setup, device)
-    logger = MetricsLogger(exp_dir(args))
+    state, start, ckpt_path = restore_or_init(args, setup, device, mesh)
+    logger = MetricsLogger(exp_dir(args), enabled=main)
 
     use_batching = not args.no_batching
     n_rand = args.N_rand
@@ -342,7 +388,8 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
     def make_step(const_init: bool, occ_on: bool):
         s = dataclasses.replace(setup, rcfg=dataclasses.replace(
             rcfg, constant_init=const_init, occ=occ_cfg if occ_on else None))
-        return make_occ_train_step(s) if occ_on else make_train_step(s)
+        return (make_occ_train_step(s, mesh) if occ_on
+                else make_train_step(s, mesh))
 
     # one step function per quadrature phase (constant_init on / off) and,
     # with the grid, per grid phase (warm-up / guided)
@@ -375,7 +422,15 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
     t0 = time.time()
     steps_since_print = 0
     dead_warned = occ_warned = False
+    profile_n = args.profile if main else 0
+    prof = prof_first = None
     for i in range(start + 1, n_iters + 1):
+        if profile_n and prof_first is None and i > start + 3:
+            # from the fourth step: the first ones build and warm up
+            prof, prof_first = uprofile.start_trace(device), i
+        elif prof is not None and i >= prof_first + profile_n:
+            _stop_profile(args, prof, prof_first, device, profile_n)
+            prof = None
         # the phases of step i, as the reference picks them
         occ_on = occ_cfg is not None and i > occ_warm_end
         step_fn = steps[(i < args.constant_init and rcfg.mode == "linear",
@@ -435,7 +490,7 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
                         f"[Numerical Fail] non-finite metrics at iter {i}: "
                         f"{bad} (reference DEBUG scan, run_plnerf.py:754)")
 
-        if i % args.i_weights == 0:
+        if i % args.i_weights == 0 and main:
             save_checkpoint(args, state, occ_state)
 
         if i % args.i_img == 0 and len(bundle.i_val) > 0:
@@ -445,7 +500,7 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
                 data.hwf, data.K, mcfg,
                 EI.test_render_config(rcfg, occ=occ_cfg), near=near,
                 far=far, chunk=c, ndc=bundle.ndc, mcfg_fine=setup.mcfg_fine,
-                occ_grid=occ_state), ev_chunk)
+                occ_grid=occ_state, mesh=mesh), ev_chunk)
             val_mse = float(np.mean(
                 (out["rgb_map"] - np.asarray(data.images[vi])) ** 2))
             logger.scalars(i, {"mse": val_mse, "psnr": Mx.mse2psnr(val_mse)},
@@ -455,17 +510,41 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
         if i % args.i_testset == 0 and i < n_iters:
             _oom_retry(lambda c: run_test(
                 args, bundle, mcfg, rcfg, state=state, suffix=f"_{i:06d}",
-                setup=setup, chunk=c, occ=(occ_cfg, occ_state)), ev_chunk)
+                setup=setup, chunk=c, occ=(occ_cfg, occ_state),
+                mesh=mesh), ev_chunk)
 
         if i % args.i_video == 0 and i < n_iters:
             _oom_retry(lambda c: run_video(
                 args, bundle, mcfg, rcfg, setup, state=state, step=i,
-                chunk=c, occ=(occ_cfg, occ_state)), ev_chunk)
+                chunk=c, occ=(occ_cfg, occ_state), mesh=mesh), ev_chunk)
 
-    save_checkpoint(args, state, occ_state)
+    if prof is not None:   # the run ended inside the profiled window
+        _stop_profile(args, prof, prof_first, device, n_iters + 1 - prof_first)
+    if main:
+        save_checkpoint(args, state, occ_state)
+    # the checkpoint is whole before any rank goes on
+    pmesh.barrier(mesh)
     logger.close()
     print("Training complete.")
     return state
+
+
+def _stop_profile(args, prof, first: int, device, steps: int) -> dict:
+    """End the --profile window of ``steps`` steps from step ``first``:
+    the Chrome trace ``<expname>/profile/trace_{first:06d}.json`` and a
+    table of the top device ops (the host's on the CPU)."""
+    out = uprofile.stop_trace(prof, os.path.join(
+        exp_dir(args), "profile", f"trace_{first:06d}.json"), device, steps)
+    print(f"Wrote profiler trace of steps {first}-{first + steps - 1} to",
+          out["trace"])
+    for what in ("top_device_ops", "top_host_ops"):
+        print(f"[profile] {what} (ms per step):")
+        for name, ms in out[what]:
+            print(f"  {ms:10.3f}  {name}")
+    gaps = out["device_gaps"]
+    print(f"[profile] device idle {gaps['idle_ms']:.1f} ms in "
+          f"{gaps['gaps']} gaps over a {gaps['span_ms']:.1f} ms span")
+    return out
 
 
 def save_checkpoint(args, state, occ_state=None) -> str:
@@ -523,30 +602,41 @@ def eval_render_config(args, rcfg: RenderConfig,
     return EI.test_render_config(rcfg, occ=occ_cfg, **ov)
 
 
-def _state_for_eval(args, setup):
+def _state_for_eval(args, setup, mesh=None):
     """``(state, occ_cfg, grid)``: the checkpoint under evaluation and its
     grid (``occ_for_eval``)."""
     device = resolve_device(args.device)
-    state, start, path = restore_or_init(args, setup, device)
+    state, start, path = restore_or_init(args, setup, device, mesh)
     if start == 0 and not args.no_reload:
         print("WARNING: no checkpoint found — evaluating fresh init")
     return (state,) + occ_for_eval(args, path, device)
 
 
+def _lpips(args, mesh=None):
+    """The LPIPS metric on the run's device (rank 0 only), or None."""
+    if not pmesh.is_main(mesh):
+        return None
+    return load_lpips(getattr(args, "lpips_weights", None),
+                      resolve_device(args.device))
+
+
 def run_test(args, bundle, mcfg, rcfg, state=None, suffix: str = "",
-             setup=None, chunk=None, occ=(None, None)):
+             setup=None, chunk=None, occ=(None, None), mesh=None):
     """Render and score the test split; writes the images and metrics.txt
-    and returns the ``MeanTracker``.  Without ``state``, the checkpoint
-    under evaluation and its grid; with it, ``occ`` is (occ_cfg, grid)."""
+    (rank 0) and returns the ``MeanTracker``.  Without ``state``, the
+    checkpoint under evaluation and its grid; with it, ``occ`` is
+    (occ_cfg, grid)."""
     if state is None:
-        state, *occ = _state_for_eval(args, setup)
+        state, *occ = _state_for_eval(args, setup, mesh)
     occ_cfg, occ_grid = occ
     mean_metrics, res = EI.render_images_with_metrics(
         state.params_coarse, state.params_fine, bundle.data, bundle.i_test,
         mcfg, eval_render_config(args, rcfg, occ_cfg),
         chunk=chunk or args.chunk, near=bundle.near, far=bundle.far,
         ndc=bundle.ndc, mcfg_fine=setup.mcfg_fine if setup else None,
-        occ_grid=occ_grid)
+        occ_grid=occ_grid, lpips_fn=_lpips(args, mesh), mesh=mesh)
+    if not pmesh.is_main(mesh):
+        return mean_metrics
     result_dir = os.path.join(
         exp_dir(args),
         f"test_images_{args.mode}_{args.N_samples}_{args.N_importance}"
@@ -560,14 +650,15 @@ def run_test(args, bundle, mcfg, rcfg, state=None, suffix: str = "",
 FIXED_DIST_NEAR = {0.25: 1e-4, 0.5: 0.5, 0.75: 1.0, 1.0: 2.0}
 
 
-def run_test_fixed_dist(args, mcfg, rcfg, setup):
+def run_test_fixed_dist(args, mcfg, rcfg, setup, mesh=None):
     """Score the checkpoint on the held-out views of the blender_fixeddist
     scene ``--eval_data_dir`` / ``--eval_scene_id`` at each distance of
     ``FIXED_DIST_NEAR``, with its near plane; returns {dist:
     MeanTracker}."""
     import copy
 
-    state, occ_cfg, occ_grid = _state_for_eval(args, setup)
+    state, occ_cfg, occ_grid = _state_for_eval(args, setup, mesh)
+    lp = _lpips(args, mesh)
     out = {}
     for test_dist, near in FIXED_DIST_NEAR.items():
         eval_args = copy.copy(args)
@@ -581,31 +672,34 @@ def run_test_fixed_dist(args, mcfg, rcfg, setup):
             state.params_coarse, state.params_fine, bundle.data,
             bundle.i_test, mcfg, eval_render_config(args, rcfg, occ_cfg),
             chunk=args.chunk, near=near, far=bundle.far,
-            mcfg_fine=setup.mcfg_fine, occ_grid=occ_grid)
+            mcfg_fine=setup.mcfg_fine, occ_grid=occ_grid, lpips_fn=lp,
+            mesh=mesh)
+        out[test_dist] = mean_metrics
+        if not pmesh.is_main(mesh):
+            continue
         EI.write_images_with_metrics(res, mean_metrics, os.path.join(
             exp_dir(args), f"test_images_dist{test_dist}_{args.scene_id}"))
         print(f"[fixed_dist {test_dist}] psnr="
               f"{mean_metrics.get('psnr'):.3f}")
-        out[test_dist] = mean_metrics
     return out
 
 
-def run_test_samples_error(args, bundle, mcfg, rcfg, setup):
+def run_test_samples_error(args, bundle, mcfg, rcfg, setup, mesh=None):
     """The importance-sampling error of the held-out views, written to
     ``test_samples_error_{N_importance}/metrics_expecteddepth.txt``;
     returns the ``MeanTracker``."""
-    state, occ_cfg, occ_grid = _state_for_eval(args, setup)
+    state, occ_cfg, occ_grid = _state_for_eval(args, setup, mesh)
     return EI.test_images_samples(
         state.params_coarse, state.params_fine, bundle.data, bundle.i_test,
         mcfg, eval_render_config(args, rcfg, occ_cfg),
         os.path.join(exp_dir(args),
                      f"test_samples_error_{args.N_importance}"),
         chunk=args.chunk, mcfg_fine=setup.mcfg_fine, ndc=bundle.ndc,
-        occ_grid=occ_grid)
+        occ_grid=occ_grid, mesh=mesh)
 
 
 def run_video(args, bundle, mcfg, rcfg, setup, state=None, step=None,
-              chunk=None, occ=(None, None)):
+              chunk=None, occ=(None, None), mesh=None):
     """Render the camera path (``render_poses``; with --render_test the
     test views) into ``renderonly_{path|test}_{step:06d}``: the frames
     ``{i:03d}.png`` and ``write_video``'s ``video/{i:03d}.png``.  Returns
@@ -613,7 +707,7 @@ def run_video(args, bundle, mcfg, rcfg, setup, state=None, step=None,
     evaluation, its step and its grid; with it, ``step`` and ``occ`` =
     (occ_cfg, grid)."""
     if state is None:
-        state, *occ = _state_for_eval(args, setup)
+        state, *occ = _state_for_eval(args, setup, mesh)
         step = state.step
     occ_cfg, occ_grid = occ
     data = bundle.data
@@ -626,21 +720,24 @@ def run_video(args, bundle, mcfg, rcfg, setup, state=None, step=None,
         mcfg, eval_render_config(args, rcfg, occ_cfg), near=bundle.near,
         far=bundle.far, chunk=chunk or args.chunk, savedir=savedir,
         render_factor=args.render_factor, ndc=bundle.ndc,
-        mcfg_fine=setup.mcfg_fine, occ_grid=occ_grid)
-    EI.write_video(os.path.join(savedir, "video.mp4"), rgbs, fps=30)
+        mcfg_fine=setup.mcfg_fine, occ_grid=occ_grid, mesh=mesh)
+    if pmesh.is_main(mesh):
+        EI.write_video(os.path.join(savedir, "video.mp4"), rgbs, fps=30)
     print("Done rendering", savedir)
     return rgbs
 
 
 # ---------------------------------------------------------------------------
 
-def run_export_serving(args, mcfg, rcfg, setup):
+def run_export_serving(args, mcfg, rcfg, setup, mesh=None):
     """--task export_serving: export the checkpoint under evaluation (and
     its grid) into a serving artifact (``serving/export.py``) on the run's
     device, under the eval task's render config (``eval_render_config``:
     the perturb quirk, --eval_det, --eval_N_*).  ``--serve_platforms``
     may name only that device (``_refuse_unported``).  Returns the
-    manifest."""
+    manifest; under a mesh rank 0 exports, the others return None."""
+    if not pmesh.is_main(mesh):
+        return None
     from ..serving import export as sexport
 
     platforms = args.serve_platforms.split(",") if args.serve_platforms \
@@ -680,7 +777,8 @@ TASKS = ("train", "test", "test_fixed_dist", "test_samples_error", "video",
 
 def _refuse_unported(args) -> None:
     """Refuse, before anything is read or written, what is not ported and
-    what cannot run: an export for a device other than the run's."""
+    what cannot run: an export for a device other than the run's, a batch
+    that does not split over the ranks of a ``torchrun`` launch."""
     if args.task == "export_serving" and args.serve_platforms:
         dev = resolve_device(args.device).type
         if any(p != dev for p in args.serve_platforms.split(",")):
@@ -688,12 +786,8 @@ def _refuse_unported(args) -> None:
                 f"--serve_platforms {args.serve_platforms}: the artifact "
                 f"runs only on the device it is exported on ({dev}); pass "
                 "--device to choose it")
-    if args.profile:
-        raise SystemExit("--profile: not ported yet (ROADMAP A17; "
-                         "plnerf_torch.tools.profile_step profiles a step)")
-    if args.lpips_weights:
-        raise SystemExit("--lpips_weights: LPIPS is not ported yet "
-                         "(ROADMAP A14)")
+    if args.task == "train" and not args.no_mesh:
+        pmesh.refuse_unsplit(args.N_rand)
     if args.steps_per_dispatch > 1:
         raise SystemExit(f"--steps_per_dispatch {args.steps_per_dispatch}: "
                          "the port runs one step per loop iteration; only 1 "
@@ -702,11 +796,12 @@ def _refuse_unported(args) -> None:
         raise SystemExit(f"Unknown task {args.task}")
 
 
-def run(args, vanilla: bool = False):
+def run(args, vanilla: bool = False, mesh=None):
     """Run ``args.task``; returns the final ``TrainState`` (train), the
     metrics' ``MeanTracker`` (test, test_samples_error), {dist:
     MeanTracker} (test_fixed_dist), the frames (video, --render_only) or
-    the artifact's manifest (export_serving)."""
+    the artifact's manifest (export_serving).  ``mesh``: this rank's
+    place under ``torchrun`` (``main`` makes it)."""
     _refuse_unported(args)
     if args.task != "train":
         # eval-time sample-budget override; mutating args keeps rcfg and
@@ -717,30 +812,40 @@ def run(args, vanilla: bool = False):
             args.N_importance = args.eval_N_importance
     mcfg, rcfg, setup = build_configs(args, vanilla=vanilla)
     if args.task == "test_fixed_dist":
-        return run_test_fixed_dist(args, mcfg, rcfg, setup)
+        return run_test_fixed_dist(args, mcfg, rcfg, setup, mesh)
     if args.task == "export_serving":
-        return run_export_serving(args, mcfg, rcfg, setup)
+        return run_export_serving(args, mcfg, rcfg, setup, mesh)
     bundle = load_dataset(args)
     if args.render_only or args.task == "video":
-        return run_video(args, bundle, mcfg, rcfg, setup)
+        return run_video(args, bundle, mcfg, rcfg, setup, mesh=mesh)
     if args.task == "train":
-        return run_training(args, bundle, setup, mcfg, rcfg)
+        return run_training(args, bundle, setup, mcfg, rcfg, mesh)
     if args.task == "test_samples_error":
-        return run_test_samples_error(args, bundle, mcfg, rcfg, setup)
-    return run_test(args, bundle, mcfg, rcfg, setup=setup)
+        return run_test_samples_error(args, bundle, mcfg, rcfg, setup, mesh)
+    return run_test(args, bundle, mcfg, rcfg, setup=setup, mesh=mesh)
+
+
+def join_mesh(args):
+    """This process's ``Mesh`` under ``torchrun``, else None
+    (``parallel/mesh.get_mesh``)."""
+    return pmesh.get_mesh(args.no_mesh, args.device or "cuda")
 
 
 def main(argv=None, vanilla: bool = False):
     """Parse ``argv``; before anything is read or written, resolve the
     device (raises without CUDA unless ``--device cpu``) and refuse what is
-    not ported; then run (which checks the args.json-merged flags again)."""
+    not ported; join the process group under ``torchrun``; then run (which
+    checks the args.json-merged flags again), printing from rank 0."""
     args = config_parser().parse_args(argv)
     resolve_device(args.device)
     _refuse_unported(args)
-    args = resolve_args(args)
+    mesh = join_mesh(args)
+    args = resolve_args(args, write=pmesh.is_main(mesh))
+    args.expname = pmesh.broadcast_object(args.expname, mesh)
     if vanilla:
         args.constant_init = 0  # vanilla has no warmup
-    return run(args, vanilla=vanilla)
+    with pmesh.main_stdout(mesh):
+        return run(args, vanilla=vanilla, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike
+from ..parallel import mesh as pmesh
 from . import sampling
 
 Grid = Dict[str, torch.Tensor]
@@ -82,11 +83,15 @@ def _voxel_index(grid: Grid, pts: torch.Tensor, g: int
 
 
 def update_grid(grid: Grid, pts: torch.Tensor, sigma: torch.Tensor,
-                cfg: OccGridConfig) -> Grid:
+                cfg: OccGridConfig, mesh=None) -> Grid:
     """Blend the voxels this step visited toward their largest observed
     density (mean-EMA at ``decay``), then refresh ``occ``.  pts [..., 3],
     sigma [...] (post-activation densities); points out of the box are
-    dropped.  No gradient flows."""
+    dropped.  No gradient flows.  ``mesh`` (``parallel/mesh.py``): the
+    points are this rank's; each voxel's largest observation is
+    max-reduced over the ranks before ``visited`` and the blend, which
+    makes every rank's grid the one a single device computes from all the
+    points (a max commutes with the sharding)."""
     g = cfg.resolution
     with torch.no_grad():
         sigma = sigma.reshape(-1)
@@ -96,6 +101,8 @@ def update_grid(grid: Grid, pts: torch.Tensor, sigma: torch.Tensor,
         dens = grid["density"].reshape(-1)
         obs = torch.full_like(dens, -torch.inf).scatter_reduce(
             0, flat.reshape(-1), contrib, "amax")
+        if mesh is not None:
+            pmesh.all_reduce_max_(obs, mesh)
         visited = obs > -torch.inf
         blended = cfg.decay * dens + (1.0 - cfg.decay) * torch.clamp_min(
             obs, 0.0)

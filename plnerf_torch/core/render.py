@@ -20,7 +20,9 @@ coarse density noise, the resample draws, the fine density noise and the
 ``u_hyp``) injects exact arrays for any stream, so numpy-made draws drive
 this renderer and the JAX package alike; ``noise0``, where given, is the
 coarse pass's noise (``noise`` then is the fine pass's), as the serving
-artifact passes both.
+artifact passes both.  ``shared_draws`` makes every draw of a batch in
+that order at the batch's full size and keeps some of its rows: the
+data-parallel step's ranks each render their rows of one global draw.
 """
 from __future__ import annotations
 
@@ -187,6 +189,37 @@ def render_rays(
         ret["weights0"] = out_c["weights"]
         ret["z_vals0"] = z_vals
     return ret
+
+
+def shared_draws(generator: Optional[torch.Generator], rcfg: RenderConfig,
+                 n_rays: int, rows: slice, device) -> Dict[str, torch.Tensor]:
+    """The random draws ``render_rays`` makes for a batch of ``n_rays``
+    rays under ``rcfg``, made here in its order and at its shapes, as
+    ``overrides``: rows ``rows`` of each.  Every rank of a data-parallel
+    step draws the global batch's and keeps its own rows, so the step's
+    draws do not depend on the world size, and one rank's rows are the
+    draws of ``render_rays`` on the whole batch.  Deterministic inputs
+    (``u`` without ``perturb``) are left to ``render_rays``."""
+    ns, ni, std = rcfg.n_samples, rcfg.n_importance, rcfg.raw_noise_std
+    out = {}
+    if rcfg.perturb:
+        out["t_rand"] = torch.rand((n_rays, ns), generator=generator,
+                                   device=device)
+    if std > 0.0:
+        out["noise0"] = torch.randn((n_rays, ns), generator=generator,
+                                    device=device) * std
+    if ni > 0:
+        if rcfg.perturb:
+            out["u"] = torch.rand((n_rays, ni), generator=generator,
+                                  device=device)
+        if std > 0.0:
+            out["noise"] = torch.randn((n_rays, ns + ni), generator=generator,
+                                       device=device) * std
+    if rcfg.compute_pred_hyp and rcfg.perturb:
+        out["u_hyp"] = sampling.draw_u(generator, n_rays,
+                                       ni if ni > 0 else ns, False,
+                                       rcfg.is_joint, device=device)
+    return {k: v[rows] for k, v in out.items()}
 
 
 def make_ray_batch(rays_o, rays_d, near, far, use_viewdirs: bool,

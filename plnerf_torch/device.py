@@ -19,7 +19,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     On a CUDA device float32 matmuls are pinned to true fp32 (no TF32),
     the counterpart of the JAX package's ``Precision.HIGHEST``, and bf16
     matmuls sum in fp32 (no reduced-precision reductions in cuBLAS), as
-    the JAX package's bf16 dots do.
+    the JAX package's bf16 dots do.  cuDNN's convolutions (the LPIPS
+    trunk, ``eval/lpips.py``) are pinned to fp32 the same way.
     """
     if device is None:
         if not torch.cuda.is_available():
@@ -34,6 +35,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
+        torch.backends.cudnn.allow_tf32 = False
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return device

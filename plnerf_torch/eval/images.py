@@ -2,13 +2,21 @@
 ``render_image``, ``test_render_config``, ``render_images_with_metrics``,
 ``test_images_samples``, ``write_images_with_metrics``, ``render_path``,
 ``write_video`` and ``write_depth_video_frames`` from
-``plnerf/eval/images.py``), single device.
+``plnerf/eval/images.py``).
 
 A Python loop over fixed-size ray chunks replaces the JAX package's
 ``lax.map``; chunk ``i`` draws from a generator seeded ``seed + i``.
 Images are written with ``data/png.py``, metrics computed on the host
-(``eval/metrics.py``).  A model trained with the occupancy grid renders
+(``eval/metrics.py``), LPIPS (``eval/lpips.py``, ``lpips_fn``) on the
+device it was loaded on.  A model trained with the occupancy grid renders
 with it: ``occ_grid`` is required whenever ``rcfg.occ`` is set.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): chunk ``i`` renders on
+rank ``i % world`` with its own seed ``seed + i`` and the rows are
+all-gathered, so the maps equal the one-device maps bit for bit (a
+deliberate difference from the JAX package's sharded renderer, which
+folds the mesh axis index into each chip's key).  Every rank renders;
+metrics and files are made on rank 0 only.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from ..core.config import ModelConfig, RenderConfig
 from ..core.mlp import NeRF
 from ..data.png import write_png
 from ..device import make_generator, module_device
+from ..parallel import mesh as pmesh
 from ..utils.misc import MeanTracker, to8b, to16b
 from . import metrics as M
 from .turbo import TURBO
@@ -34,33 +43,62 @@ from .turbo import TURBO
 # keys returned to the host per pixel
 _IMAGE_KEYS = ("rgb_map", "disp_map", "acc_map", "depth_map", "rgb0", "depth0")
 
+# the eval's note where there is no LPIPS weights file, in the JAX
+# package's words (plnerf/eval/images.py:329-337)
+LPIPS_UNAVAILABLE = ("UNAVAILABLE (no weights file — export one with "
+                     "tools/export_lpips_weights.py and set --lpips_weights "
+                     "or PLNERF_LPIPS_WEIGHTS)")
+
 
 def render_chunks(params_c: NeRF, params_f: Optional[NeRF],
                   rays: torch.Tensor, mcfg: ModelConfig, rcfg: RenderConfig,
                   chunk: int, seed: int, keys, cam_embedding=None,
                   mcfg_fine: Optional[ModelConfig] = None,
-                  keep_hyp: bool = False, occ_grid=None
+                  keep_hyp: bool = False, occ_grid=None,
+                  mesh: Optional[pmesh.Mesh] = None
                   ) -> Dict[str, torch.Tensor]:
     """Render ``rays`` [n, 8|11] chunk by chunk; returns the ``keys``
     maps (and ``pred_hyp`` with ``keep_hyp``) concatenated over chunks, on
     the rays' device.  ``occ_grid``: the trained occupancy grid, required
     when ``rcfg.occ`` is set (a model trained grid-guided is scored under
-    the sample distribution it trained with)."""
+    the sample distribution it trained with).  ``mesh``: every rank
+    passes the same rays, renders chunks ``rank, rank + world, ...`` and
+    returns all the maps (the module docstring)."""
     if rcfg.occ is not None and occ_grid is None:
         raise ValueError("rcfg.occ is set but no occ_grid was passed: "
                          "occ-trained models must be evaluated with "
                          "grid-guided sampling")
     keys = tuple(keys) + (("pred_hyp",) if keep_hyp else ())
-    outs = []
+    starts = list(range(0, rays.shape[0], chunk))
+
+    def one(i, n=chunk):
+        g = make_generator(seed + i, rays.device)
+        ret = render.render_rays(params_c, params_f,
+                                 rays[starts[i]:starts[i] + n], g, mcfg,
+                                 rcfg, cam_embedding=cam_embedding,
+                                 mcfg_fine=mcfg_fine, occ_grid=occ_grid)
+        return {k: ret[k] for k in keys if k in ret}
+
     with torch.no_grad():
-        for i, start in enumerate(range(0, rays.shape[0], chunk)):
-            g = make_generator(seed + i, rays.device)
-            ret = render.render_rays(params_c, params_f,
-                                     rays[start:start + chunk], g, mcfg,
-                                     rcfg, cam_embedding=cam_embedding,
-                                     mcfg_fine=mcfg_fine, occ_grid=occ_grid)
-            outs.append({k: ret[k] for k in keys if k in ret})
-    return {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}
+        mine = (range(len(starts)) if mesh is None
+                else range(mesh.rank, len(starts), mesh.size))
+        outs = [one(i) for i in mine]
+        if mesh is None:
+            return {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}
+        # the maps' layout, from a one-ray render where this rank has no
+        # chunk
+        like = outs[0] if outs else one(0, 1)
+        cols = {k: v.reshape(v.shape[0], -1).shape[1] for k, v in like.items()}
+        flat = [torch.cat([o[k].reshape(o[k].shape[0], -1).float()
+                           for k in cols], 1) for o in outs]
+        sizes = [min(chunk, rays.shape[0] - s) for s in starts]
+        rows = pmesh.gather_round_robin(flat, sizes, sum(cols.values()), mesh)
+    out, at = {}, 0
+    for k, c in cols.items():
+        v = rows[:, at:at + c]
+        out[k] = v.reshape((v.shape[0],) + like[k].shape[1:]).to(like[k].dtype)
+        at += c
+    return out
 
 
 def render_image(params_c: NeRF, params_f: Optional[NeRF], c2w, hwf, K,
@@ -69,13 +107,13 @@ def render_image(params_c: NeRF, params_f: Optional[NeRF], c2w, hwf, K,
                  ndc: bool = False, render_factor: int = 0,
                  pixel_center: bool = False, cam_embedding=None,
                  mcfg_fine: Optional[ModelConfig] = None,
-                 keep_hyp: bool = False,
-                 occ_grid=None) -> Dict[str, np.ndarray]:
+                 keep_hyp: bool = False, occ_grid=None,
+                 mesh: Optional[pmesh.Mesh] = None) -> Dict[str, np.ndarray]:
     """Render one full image on the models' device; returns numpy maps
     shaped [H, W, ...] (``pred_hyp`` too with ``keep_hyp``, which needs
     ``rcfg.compute_pred_hyp``).  ``render_factor`` downsamples H/W/focal;
-    ``pixel_center`` uses the depth-script ray convention; ``occ_grid`` as
-    in ``render_chunks``."""
+    ``pixel_center`` uses the depth-script ray convention; ``occ_grid``
+    and ``mesh`` as in ``render_chunks``."""
     H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
     if render_factor:
         H, W, focal = H // render_factor, W // render_factor, \
@@ -96,7 +134,7 @@ def render_image(params_c: NeRF, params_f: Optional[NeRF], c2w, hwf, K,
                                       rcfg.use_viewdirs, ndc, H, W, focal)
     out = render_chunks(params_c, params_f, packed, mcfg, rcfg, chunk, seed,
                         _IMAGE_KEYS, cam_embedding, mcfg_fine, keep_hyp,
-                        occ_grid)
+                        occ_grid, mesh)
     return {k: v.cpu().numpy().reshape(H, W, *v.shape[1:])
             for k, v in out.items()}
 
@@ -116,11 +154,14 @@ def render_images_with_metrics(
     chunk: int = 32768, near: Optional[float] = None,
     far: Optional[float] = None, ndc: bool = False, seed: int = 0,
     verbose: bool = True, mcfg_fine: Optional[ModelConfig] = None,
-    pixel_center: bool = False, cam_embeddings=None, occ_grid=None):
+    pixel_center: bool = False, cam_embeddings=None, occ_grid=None,
+    lpips_fn=None, mesh: Optional[pmesh.Mesh] = None):
     """Render the held-out views ``indices`` of ``dataset`` (a
     ``SceneData``) and aggregate their metrics (reference
     run_plnerf.py:284-363): per image img_loss, PSNR and SSIM of the fine
-    pass, img_loss0 and PSNR0 of the coarse, and, where the dataset
+    pass, img_loss0 and PSNR0 of the coarse, LPIPS of the fine pass with
+    ``lpips_fn`` (``eval/lpips.py``; without one, the JAX package's
+    ``lpips: UNAVAILABLE`` note), and, where the dataset
     carries depths, the depth RMSE over its valid pixels (averaged over the
     images that have any).  Returns ``(MeanTracker, res)``, ``res`` holding
     the stacked rgbs / target_rgbs / depths (/ far), the coarse rgbs0 /
@@ -131,9 +172,9 @@ def render_images_with_metrics(
     intrinsics.  ``cam_embeddings``: {index: embedding} from test-time
     camera optimization (a view without one renders at zeros).  Image ``n``
     renders with the seeds ``seed + n * n_chunks + i`` of its chunks
-    ``i``, so no two chunks share a stream.  ``occ_grid`` as in
-    ``render_chunks``.  LPIPS is not ported (ROADMAP A14): its row in the
-    metrics is a note."""
+    ``i``, so no two chunks share a stream.  ``occ_grid`` and ``mesh`` as
+    in ``render_chunks``; under a mesh every rank renders, rank 0 scores,
+    and the other ranks return an empty tracker and no images."""
     near = dataset.near if near is None else near
     far = dataset.far if far is None else far
     if near is None or far is None:
@@ -159,12 +200,16 @@ def render_images_with_metrics(
                            chunk=chunk, ndc=ndc, pixel_center=pixel_center,
                            cam_embedding=(None if cam_embeddings is None
                                           else cam_embeddings.get(img_idx)),
-                           mcfg_fine=mcfg_fine, occ_grid=occ_grid)
+                           mcfg_fine=mcfg_fine, occ_grid=occ_grid, mesh=mesh)
+        if not pmesh.is_main(mesh):
+            continue
         rgb = np.clip(out["rgb_map"], 0.0, 1.0)
         img_loss = float(np.mean((out["rgb_map"] - target) ** 2))
         psnr = M.mse2psnr(img_loss)
         metrics = {"img_loss": img_loss, "psnr": psnr,
                    "ssim": M.ssim(rgb, target)}
+        if lpips_fn is not None:
+            metrics["lpips"] = float(lpips_fn(rgb, target))
         if dataset.gt_depths is not None:
             gt_depth = np.asarray(dataset.gt_depths[img_idx])[..., 0]
             valid = np.asarray(dataset.gt_valid_depths[img_idx]).astype(bool)
@@ -189,11 +234,15 @@ def render_images_with_metrics(
             print(f"Render image {n + 1}/{len(indices)} "
                   f"PSNR: {psnr:.2f} ({time.time() - t0:.1f}s)")
 
-    res = {k: np.stack(v, 0) for k, v in res.items() if v}
     all_mean = MeanTracker()
+    if not pmesh.is_main(mesh):
+        return all_mean, {}
+    res = {k: np.stack(v, 0) for k, v in res.items() if v}
     all_mean.add({**mean_metrics.as_dict(), **mean_depth_metrics.as_dict()})
-    all_mean.note("lpips", "UNAVAILABLE (no weights file: LPIPS is not "
-                  "ported yet, ROADMAP A14)")
+    if lpips_fn is None:
+        # the reference reports LPIPS for every eval (run_plnerf.py:340):
+        # without weights the row still names the metric
+        all_mean.note("lpips", LPIPS_UNAVAILABLE)
     return all_mean, res
 
 
@@ -204,7 +253,8 @@ def test_images_samples(
     verbose: bool = True, pixel_center: bool = False,
     mcfg_fine: Optional[ModelConfig] = None,
     valid_mask_from_dataset: bool = False, ndc: bool = False,
-    metrics_filename: str = "metrics_expecteddepth.txt", occ_grid=None):
+    metrics_filename: str = "metrics_expecteddepth.txt", occ_grid=None,
+    mesh: Optional[pmesh.Mesh] = None):
     """The importance-sampling-error eval (reference run_plnerf.py:218-282):
     the mean distance between each termination quantile (``pred_hyp``) and
     the expected depth, over the rays of each view, averaged over views and
@@ -217,8 +267,8 @@ def test_images_samples(
     run_nerf_sample_based_depth.py:404-408).  ``ndc`` renders NDC rays, as
     the reference's render_kwargs do for LLFF scenes; the JAX package
     always renders world-space rays here.  Image ``n`` renders with the
-    seeds ``seed + n * n_chunks + i`` of its chunks ``i``; ``occ_grid`` as
-    in ``render_chunks``."""
+    seeds ``seed + n * n_chunks + i`` of its chunks ``i``; ``occ_grid`` and
+    ``mesh`` as in ``render_chunks`` (rank 0 scores and writes)."""
     rcfg = dataclasses.replace(rcfg, compute_pred_hyp=True)
     indices = list(np.asarray(indices))
     if count is not None:
@@ -238,7 +288,9 @@ def test_images_samples(
                            seed=seed + n * n_chunks, near=dataset.near,
                            far=dataset.far, chunk=chunk, ndc=ndc,
                            pixel_center=pixel_center, mcfg_fine=mcfg_fine,
-                           keep_hyp=True, occ_grid=occ_grid)
+                           keep_hyp=True, occ_grid=occ_grid, mesh=mesh)
+        if not pmesh.is_main(mesh):
+            continue
         dists = np.abs(out["pred_hyp"] - out["depth_map"][..., None])
         if valid_mask_from_dataset and dataset.gt_valid_depths is not None:
             valid = np.asarray(dataset.gt_valid_depths[img_idx]).astype(bool)
@@ -253,6 +305,8 @@ def test_images_samples(
         if verbose:
             print(f"Sample-error image {n + 1}/{len(indices)}: {err:.4f}")
 
+    if not pmesh.is_main(mesh):
+        return mean_depth_metrics
     os.makedirs(result_dir, exist_ok=True)
     with open(os.path.join(result_dir, metrics_filename), "w") as f:
         mean_depth_metrics.print(f)
@@ -283,12 +337,14 @@ def render_path(params_c: NeRF, params_f: Optional[NeRF], render_poses, hwf,
                 savedir: Optional[str] = None, render_factor: int = 0,
                 ndc: bool = False, verbose: bool = True,
                 pixel_center: bool = False,
-                mcfg_fine: Optional[ModelConfig] = None, occ_grid=None):
+                mcfg_fine: Optional[ModelConfig] = None, occ_grid=None,
+                mesh: Optional[pmesh.Mesh] = None):
     """Render a camera path; returns (rgbs [N, H, W, 3], disps [N, H, W],
     depths [N, H, W]) and, with ``savedir``, writes frame ``i`` as
-    ``{i:03d}.png`` there (reference run_plnerf.py:178-216).  Frame ``i``
-    renders with ``seed=i``, the counterpart of the JAX package's
-    ``PRNGKey(i)``; the other arguments as in ``render_image``."""
+    ``{i:03d}.png`` there (reference run_plnerf.py:178-216; rank 0 under
+    ``mesh``).  Frame ``i`` renders with ``seed=i``, the counterpart of
+    the JAX package's ``PRNGKey(i)``; the other arguments as in
+    ``render_image``."""
     rgbs, disps, depths = [], [], []
     t = time.time()
     for i, c2w in enumerate(np.asarray(render_poses)):
@@ -296,14 +352,14 @@ def render_path(params_c: NeRF, params_f: Optional[NeRF], render_poses, hwf,
                            seed=i, near=near, far=far, chunk=chunk, ndc=ndc,
                            render_factor=render_factor,
                            pixel_center=pixel_center, mcfg_fine=mcfg_fine,
-                           occ_grid=occ_grid)
+                           occ_grid=occ_grid, mesh=mesh)
         rgbs.append(out["rgb_map"])
         disps.append(out["disp_map"])
         depths.append(out["depth_map"])
         if verbose:
             print(f"frame {i}: {time.time() - t:.2f}s")
             t = time.time()
-        if savedir is not None:
+        if savedir is not None and pmesh.is_main(mesh):
             os.makedirs(savedir, exist_ok=True)
             write_png(os.path.join(savedir, f"{i:03d}.png"), to8b(rgbs[-1]))
     return np.stack(rgbs, 0), np.stack(disps, 0), np.stack(depths, 0)

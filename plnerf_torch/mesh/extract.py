@@ -18,8 +18,13 @@ recipe's ``mlp_dtype``.  With ``use_kernel`` the weights are packed once
 per grid and each chunk goes through ``kernels/fused_mlp.forward`` (on a
 CUDA device the fp32 fused forward kernel, folded heads, as the drivers'
 eval renders run it; on the CPU its plain version); without it, through
-the unfused ``core/mlp.query_network``.  The JAX package's sharded grid
-(``mesh=``) is not ported (ROADMAP A15).
+the unfused ``core/mlp.query_network``.
+
+Data parallelism (``mesh``, the counterpart of the JAX package's
+``_sharded_density``): query ``i`` of ``chunk`` points runs on rank ``i %
+world`` and the densities are all-gathered (``parallel/mesh.py``), so
+every rank holds the grid one device computes, bit for bit; the drivers
+run marching cubes, the filter and the PLY on rank 0.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from ..core import encoding, mlp
 from ..core.config import ModelConfig
 from ..device import module_device
 from ..kernels import fused_mlp
+from ..parallel import mesh as pmesh
 from .marching_cubes import marching_cubes
 
 
@@ -89,11 +95,13 @@ def _unfused_density(model, mcfg: ModelConfig):
 
 def extract_density_grid(model, mcfg: ModelConfig, bound_min, bound_max,
                          resolution: int = 512, chunk: int = 64 ** 3,
-                         use_kernel: bool = False) -> np.ndarray:
+                         use_kernel: bool = False,
+                         mesh: Optional[pmesh.Mesh] = None) -> np.ndarray:
     """relu(sigma) of ``model`` on a resolution^3 grid over the bbox, on
     the model's device, ``chunk`` points per query; [res]^3 float32 on the
     host.  ``use_kernel``: the fused forward (see the module docstring); a
-    final-layer skip, which it does not take, runs unfused."""
+    final-layer skip, which it does not take, runs unfused.  ``mesh``:
+    this rank's queries, then the whole grid gathered on every rank."""
     dev = module_device(model)
     bmin = np.asarray(bound_min, np.float32)
     bmax = np.asarray(bound_max, np.float32)
@@ -106,11 +114,18 @@ def extract_density_grid(model, mcfg: ModelConfig, bound_min, bound_max,
         density = _kernel_density(model, mcfg, chunk)
     else:
         density = _unfused_density(model, mcfg)
-    sigma = torch.empty(n, dtype=torch.float32, device=dev)
+    starts = list(range(0, n, chunk))
     with torch.no_grad():
-        for start in range(0, n, chunk):
-            stop = min(start + chunk, n)
-            sigma[start:stop] = density(_grid_points(axes, start, stop))
+        if mesh is None:
+            sigma = torch.empty(n, dtype=torch.float32, device=dev)
+            for start in starts:
+                stop = min(start + chunk, n)
+                sigma[start:stop] = density(_grid_points(axes, start, stop))
+        else:
+            mine = [density(_grid_points(axes, s, min(s + chunk, n)))[:, None]
+                    for s in starts[mesh.rank::mesh.size]]
+            sigma = pmesh.gather_round_robin(
+                mine, [min(chunk, n - s) for s in starts], 1, mesh)
     return sigma.cpu().numpy().reshape(resolution, resolution, resolution)
 
 
@@ -123,12 +138,17 @@ def extract_iso_level(density: np.ndarray, threshold: float = 25.0) -> float:
 def extract_geometry(model, mcfg: ModelConfig, bound_min, bound_max,
                      resolution: int = 512, threshold: float = 25.0,
                      adaptive: bool = False, chunk: int = 64 ** 3,
-                     use_kernel: bool = False
-                     ) -> Tuple[np.ndarray, np.ndarray]:
+                     use_kernel: bool = False,
+                     mesh: Optional[pmesh.Mesh] = None
+                     ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     """Density grid -> marching cubes -> verts scaled into the bbox
-    (reference extract_geometry, nerf_extract_mesh.py:576-593)."""
+    (reference extract_geometry, nerf_extract_mesh.py:576-593).  Under
+    ``mesh`` every rank computes its share of the grid and rank 0 alone
+    runs marching cubes; the other ranks return None."""
     u = extract_density_grid(model, mcfg, bound_min, bound_max, resolution,
-                             chunk, use_kernel)
+                             chunk, use_kernel, mesh)
+    if not pmesh.is_main(mesh):
+        return None
     iso = extract_iso_level(u, threshold) if adaptive else threshold
     verts, faces = marching_cubes(u, iso)
     bmin = np.asarray(bound_min, np.float32)

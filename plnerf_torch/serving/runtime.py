@@ -10,11 +10,20 @@ chunk's random draws as inputs, and the runtime draws them from the
 chunk's generator in the order ``core.render.render_rays`` draws them, so
 an artifact returns what ``from_params`` returns at the same seed.
 
-Differences from the JAX runtime: one device (``devices=`` with more than
-one is refused, ROADMAP A15), the artifact's own device (an artifact
-exported for another device is refused), and the whole-batch module takes
-each chunk's own draws, so it returns the chunk path's maps (the JAX
-module splits one key over its chunks).
+``load(..., devices=[...])`` serves one process's requests over several
+devices: chunk ``i`` runs on ``devices[i % len(devices)]``, every chunk is
+enqueued before any result is fetched, and its draws come from its own
+generator seeded ``seed + i`` on its device, so the same rays give the
+same maps on one device or several.  The program runs as exported on the
+export device; any other device gets its own copy of it, moved there by
+``torch.export.passes.move_to_device_pass`` (nothing is traced again from
+model code), with ``args`` weights staged on every device.  The
+whole-batch module serves only a single device, as in the JAX runtime.
+
+Differences from the JAX runtime: an artifact runs on the device type it
+was exported for (an artifact exported for another is refused), and the
+whole-batch module takes each chunk's own draws, so it returns the chunk
+path's maps (the JAX module splits one key over its chunks).
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.export.passes import move_to_device_pass
 
 from ..core import rays as raysmod
 from ..core import render
@@ -35,6 +45,16 @@ from ..kernels import fused_mlp  # noqa: F401  registers the forward op
 from .export import (FORMAT_VERSION, MANIFEST_FILE, MODULE_FILE,
                      MODULE_FUSED_FILE, WEIGHTS_FILE, output_keys,
                      ray_dim)
+
+
+def _home(ep) -> torch.device:
+    """The device an exported program was traced on: its first tensor's
+    (a parameter, a constant or the rays)."""
+    for node in ep.graph.nodes:
+        val = node.meta.get("val")
+        if isinstance(val, torch.Tensor):
+            return val.device
+    raise ValueError("the exported program holds no tensor")
 
 
 def _draw(g: torch.Generator, d: dict, n: int, device) -> torch.Tensor:
@@ -89,77 +109,85 @@ class ServingRenderer:
              devices: Optional[Sequence[DeviceLike]] = None
              ) -> "ServingRenderer":
         """Serve the artifact in ``artifact_dir`` on ``device`` (default the
-        CUDA device, which must exist), which must be the device it was
-        exported on.  ``devices``: at most one device (several GPUs are
-        ROADMAP A15)."""
-        if devices is not None:
-            if len(devices) > 1:
-                raise ValueError(
-                    f"devices={list(devices)}: the port serves on one device "
-                    "(multi-GPU serving is ROADMAP A15)")
-            device = devices[0] if devices else device
-        dev = resolve_device(device)
+        CUDA device, which must exist), of the type it was exported for.
+        ``devices``: serve over these devices instead, chunk ``i`` on
+        ``devices[i % len(devices)]`` (the module docstring); the maps
+        come back on the first."""
+        devs = [resolve_device(d) for d in (devices or [device])]
+        dev = devs[0]
         with open(os.path.join(artifact_dir, MANIFEST_FILE)) as f:
             manifest = json.load(f)
         if manifest.get("format_version") != FORMAT_VERSION:
             raise ValueError("unsupported artifact format: "
                              f"{manifest.get('format_version')}")
-        if manifest.get("device") != dev.type:
-            raise ValueError(
-                f"{artifact_dir} was exported for {manifest.get('device')} "
-                f"and cannot run on {dev}: export it again there")
+        for d in devs:
+            if manifest.get("device") != d.type:
+                raise ValueError(
+                    f"{artifact_dir} was exported for "
+                    f"{manifest.get('device')} and cannot run on {d}: "
+                    "export it again there")
         srv = cls(manifest["chunk"], manifest["ray_dim"], dev,
                   manifest["output_keys"], manifest["use_viewdirs"])
         srv.manifest = manifest
-        weights = None
+        weights = {}
         if manifest.get("weights_mode") == "args":
-            # staged on the device once; every call reads them there
-            weights = tuple(torch.load(
-                os.path.join(artifact_dir, WEIGHTS_FILE), map_location=dev,
-                weights_only=True))
-            if len(weights) != int(manifest["n_weight_leaves"]):
-                raise ValueError(f"{WEIGHTS_FILE} holds {len(weights)} "
-                                 "tensors, the manifest "
-                                 f"{manifest['n_weight_leaves']}")
+            for d in dict.fromkeys(devs):
+                # staged on each device once; every call reads them there
+                weights[d] = tuple(torch.load(
+                    os.path.join(artifact_dir, WEIGHTS_FILE), map_location=d,
+                    weights_only=True))
+                if len(weights[d]) != int(manifest["n_weight_leaves"]):
+                    raise ValueError(f"{WEIGHTS_FILE} holds "
+                                     f"{len(weights[d])} tensors, the "
+                                     "manifest "
+                                     f"{manifest['n_weight_leaves']}")
 
-        def program(name):
-            mod = torch.export.load(os.path.join(artifact_dir, name)).module()
-            if weights is None:
+        def program(name, d):
+            ep = torch.export.load(os.path.join(artifact_dir, name))
+            if d != _home(ep):
+                ep = move_to_device_pass(ep, d)
+            mod = ep.module()
+            if d not in weights:
                 return mod
-            return lambda rays, **draws: mod(weights, rays, **draws)
+            return lambda rays, **draws: mod(weights[d], rays, **draws)
 
-        call = program(MODULE_FILE)
+        calls = {d: program(MODULE_FILE, d) for d in dict.fromkeys(devs)}
         draws = manifest["draw_inputs"]
 
-        def inputs(seeds, n):
-            """Each chunk's draws from its generator, stacked by name."""
+        def inputs(seeds, n, d):
+            """Each chunk's draws from its generator on ``d``, stacked by
+            name."""
             per = []
             for s in seeds:
-                g = make_generator(s, dev)
-                per.append({d["name"]: _draw(g, d, n, dev) for d in draws})
-            return {d["name"]: torch.cat([p[d["name"]] for p in per], 0)
-                    for d in draws}
+                g = make_generator(s, d)
+                per.append({x["name"]: _draw(g, x, n, d) for x in draws})
+            return {x["name"]: torch.cat([p[x["name"]] for p in per], 0)
+                    for x in draws}
 
         def chunks(rays, seed, want):
             outs = []
             with torch.no_grad():
+                # every chunk enqueued on its device before any is fetched
                 for i in range(rays.shape[0] // srv.chunk):
-                    out = call(rays[i * srv.chunk:(i + 1) * srv.chunk],
-                               **inputs([seed + i], srv.chunk))
+                    d = devs[i % len(devs)]
+                    out = calls[d](
+                        rays[i * srv.chunk:(i + 1) * srv.chunk].to(d),
+                        **inputs([seed + i], srv.chunk, d))
                     outs.append({k: out[k] for k in want})
-            return {k: torch.cat([o[k] for o in outs], 0) for k in want}
+            return {k: torch.cat([o[k].to(dev) for o in outs], 0)
+                    for k in want}
         srv._chunks = chunks
 
         srv.fused_n_rays = manifest.get("fused_n_rays")
         fpath = os.path.join(artifact_dir, MODULE_FUSED_FILE)
-        if srv.fused_n_rays and os.path.exists(fpath):
-            fcall = program(MODULE_FUSED_FILE)
+        if srv.fused_n_rays and os.path.exists(fpath) and len(devs) == 1:
+            fcall = program(MODULE_FUSED_FILE, dev)
 
             def fused(rays, seed, want):
                 n = rays.shape[0] // srv.chunk
                 with torch.no_grad():
                     out = fcall(rays, **inputs(
-                        range(seed, seed + n), srv.chunk))
+                        range(seed, seed + n), srv.chunk, dev))
                 return {k: out[k] for k in want}
             srv._fused = fused
         return srv

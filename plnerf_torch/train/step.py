@@ -16,6 +16,25 @@ samples (``core/occgrid.py``): it also folds the step's own density
 evaluations into the grid and returns the new grid.  The depth step takes
 a grid the same way (``depth_grads``' batch key ``occ_grid``; the driver
 applies ``apply_occ_update``).
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): every rank is handed
+the same global batch, drawn from the same seed at the global ray count,
+and trains on its own rows of it (``shard_batch``).  Of the two designs
+for the renderer's random draws this is the one that draws the global
+noise on every rank and slices it (``render.shared_draws``): a rank's
+jitter, density noise and importance draws are its rows of what one
+device would draw for the whole batch, so the step does not depend on the
+world size (with ``perturb`` off and no noise it draws nothing at all).
+After the backward one flat all-reduce averages every gradient and the
+step's scalar metrics over the ranks (``all_reduce_mean``; each rank's
+loss is the mean over its equal share of rays, so the mean of the ranks'
+gradients is the global batch's); the optimizers then step identically
+on every rank, the depth recipe's +-0.1 clip and the scale / shift and
+camera-embedding Adams included.  The space-carving loss's minimum over
+hypotheses of a mean over rays reduces its ray sums inside the forward,
+and the occupancy grid's per-voxel observations are max-reduced before
+the blend, so the grid stays the one a single device would compute.  One
+rank reproduces the run without a mesh bit for bit.
 """
 from __future__ import annotations
 
@@ -28,6 +47,7 @@ from ..core import occgrid, render
 from ..core.config import ModelConfig, RenderConfig
 from ..core.mlp import NeRF
 from ..device import DeviceLike, make_generator, resolve_device
+from ..parallel import mesh as pmesh
 from ..utils.misc import img2mse, mse2psnr
 from . import losses, optim
 from .state import TrainState
@@ -133,7 +153,7 @@ def init_state(generator: Optional[torch.Generator], setup: TrainSetup,
 def _render_loss(params_c: NeRF, params_f: Optional[NeRF], batch,
                  generator: Optional[torch.Generator], setup: TrainSetup,
                  overrides=None, scale=None, shift=None, sc_weight=None,
-                 cam_emb=None) -> Tuple[torch.Tensor, Metrics]:
+                 cam_emb=None, mesh=None) -> Tuple[torch.Tensor, Metrics]:
     """Forward + loss.  batch: dict(rays [R, 8|11], target [R, 3], and for
     space carving target_h [H, R, 1] and sc_mask [R]; with an occupancy
     grid, occ_grid, and the metrics then carry the density observations
@@ -143,7 +163,8 @@ def _render_loss(params_c: NeRF, params_f: Optional[NeRF], batch,
     the hypotheses are ``target_h * scale + shift`` and the term's weight
     is ``sc_weight`` (the setup's unless given; 0 keeps the term in the
     graph with zero gradients).  ``cam_emb``: this image's camera
-    embedding [input_ch_cam] or None."""
+    embedding [input_ch_cam] or None; ``mesh``: the ranks whose rays the
+    joint space-carving term reduces over."""
     ret = render.render_rays(params_c, params_f, batch["rays"], generator,
                              setup.mcfg, setup.rcfg, cam_embedding=cam_emb,
                              overrides=overrides, mcfg_fine=setup.mcfg_fine,
@@ -165,7 +186,7 @@ def _render_loss(params_c: NeRF, params_f: Optional[NeRF], batch,
         sc = losses.space_carving_loss(
             ret["pred_hyp"], target_h, is_joint=setup.is_joint,
             mask=batch.get("sc_mask"), norm_p=setup.norm_p,
-            threshold=setup.space_carving_threshold)
+            threshold=setup.space_carving_threshold, mesh=mesh)
         w = setup.space_carving_weight if sc_weight is None else sc_weight
         loss = loss + w * sc
         metrics["space_carving_loss"] = sc.detach()
@@ -179,17 +200,22 @@ def _render_loss(params_c: NeRF, params_f: Optional[NeRF], batch,
 
 
 def _value_and_grad_accum(setup: TrainSetup, params, batch, generator,
-                          loss_of: Callable) -> Metrics:
-    """Backpropagate ``loss_of(batch, generator)`` into the ``.grad`` of
-    ``params`` (those the loss reaches), over ``setup.accum_chunks`` equal
-    ray chunks when it is > 1 (peak activation memory of one chunk): chunk
-    grads and metrics are summed and scaled by 1 / n, the mean of
-    equal-chunk means.  The occupancy grid's density observations
-    (``_occ_*``) are concatenated back into ray order instead.  Returns the
-    metrics."""
+                          loss_of: Callable, draws=None) -> Metrics:
+    """Backpropagate ``loss_of(batch, generator)`` (``loss_of(batch,
+    generator, draws)`` with ``draws``) into the ``.grad`` of ``params``
+    (those the loss reaches), over ``setup.accum_chunks`` equal ray chunks
+    when it is > 1 (peak activation memory of one chunk): chunk grads and
+    metrics are summed and scaled by 1 / n, the mean of equal-chunk means;
+    ``draws`` (the renderer's, ``render.shared_draws``) are cut into the
+    same chunks.  The occupancy grid's density observations (``_occ_*``)
+    are concatenated back into ray order instead.  Returns the metrics."""
+    def value(b, d):
+        return loss_of(b, generator) if d is None else loss_of(b, generator,
+                                                               d)
+
     n = setup.accum_chunks
     if n <= 1:
-        loss, metrics = loss_of(batch, generator)
+        loss, metrics = value(batch, draws)
         loss.backward()
         return metrics
     r = batch["rays"].shape[0]
@@ -201,7 +227,8 @@ def _value_and_grad_accum(setup: TrainSetup, params, batch, generator,
         lo, hi = i * (r // n), (i + 1) * (r // n)
         chunk = {k: v if k == "occ_grid" else v[lo:hi]
                  for k, v in batch.items()}
-        loss, metrics = loss_of(chunk, generator)
+        loss, metrics = value(chunk, None if draws is None else
+                              {k: v[lo:hi] for k, v in draws.items()})
         loss.backward()
         for k in [k for k in metrics if k.startswith("_occ")]:
             occ.setdefault(k, []).append(metrics.pop(k))
@@ -216,47 +243,103 @@ def _value_and_grad_accum(setup: TrainSetup, params, batch, generator,
             **{k: torch.cat(v, 0) for k, v in occ.items()}}
 
 
-def build_one_step(setup: TrainSetup):
+def _local(setup: TrainSetup, batch, generator, mesh):
+    """``(batch, draws)``: this rank's rows of the global batch and of the
+    renderer's draws for it (``render.shared_draws``); without a mesh the
+    batch as it is, and the renderer draws for itself."""
+    if mesh is None:
+        return batch, None
+    n = batch["rays"].shape[0]
+    draws = render.shared_draws(generator, setup.rcfg, n,
+                                pmesh.row_range(n, mesh),
+                                batch["rays"].device)
+    return pmesh.shard_batch(batch, mesh), draws
+
+
+# metrics recomputed from their reduced inputs, not averaged
+_DERIVED = {"psnr": "img_loss", "psnr0": "img_loss0"}
+
+
+def _all_reduce(mesh, tensors, metrics: Metrics) -> Metrics:
+    """The ranks' mean of the ``.grad`` of ``tensors`` (in place) and of
+    the scalar metrics, in one flat all-reduce; the PSNRs recomputed from
+    the mean MSEs, the ``_occ_*`` observations left as they are."""
+    if mesh is None:
+        return metrics
+    grads = [q.grad for q in tensors if q.grad is not None]
+    keys = [k for k in metrics
+            if not k.startswith("_") and k not in _DERIVED]
+    reduced = pmesh.all_reduce_mean(grads + [metrics[k] for k in keys], mesh)
+    with torch.no_grad():
+        for g, r in zip(grads, reduced):
+            g.copy_(r)
+    out = dict(metrics, **dict(zip(keys, reduced[len(grads):])))
+    for k, src in _DERIVED.items():
+        if k in out:
+            out[k] = mse2psnr(out[src])
+    return out
+
+
+def _step_local(setup: TrainSetup, mesh, state: TrainState, batch,
+                generator, draws):
+    """The optimization step on this rank's ``batch`` (and ``draws``):
+    grads, their reduction over the mesh, the updates."""
+    pc, pf = state.params_coarse, state.params_fine
+
+    def loss_of(b, g, d=None):
+        return _render_loss(pc, pf, b, g, setup, overrides=d)
+
+    params = list(pc.parameters()) + (
+        list(pf.parameters()) if pf is not None else [])
+    opts = [o for o in (state.opt_fine, state.opt_coarse) if o is not None]
+    for o in opts:
+        o.zero_grad(set_to_none=True)
+    metrics = _value_and_grad_accum(setup, params, batch, generator, loss_of,
+                                    draws)
+    metrics = _all_reduce(mesh, params, metrics)
+    for o in opts:
+        o.step()
+    state.step += 1
+    return state, metrics
+
+
+def build_one_step(setup: TrainSetup, mesh: Optional[pmesh.Mesh] = None):
     """The single optimization step (state, batch, generator) ->
-    (state, metrics)."""
+    (state, metrics); with ``mesh``, on this rank's rows of the global
+    batch (the module docstring)."""
 
     def step_fn(state: TrainState, batch, generator=None):
-        pc, pf = state.params_coarse, state.params_fine
-
-        def loss_of(b, g):
-            return _render_loss(pc, pf, b, g, setup)
-
-        params = list(pc.parameters()) + (
-            list(pf.parameters()) if pf is not None else [])
-        opts = [o for o in (state.opt_fine, state.opt_coarse)
-                if o is not None]
-        for o in opts:
-            o.zero_grad(set_to_none=True)
-        metrics = _value_and_grad_accum(setup, params, batch, generator,
-                                        loss_of)
-        for o in opts:
-            o.step()
-        state.step += 1
-        return state, metrics
+        batch, draws = _local(setup, batch, generator, mesh)
+        return _step_local(setup, mesh, state, batch, generator, draws)
 
     return step_fn
 
 
-def make_train_step(setup: TrainSetup):
+def make_train_step(setup: TrainSetup, mesh: Optional[pmesh.Mesh] = None):
     """The NVS train step: (state, batch, generator) -> (state, metrics).
 
-    batch["rays"]: [R, 8|11]; batch["target"]: [R, 3].
+    batch["rays"]: [R, 8|11]; batch["target"]: [R, 3] (the global batch
+    under ``mesh``).
     """
-    return build_one_step(setup)
+    return build_one_step(setup, mesh)
 
 
 def _trains_embeddings(setup: TrainSetup) -> bool:
     return setup.opt_ch_cam and setup.mcfg.input_ch_cam > 0
 
 
+def _depth_tensors(setup: TrainSetup, state: TrainState) -> list:
+    """Every tensor the depth step trains."""
+    out = list(state.params_coarse.parameters()) + (
+        list(state.params_fine.parameters())
+        if state.params_fine is not None else [])
+    return out + [state.depth_scales, state.depth_shifts] + (
+        [state.cam_embeddings] if _trains_embeddings(setup) else [])
+
+
 def depth_grads(setup: TrainSetup, state: TrainState, batch,
                 generator: Optional[torch.Generator] = None,
-                overrides=None) -> Metrics:
+                overrides=None, mesh=None) -> Metrics:
     """Forward and backward of the depth loss: every tensor the depth step
     trains gets its ``.grad`` (before any clip), the per-image ones dense
     with zeros off ``img_idx``.  Returns the metrics.
@@ -265,7 +348,9 @@ def depth_grads(setup: TrainSetup, state: TrainState, batch,
     weight 0, and a per-image tensor the loss does not reach gets a zero
     grad: optax updates every leaf at every step, so stale Adam moments
     move the other images' rows and a skipped update would part the two
-    trajectories."""
+    trajectories.  ``mesh``: ``batch`` is this rank's rows, the joint
+    space-carving term reduces over the ranks and the grads are not yet
+    reduced."""
     img = int(batch["img_idx"])
     train_emb = _trains_embeddings(setup)
     for o in (state.opt_fine, state.opt_ss, state.opt_latent):
@@ -279,7 +364,7 @@ def depth_grads(setup: TrainSetup, state: TrainState, batch,
         state.params_coarse, state.params_fine, batch, generator, setup,
         overrides=overrides, scale=state.depth_scales[img],
         shift=state.depth_shifts[img], sc_weight=sc_weight,
-        cam_emb=state.cam_embeddings[img] if train_emb else None)
+        cam_emb=state.cam_embeddings[img] if train_emb else None, mesh=mesh)
     loss.backward()
     for q in (state.depth_scales, state.depth_shifts) + (
             (state.cam_embeddings,) if train_emb else ()):
@@ -288,7 +373,8 @@ def depth_grads(setup: TrainSetup, state: TrainState, batch,
     return metrics
 
 
-def make_depth_train_step(setup: TrainSetup):
+def make_depth_train_step(setup: TrainSetup,
+                          mesh: Optional[pmesh.Mesh] = None):
     """The depth-supervised step (reference run_nerf_sample_based_depth.py:
     1102-1161): (state, batch, generator, overrides) -> (state, metrics).
 
@@ -299,10 +385,17 @@ def make_depth_train_step(setup: TrainSetup):
     reference steps it while ``i < freeze_ss``), so its moments advance
     while the values hold; the camera-embedding Adam steps every step.
     The state must come from ``init_state(..., n_images)`` with the same
-    setup."""
+    setup.  ``mesh``: the global batch, as ``make_train_step`` takes it
+    (``overrides`` then are not taken)."""
 
     def step_fn(state: TrainState, batch, generator=None, overrides=None):
-        metrics = depth_grads(setup, state, batch, generator, overrides)
+        if mesh is not None:
+            if overrides is not None:
+                raise ValueError("overrides with a mesh")
+            batch, overrides = _local(setup, batch, generator, mesh)
+        metrics = depth_grads(setup, state, batch, generator, overrides,
+                              mesh)
+        metrics = _all_reduce(mesh, _depth_tensors(setup, state), metrics)
         state.opt_fine.step()
         frozen = state.step + 1 >= setup.freeze_ss
         held = ([q.detach().clone() for q in (state.depth_scales,
@@ -322,33 +415,41 @@ def make_depth_train_step(setup: TrainSetup):
 
 
 def apply_occ_update(setup: TrainSetup, occ_grid: occgrid.Grid, batch,
-                     metrics: Metrics) -> Tuple[occgrid.Grid, Metrics]:
+                     metrics: Metrics, mesh: Optional[pmesh.Mesh] = None
+                     ) -> Tuple[occgrid.Grid, Metrics]:
     """Pop the forward pass's density observations (``_occ_z``,
     ``_occ_sigma``) out of ``metrics`` and fold them into the grid's EMA;
     returns ``(grid, metrics)``.  ``occ_ray_frac`` stays in the metrics:
     the mean occupied fraction of candidate bins along this batch's rays,
-    read by the sampler before the update."""
+    read by the sampler before the update.  ``mesh``: ``batch`` is this
+    rank's rows (whose observations the metrics hold); the observations
+    are max-reduced over the ranks (``occgrid.update_grid``)."""
     z = metrics.pop("_occ_z")
     sigma = metrics.pop("_occ_sigma")
     rays = batch["rays"]
     pts = rays[:, None, 0:3] + rays[:, None, 3:6] * z[..., None]
-    return occgrid.update_grid(occ_grid, pts, sigma, setup.rcfg.occ), metrics
+    return occgrid.update_grid(occ_grid, pts, sigma, setup.rcfg.occ,
+                               mesh), metrics
 
 
-def make_occ_train_step(setup: TrainSetup):
+def make_occ_train_step(setup: TrainSetup,
+                        mesh: Optional[pmesh.Mesh] = None):
     """The occupancy-grid train step: (state, grid, batch, generator) ->
     (state, grid, metrics).  The optimization of ``make_train_step`` with
     the coarse samples placed by the grid, then the grid updated from the
-    step's own density evaluations.  Needs ``setup.rcfg.occ``."""
+    step's own density evaluations.  Needs ``setup.rcfg.occ``; ``mesh``
+    as in ``make_train_step``."""
     if setup.rcfg.occ is None:
         raise ValueError("make_occ_train_step needs setup.rcfg.occ")
-    one_step = build_one_step(setup)
 
     def step_fn(state: TrainState, occ_grid: occgrid.Grid, batch,
                 generator=None):
-        state, metrics = one_step(state, dict(batch, occ_grid=occ_grid),
-                                  generator)
-        occ_grid, metrics = apply_occ_update(setup, occ_grid, batch, metrics)
+        batch, draws = _local(setup, batch, generator, mesh)
+        state, metrics = _step_local(setup, mesh, state,
+                                     dict(batch, occ_grid=occ_grid),
+                                     generator, draws)
+        occ_grid, metrics = apply_occ_update(setup, occ_grid, batch, metrics,
+                                             mesh)
         return state, occ_grid, metrics
 
     return step_fn

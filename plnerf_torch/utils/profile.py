@@ -12,10 +12,13 @@ under the profiler and splits device time into named kernel groups, the
 rest and the device's busy share of the wall time.  ``trace_host_syncs``
 and ``trace_device_gaps`` read the Chrome trace such a run exports: where
 the host waits on the device, and how long the device idles between its
-kernels.
+kernels.  ``start_trace`` / ``stop_trace`` bracket a window of a training
+loop (the drivers' ``--profile N``).
 """
 from __future__ import annotations
 
+import json
+import os
 import statistics
 import time
 from collections import defaultdict
@@ -160,6 +163,41 @@ def profile_steps(run_step: Callable[[], object], n_steps: int,
         top_device_ops=[[k[:60], ms / n_steps]
                         for k, ms in top_device_ops(events, top)])
     return out
+
+
+def start_trace(device: torch.device):
+    """A running ``torch.profiler`` session (CPU and, on CUDA, the
+    device's kernels) for ``stop_trace``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def stop_trace(prof, trace_path: str, device: torch.device, steps: int,
+               top: int = 10) -> dict:
+    """End ``prof`` (after the device's queued work), write its Chrome
+    trace to ``trace_path`` and return the window's top device and host
+    ops in ms per step and its device gaps (``trace_device_gaps``; none
+    on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    prof.stop()
+    os.makedirs(os.path.dirname(trace_path) or ".", exist_ok=True)
+    prof.export_chrome_trace(trace_path)
+    events = prof.key_averages()
+    with open(trace_path) as f:
+        gaps = trace_device_gaps(json.load(f))
+    per = max(steps, 1)
+    return {"trace": trace_path, "steps": steps,
+            "top_device_ops": [[k, ms / per]
+                               for k, ms in top_device_ops(events, top)],
+            "top_host_ops": [[k, ms / per]
+                             for k, ms in top_host_ops(events, top)],
+            "device_gaps": gaps}
 
 
 def timed_ms(fn: Callable[[], object], device: torch.device,

@@ -25,8 +25,10 @@ from plnerf_torch.checkpoint import convert_jax
 from plnerf_torch.checkpoint import io as ckio
 from plnerf_torch.cli import config, run_plnerf, run_vanilla
 from plnerf_torch.data import png
+from plnerf_torch.eval import images as EI
 
 from fixtures import make_blender_scene
+from test_torch_lpips import write_npz
 
 torch.set_num_threads(1)
 
@@ -134,17 +136,50 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked(tmp_path):
     assert not os.path.exists(tmp_path / "e")
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--task", "export_serving", "--serve_platforms", "tpu"],
+@pytest.mark.parametrize("flags, world, item", [
+    (["--task", "export_serving", "--serve_platforms", "tpu"], None,
      "serve_platforms tpu"),
-    (["--profile", "3"], "A17"), (["--lpips_weights", "w.pt"], "A14"),
-    (["--steps_per_dispatch", "4"], "steps_per_dispatch 4")])
-def test_unported_paths_are_refused(scene_dir, tmp_path, flags, item):
+    (["--N_rand", "63"], "2", "--N_rand 63 does not split over the 2 ranks"),
+    (["--no_mesh"], "2", "--no_mesh under torchrun with WORLD_SIZE 2"),
+    (["--steps_per_dispatch", "4"], None, "steps_per_dispatch 4")],
+    ids=["flags0-serve_platforms tpu", "flags1-N_rand 63 WORLD_SIZE 2",
+         "flags2-no_mesh WORLD_SIZE 2", "flags3-steps_per_dispatch 4"])
+def test_unported_paths_are_refused(scene_dir, tmp_path, monkeypatch, flags,
+                                    world, item):
+    """What cannot run is refused before anything is written: an export
+    for another device, a train batch that does not split over the ranks
+    of a ``torchrun`` launch (``WORLD_SIZE``), ``--no_mesh`` under one
+    (refused before the process group is joined), more than one step per
+    dispatch.  ``--profile`` and ``--lpips_weights``, refused before data
+    parallelism, LPIPS and the profiler were ported, run: see
+    ``test_profile_flag_writes_a_trace`` and
+    ``test_train_resume_test``."""
     data_dir, scene_id = scene_dir
+    if world:
+        monkeypatch.setenv("WORLD_SIZE", world)
     args = TINY + CPU + ["--data_dir", data_dir, "--scene_id", scene_id,
                          "--ckpt_dir", str(tmp_path), "--expname", "e"]
     with pytest.raises(SystemExit, match=item):
         run_plnerf.main(args + flags)
+    assert not os.path.exists(tmp_path / "e")
+
+
+def test_profile_flag_writes_a_trace(scene_dir, tmp_path, capsys):
+    """``--profile 2``: a torch.profiler trace of steps 4-5 of a 7-step
+    run, written under ``<expname>/profile/``, and the top-ops table
+    printed (host ops on the CPU, where no device time exists)."""
+    data_dir, scene_id = scene_dir
+    run_plnerf.main(TINY + CPU + [
+        "--data_dir", data_dir, "--scene_id", scene_id, "--ckpt_dir",
+        str(tmp_path), "--expname", "e", "--num_iterations", "7",
+        "--i_weights", "7", "--profile", "2"])
+    trace = tmp_path / "e" / "profile" / "trace_000004.json"
+    assert json.loads(trace.read_text())["traceEvents"]
+    out = capsys.readouterr().out
+    assert f"Wrote profiler trace of steps 4-5 to {trace}" in out
+    table = out.split("[profile] top_host_ops (ms per step):\n")[1]
+    assert float(table.split()[0]) > 0
+    assert "[profile] device idle" in out
 
 
 @pytest.mark.parametrize("flags, name", [
@@ -267,7 +302,18 @@ def test_train_resume_test(scene_dir, tmp_path):
     test_dir = os.path.join(exp, f"test_images_linear_8_8{scene_id}")
     text = open(os.path.join(test_dir, "metrics.txt")).read()
     assert f"psnr: {mm.get('psnr')}" in text and "ssim: " in text
-    assert "lpips: UNAVAILABLE" in text
+    # no weights file: the JAX package's note
+    assert f"lpips: {EI.LPIPS_UNAVAILABLE}\n" in text
+
+    # with one, an lpips row
+    weights = str(tmp_path / "lpips.npz")
+    write_npz(weights)
+    mm = run_plnerf.main(["--task", "test", "--ckpt_dir", ckpt_dir,
+                          "--expname", "exp", "--data_dir", data_dir,
+                          "--scene_id", scene_id, "--white_bkgd",
+                          "--lpips_weights", weights] + CPU)
+    text = open(os.path.join(test_dir, "metrics.txt")).read()
+    assert f"lpips: {mm.get('lpips')}\n" in text and mm.get("lpips") > 0
     rgb = png.read_png(os.path.join(test_dir, "0_rgb.png"))
     assert rgb.shape == (32, 32, 3)
 

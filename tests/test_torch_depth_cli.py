@@ -31,6 +31,7 @@ from plnerf_torch.cli import run_depth
 from plnerf_torch.train import batching
 
 from fixtures import H, W, make_blender2_scene
+from test_torch_lpips import write_npz
 
 torch.set_num_threads(1)
 
@@ -119,11 +120,19 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked(scene_dir, tmp_path):
     assert not os.path.exists(tmp_path / "e")
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["test", "--lpips_weights", "w.pt"], "ROADMAP A14"),
-    (["train", "--steps_per_dispatch", "4"], "steps_per_dispatch 4")])
-def test_unported_paths_are_refused(scene_dir, tmp_path, flags, item):
+@pytest.mark.parametrize("flags, world, item", [
+    (["train"], "3", f"--N_rand {N_RAND} does not split over the 3 ranks"),
+    (["train", "--steps_per_dispatch", "4"], None, "steps_per_dispatch 4")],
+    ids=["flags0-N_rand WORLD_SIZE 3", "flags1-steps_per_dispatch 4"])
+def test_unported_paths_are_refused(scene_dir, tmp_path, monkeypatch, flags,
+                                    world, item):
+    """A train batch that does not split over the ranks of a ``torchrun``
+    launch and more than one step per dispatch are refused before
+    anything is written (``--lpips_weights``, refused before LPIPS was
+    ported, scores: see the witness)."""
     data_dir, scene_id = scene_dir
+    if world:
+        monkeypatch.setenv("WORLD_SIZE", world)
     with pytest.raises(SystemExit, match=item):
         run_depth.main(flags + FLAGS + CPU + [
             "--data_dir", data_dir, "--scene_id", scene_id, "--ckpt_dir",
@@ -132,11 +141,12 @@ def test_unported_paths_are_refused(scene_dir, tmp_path, flags, item):
 
 
 def _metrics_txt(path):
-    """{key: value} of a metrics file (the lpips row is a note)."""
+    """{key: value} of a metrics file (an lpips row without weights is a
+    note)."""
     out = {}
     for line in open(path):
         k, v = line.rstrip("\n").split(": ", 1)
-        out[k] = v if k == "lpips" else float(v)
+        out[k] = v if v.startswith("UNAVAILABLE") else float(v)
     return out
 
 
@@ -186,7 +196,9 @@ def _hold_metrics(got, ref, keys):
 
 def test_depth_driver_trains_like_jax(scene_dir, tmp_path, every_pixel):
     """20 steps across the warm start (5) and the scale / shift freeze
-    (10), then ``test`` and ``test_samples_error``."""
+    (10), then ``test`` (LPIPS from one seeded weights file in both, 5%
+    relative like the other metrics of the two runs) and
+    ``test_samples_error``."""
     data_dir, scene_id = scene_dir
     ckpt_dir = str(tmp_path / "ck")
     common = FLAGS + ["--data_dir", data_dir, "--scene_id", scene_id,
@@ -202,10 +214,12 @@ def test_depth_driver_trains_like_jax(scene_dir, tmp_path, every_pixel):
             assert got[step][k] == pytest.approx(ref[step][k], rel=1e-2), k
     assert ref[20]["train/loss"] < ref[10]["train/loss"]
 
+    weights = str(tmp_path / "lpips.npz")
+    write_npz(weights)
     for who, main in (("jax", jrun.main), ("port", run_depth.main)):
         extra = ["--expname", who, "--eval_det"] + (
             CPU if who == "port" else [])
-        main(["test"] + common + extra)
+        main(["test"] + common + extra + ["--lpips_weights", weights])
         main(["test_samples_error"] + common + extra)
     for who in ("port", "jax"):
         assert sorted(d for d in os.listdir(os.path.join(ckpt_dir, who))
@@ -214,9 +228,10 @@ def test_depth_driver_trains_like_jax(scene_dir, tmp_path, every_pixel):
             "test_predicted_samples_error_8"]
     got, ref = _both(ckpt_dir, "test_images_linear_8_8depthscene",
                      "metrics.txt")
-    assert list(ref) == ["img_loss", "psnr", "ssim", "img_loss0", "psnr0",
-                         "depth_rmse", "lpips"]
-    _hold_metrics(got, ref, ("psnr", "psnr0", "ssim", "depth_rmse"))
+    assert list(ref) == ["img_loss", "psnr", "ssim", "lpips", "img_loss0",
+                         "psnr0", "depth_rmse"]
+    _hold_metrics(got, ref, ("psnr", "psnr0", "ssim", "depth_rmse",
+                             "lpips"))
     got, ref = _both(ckpt_dir, "test_predicted_samples_error_8",
                      "metrics_depth_samples.txt")
     _hold_metrics(got, ref, ("importance_sampling_error",))

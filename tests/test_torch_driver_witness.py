@@ -18,7 +18,12 @@ density EMA sits near the threshold flips with the rounding of the
 densities it observed); the density EMA, relative to 1e-3 + |density|,
 within 1e-2 at the median voxel and 5e-2 at the 90th percentile (it
 holds the MLP's densities, which part like the losses: 0.4% and 3.1%
-here, 17% at the 99th); ``occ_ray_frac`` 1e-3."""
+here, 17% at the 99th); ``occ_ray_frac`` 1e-3.
+
+LPIPS: both drivers' ``--task test`` score it from one seeded weights
+file, and the port's test of the JAX driver's own checkpoint (read by
+``--ft_path``) gives the JAX driver's LPIPS to 1e-4 relative: the same
+weights render the same pixels to ~1e-6 there."""
 import json
 import os
 
@@ -34,6 +39,8 @@ from plnerf_torch.checkpoint import convert_jax
 from plnerf_torch.checkpoint import io as ckio
 from plnerf_torch.cli import run_plnerf
 from plnerf_torch.data.synthetic import write_sphere_scene
+
+from test_torch_lpips import write_npz
 
 torch.set_num_threads(1)
 
@@ -117,14 +124,35 @@ def _hold(losses, metrics, steps):
         assert got[k] == pytest.approx(ref[k], rel=0.1), (k, got, ref)
 
 
+def _lpips_row(exp):
+    sub, = [d for d in os.listdir(exp) if d.startswith("test_images_")]
+    rows = dict(line.rstrip("\n").split(": ", 1)
+                for line in open(os.path.join(exp, sub, "metrics.txt")))
+    return float(rows["lpips"])
+
+
 def test_driver_trains_like_jax(tmp_path):
     data_dir = str(tmp_path / "data")
     write_sphere_scene(os.path.join(data_dir, "sphere"), 64,
                                   {"train": 8, "val": 1, "test": 2})
-    losses, metrics = _train_and_test_both(
-        FLAGS, data_dir, "sphere", str(tmp_path / "ckpt"), STEPS,
-        ["--white_bkgd"])
+    weights = str(tmp_path / "lpips.npz")
+    write_npz(weights)
+    ckpt = str(tmp_path / "ckpt")
+    test = ["--white_bkgd", "--lpips_weights", weights]
+    losses, metrics = _train_and_test_both(FLAGS, data_dir, "sphere", ckpt,
+                                           STEPS, test)
     _hold(losses, metrics, [20, 40, 60])
+
+    # the port's test of the JAX driver's checkpoint: the JAX LPIPS
+    jax_lpips = _lpips_row(os.path.join(ckpt, "jax"))
+    run_plnerf.main(test + [
+        "--task", "test", "--ckpt_dir", ckpt, "--data_dir", data_dir,
+        "--scene_id", "sphere", "--eval_det", "--device", "cpu",
+        "--expname", "port", "--ft_path",
+        os.path.join(ckpt, "jax", f"{STEPS:06d}.ckpt")])
+    assert _lpips_row(os.path.join(ckpt, "port")) == pytest.approx(
+        jax_lpips, rel=1e-4)
+    assert jax_lpips > 0
 
 
 def test_llff_driver_trains_like_jax(tmp_path):

@@ -182,8 +182,13 @@ def test_refusals(tmp_path):
                                str(tmp_path), chunk=CHUNK, platforms=["tpu"])
     export.export_renderer(mc, mf, ModelConfig(**KW), rcfg, str(tmp_path),
                            chunk=CHUNK)
-    with pytest.raises(ValueError, match="A15"):
-        ServingRenderer.load(str(tmp_path), devices=["cpu", "cpu"])
+    # several devices, refused before data parallelism was ported, serve
+    # (test_torch_parallel.py holds them against one device)
+    rays = _rays(3 * CHUNK, seed=5)
+    one = ServingRenderer.load(str(tmp_path), device="cpu")
+    two = ServingRenderer.load(str(tmp_path), devices=["cpu", "cpu"])
+    for k, v in one.render_rays(rays, seed=3).items():
+        np.testing.assert_array_equal(two.render_rays(rays, seed=3)[k], v)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ServingRenderer.load(str(tmp_path))

@@ -84,7 +84,8 @@ def test_render_images_with_metrics_matches_jax(tmp_path):
     for k in tres:
         np.testing.assert_allclose(tres[k], jres[k], rtol=1e-4, atol=1e-4,
                                    err_msg=k)
-    assert tm.notes["lpips"].startswith("UNAVAILABLE")
+    # no LPIPS callable: the JAX package's note, word for word
+    assert tm.notes["lpips"] == jm.notes["lpips"] == images.LPIPS_UNAVAILABLE
 
     images.write_images_with_metrics(tres, tm, str(tmp_path))
     for n in range(2):
@@ -95,4 +96,4 @@ def test_render_images_with_metrics_matches_jax(tmp_path):
         assert png.read_png(str(tmp_path / f"{n}_d.png")).dtype == np.uint16
     text = (tmp_path / "metrics.txt").read_text()
     assert "psnr: " in text and "ssim: " in text
-    assert "lpips: UNAVAILABLE" in text
+    assert f"lpips: {images.LPIPS_UNAVAILABLE}\n" in text

@@ -167,7 +167,8 @@ def test_port_imports_neither_jax_nor_plnerf():
             "plnerf_torch.checkpoint.convert_torch",
             "plnerf_torch.tools.export_reference_ckpt",
             "plnerf_torch.tools.serving_bench",
-            "plnerf_torch.data.fault_injection"} <= set(mods)
+            "plnerf_torch.data.fault_injection", "plnerf_torch.eval.lpips",
+            "plnerf_torch.parallel.mesh"} <= set(mods)
     # JAX, the JAX package and its tools, the image libraries the JAX
     # package reads and writes with, and the checkpoint format's libraries
     # (none is on the card's machine)
