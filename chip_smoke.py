@@ -130,7 +130,25 @@ Phases, one line each, then the result line:
            8th pixel on the CPU (``REFERENCE_TOL``, and ``pred_hyp`` at the
            depth tolerance 1e-2); logs ms per step, pool build s, s per
            test image, PSNR / SSIM and the importance-sampling error.
-11. depth  both kernels at the depth topology (input 57 padded to 64, views
+11. jpeg   the port's JPEG decoder (``plnerf_torch/data/jpeg.py``, its
+           entropy stage built with g++ here) on the committed fixtures of
+           ``tests/data/torch_jpeg/``: every conformance file (sampling
+           4:4:4 to 4:1:1 and gray, progressive, restart intervals,
+           optimised tables, q10-q100, 1x1 to 61x83, EXIF-tagged) against
+           its manifest digest (cv2's decode), all equal or the phase
+           raises; the 4032x3024 q90 file decoded ``JPEG_DECODES`` times
+           (median s per image, MP/s, the entropy / IDCT / upsample /
+           colour stages); then the LLFF recipe from the 20-view capture
+           (``images/*.jpg`` at 1008x756, baseline and progressive) copied
+           to a temporary directory: ``--config configs/llff_linear.txt
+           --factor 2 --dataset llff`` at full width, ``JPEG_STEPS`` steps
+           and a resume to ``JPEG_RESUME_STEPS``, then ``--task test``.
+           Checks ``images_2/`` written at 378x504 (fern's factor-8
+           training size) equal to its manifest digests, both kernels'
+           launches, a falling loss and a finite held-out PSNR; logs the
+           card line, the host CPU, the build, decode and minify seconds
+           and ms per step.
+12. depth  both kernels at the depth topology (input 57 padded to 64, views
            3 + a 4-channel camera embedding padded to 32, per ray; folded
            heads) against their plain versions, fp32 and bf16 (forward
            1e-4 / 2e-2 x max(1, max|raw|); backward 1e-3 / 2e-2 relative L2
@@ -157,7 +175,7 @@ Phases, one line each, then the result line:
            move and then hold, a held-out depth RMSE below the fresh
            init's, the metric files; logs ms per step, s per test image,
            PSNR / SSIM / depth RMSE.
-12. occ    the driver on ``configs/blender_linear_occ.txt`` at full width
+13. occ    the driver on ``configs/blender_linear_occ.txt`` at full width
            (two 8x256 MLPs, bf16, 32 grid-guided + 64 importance samples,
            a 128^3 grid with 96 candidate bins over [-1.5, 1.5]^3) on the
            driver phase's sphere: 300 steps (warm-up cut from 500 to 100,
@@ -183,7 +201,7 @@ Phases, one line each, then the result line:
            apart), s per test image, PSNR / SSIM, ``occ_ray_frac`` and the
            grid's occupied share.
 
-13. video  the camera-path videos on the driver phase's step-400
+14. video  the camera-path videos on the driver phase's step-400
            checkpoint: ``run_plnerf.main --task video --render_factor 4``
            (the 40 hemisphere poses at 100x100), ``--render_only
            --render_test`` (the 2 test views at 400x400), a 20-step
@@ -196,7 +214,7 @@ Phases, one line each, then the result line:
            one ``--eval_det`` path frame on the card against every 8th
            pixel on the CPU (``REFERENCE_TOL``); logs s per frame at each
            size.
-14. mesh   ``plnerf_torch.cli.extract_mesh.main`` on the driver phase's
+15. mesh   ``plnerf_torch.cli.extract_mesh.main`` on the driver phase's
            step-400 checkpoint at ``--mesh_res 512`` (134,217,728 points in
            64^3-point queries through the fp32 kernel, folded heads, zero
            view directions), the bbox from the unit-sphere ``.obj`` the
@@ -211,7 +229,7 @@ Phases, one line each, then the result line:
            kernel's launches and device ms (one profiled grid), the weight
            pack's share, marching-cubes / filter / PLY s, verts and faces
            before and after the filter, and peak device memory.
-15. dp     data parallelism under ``torchrun --standalone --nproc_per_node
+16. dp     data parallelism under ``torchrun --standalone --nproc_per_node
            1`` (NCCL, world size 1): the driver phase's recipe for 20
            steps and a resume to 40 (checkpoints at both, a val render at
            40), ``--task test`` and ``extract_mesh --mesh_res 128``, each
@@ -303,6 +321,15 @@ LLFF_STEPS, LLFF_PRINT = 300, 50
 LLFF_TRAIN = ["--constant_init", "100", "--i_print", str(LLFF_PRINT),
               "--i_weights", "150", "--i_img", "150",
               "--i_testset", "1000000", "--i_video", "1000000"]
+# the jpeg phase: the committed fixtures, the 12 MP file decoded 5 times,
+# and the LLFF recipe from the 20-view JPEG capture at --factor 2 (1008x756
+# sources to 378x504): 60 steps, a resume to 100, no val renders
+JPEG_FIXTURES = os.path.join("tests", "data", "torch_jpeg")
+JPEG_DECODES = 5
+JPEG_STEPS, JPEG_RESUME_STEPS, JPEG_PRINT = 60, 100, 20
+JPEG_TRAIN = ["--constant_init", "100", "--i_print", str(JPEG_PRINT),
+              "--i_img", "1000000", "--i_testset", "1000000",
+              "--i_video", "1000000"]
 # the depth phase: the multi-object scene in the blender2_depth layout at
 # 200x200 (lego's camera_angle_x), 10 train and 1 val views and 9 test
 # views of which the loader reads 2 (a stride of 8); the depth recipe at
@@ -1976,6 +2003,152 @@ def phase_llff(dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def cpu_model() -> str:
+    """The host CPU's model name from ``/proc/cpuinfo``, with its vendor,
+    family, model number and clock (a virtual machine may report the name
+    as "unknown"), and the core count."""
+    import platform
+
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break                       # the first processor only
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    ids = ", ".join(f"{k} {info[k]}" for k in (
+        "vendor_id", "cpu family", "model", "cpu MHz") if k in info)
+    name = info.get("model name", "not reported")
+    return f"{name} ({ids or platform.machine()}), {os.cpu_count()} cores"
+
+
+def phase_jpeg(dev):
+    """Returns (forward launches, backward launches) of the LLFF runs from
+    the JPEG capture."""
+    import shutil
+    import tempfile
+
+    from plnerf_torch.cli import run_plnerf
+    from plnerf_torch.data import jpeg, llff
+    from plnerf_torch.data.png import read_png
+
+    t_phase = time.perf_counter()
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            JPEG_FIXTURES)
+    with open(os.path.join(fixtures, "manifest.json")) as f:
+        manifest = json.load(f)["files"]
+    t0 = time.perf_counter()
+    jpeg._load()
+    build_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    names = sorted(n for n in manifest if n.startswith("conformance/"))
+    bad = [n for n in names if jpeg.digest(jpeg.read_jpeg(
+        os.path.join(fixtures, n))) != manifest[n]["digest"]]
+    if bad or not names:
+        raise AssertionError(f"jpeg: {len(bad)} of {len(names)} conformance "
+                             f"files differ from cv2's decode: {bad}")
+    conformance_s = time.perf_counter() - t0
+
+    big, = [n for n in manifest if n.startswith("big")]
+    with open(os.path.join(fixtures, big), "rb") as f:
+        buf = f.read()
+    decodes = []
+    for _ in range(JPEG_DECODES):
+        stages = {}
+        t0 = time.perf_counter()
+        img = jpeg.decode_jpeg(buf, big, stages)
+        decodes.append(dict(stages, total=time.perf_counter() - t0))
+        if jpeg.digest(img) != manifest[big]["digest"]:
+            raise AssertionError(f"jpeg: {big} differs from cv2's decode")
+    med = {k: statistics.median(d[k] for d in decodes) for k in decodes[0]}
+    mp = img.shape[0] * img.shape[1] / 1e6
+
+    root = tempfile.mkdtemp(prefix="plnerf_jpeg_")
+    try:
+        data, ckpt = os.path.join(root, "data"), os.path.join(root, "ckpt")
+        scene = os.path.join(data, "capture")
+        shutil.copytree(os.path.join(fixtures, "capture"), scene)
+        config = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "configs", "llff_linear.txt")
+        where = ["--ckpt_dir", ckpt, "--expname", "jpeg", "--data_dir", data,
+                 "--scene_id", "capture", "--dataset", "llff",
+                 "--factor", "2"]
+        exp = os.path.join(ckpt, "jpeg")
+        run, expect, launches, runs = _driver_runs()
+        train = ["--config", config, "--task", "train"] + where + JPEG_TRAIN
+        with _Recording(llff, "_minify") as minify, \
+                _Recording(llff, "_read_rgb") as reads:
+            run("train", train + ["--num_iterations", str(JPEG_STEPS),
+                                  "--i_weights", str(JPEG_STEPS)])
+        expect("train", 2 * JPEG_STEPS, 2 * JPEG_STEPS)
+        run("resume", train + ["--num_iterations", str(JPEG_RESUME_STEPS),
+                               "--i_weights", str(JPEG_RESUME_STEPS)])
+        steps = JPEG_RESUME_STEPS - JPEG_STEPS
+        expect("resume", 2 * steps, 2 * steps)
+        (minify_s, _), = minify.calls[:1]
+        jpeg_reads = [t for t, im in reads.calls if im.shape == (756, 1008, 3)]
+        small_dir = os.path.join(scene, "images_2")
+        views = sorted(n for n in manifest if n.startswith("capture/"))
+        pngs = sorted(os.listdir(small_dir))
+        if pngs != [os.path.basename(v)[:-4] + ".png" for v in views]:
+            raise AssertionError(f"jpeg: images_2 holds {pngs}")
+        for v, png_name in zip(views, pngs):
+            small = read_png(os.path.join(small_dir, png_name))
+            if small.shape != (378, 504, 3) or \
+                    jpeg.digest(small) != manifest[v]["images_2_digest"]:
+                raise AssertionError(f"jpeg: images_2/{png_name} "
+                                     f"{small.shape} differs from its "
+                                     "manifest digest")
+        recs = _records(exp, "train/loss")
+        losses = {k: r["train/loss"] for k, r in recs.items()}
+        if not (np.isfinite(list(losses.values())).all()
+                and losses[JPEG_RESUME_STEPS] < losses[JPEG_PRINT]):
+            raise AssertionError(f"jpeg: loss did not fall: {losses}")
+        mm = run("test", ["--task", "test"] + where)
+        i_test = list(range(0, len(views), 8))
+        expect("test", 2 * len(i_test) * -(-378 * 504 // R_CHUNK), 0)
+        if not np.isfinite(mm.get("psnr")):
+            raise AssertionError(f"jpeg: held-out PSNR {mm.get('psnr')}")
+        window_s = {k: JPEG_PRINT / r["train/steps_per_sec"]
+                    for k, r in recs.items()}
+        log("jpeg", card=card_line(), cpu=cpu_model(), build_s=build_s,
+            conformance={"files": len(names), "equal": len(names),
+                         "s": conformance_s},
+            decode={"file": big, "size": list(img.shape),
+                    "bytes": len(buf), "decodes": JPEG_DECODES,
+                    "s_per_image": med["total"],
+                    "mp_per_s": mp / med["total"],
+                    "stage_s": {k: med[k] for k in (
+                        "parse", "entropy", "idct", "upsample", "color")},
+                    "all_s": [d["total"] for d in decodes]},
+            scene={"views": len(views), "source": [756, 1008],
+                   "images_2": [378, 504], "i_test": i_test},
+            minify_s=minify_s, minify_s_per_view=minify_s / len(views),
+            jpeg_decode_s_per_view=statistics.median(jpeg_reads),
+            config="configs/llff_linear.txt", steps=JPEG_RESUME_STEPS,
+            train_loss=losses,
+            ms_per_step=1e3 * sum(window_s.values()) / JPEG_RESUME_STEPS,
+            ms_per_step_by_window={k: 1e3 * v / JPEG_PRINT
+                                   for k, v in window_s.items()},
+            run_s=runs, psnr=mm.get("psnr"), ssim=mm.get("ssim"),
+            launches=launches, phase_s=time.perf_counter() - t_phase,
+            note="decode: host seconds of decode_jpeg on the 12 MP file, "
+                 "the median of the decodes; minify_s: llff._minify in the "
+                 "first train run (20 JPEG decodes, area resizes and PNG "
+                 "writes); ms_per_step: the i_print windows over both runs "
+                 "(the loop's own clock: scene loads and pool builds not "
+                 "included)")
+        fwd = sum(v["fused_mlp_fwd"] for v in launches.values())
+        bwd = sum(v["fused_mlp_bwd"] for v in launches.values())
+        return fwd, bwd
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _depth_kernel_holds(dev, args, data, state) -> dict:
     """Both kernels at the depth topology (input 57 padded to 64, views 3
     + a 4-channel camera embedding padded to 32, per ray; folded heads;
@@ -3420,8 +3593,8 @@ def _dp_serving(dev, art: str) -> dict:
 
 
 PHASES = ("kernel", "probes", "bwd", "slice", "reference", "export",
-          "train", "interop", "train_reference", "driver", "llff", "depth",
-          "occ", "video", "mesh", "dp")
+          "train", "interop", "train_reference", "driver", "llff", "jpeg",
+          "depth", "occ", "video", "mesh", "dp")
 # the phases each phase reads the checkpoints (interop: the state; dp:
 # the artifacts) of
 NEEDS = {"video": ("driver", "depth"), "mesh": ("driver",),
@@ -3477,7 +3650,8 @@ def main(argv=None) -> int:
                     phase_train_reference,
                     lambda d: phase_driver(d, None, work["scenes"],
                                            work["driver"]),
-                    phase_llff, lambda d: phase_depth(d, work["depth"]),
+                    phase_llff, phase_jpeg,
+                    lambda d: phase_depth(d, work["depth"]),
                     lambda d: phase_occ(d, work["scenes"]),
                     lambda d: phase_video(d, work),
                     lambda d: phase_mesh(d, work),
@@ -3501,6 +3675,7 @@ def main(argv=None) -> int:
                 work["driver"])
             occ_fwd, occ_bwd = phase_occ(dev, work["scenes"])
             llff_fwd, llff_bwd = phase_llff(dev)
+            jpeg_fwd, jpeg_bwd = phase_jpeg(dev)
             depth_fwd, depth_bwd = phase_depth(dev, work["depth"])
             video_fwd, video_bwd = phase_video(dev, work)
             mesh_fwd = phase_mesh(dev, work)
@@ -3511,6 +3686,7 @@ def main(argv=None) -> int:
     if (launches < 1 or train_fwd < 1 or train_bwd < 1 or probe_fwd < 1
             or min(probe_launches.values()) < 1 or driver_fwd < 1
             or driver_bwd < 1 or llff_fwd < 1 or llff_bwd < 1
+            or jpeg_fwd < 1 or jpeg_bwd < 1
             or depth_fwd < 1 or depth_bwd < 1 or occ_fwd < 1
             or occ_bwd < 1 or video_fwd < 1 or video_bwd < 1
             or mesh_fwd < 1 or export_fwd < 1 or dp_fwd < 1 or dp_bwd < 1):
@@ -3523,7 +3699,7 @@ def main(argv=None) -> int:
         "source": "plnerf_torch/kernels/csrc/fused_mlp_fwd.cu",
         "replaces": KERNEL_REPLACES,
         "launches": (launches + train_fwd + probe_fwd + driver_fwd
-                     + llff_fwd + depth_fwd + occ_fwd + video_fwd
+                     + llff_fwd + jpeg_fwd + depth_fwd + occ_fwd + video_fwd
                      + mesh_fwd + export_fwd + dp_fwd),
         "max_abs_err": err, "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -3531,8 +3707,8 @@ def main(argv=None) -> int:
         "name": "fused_mlp_bwd", "route": "cuda",
         "source": "plnerf_torch/kernels/csrc/fused_mlp_bwd.cu",
         "replaces": BWD_REPLACES,
-        "launches": (train_bwd + driver_bwd + llff_bwd + depth_bwd
-                     + occ_bwd + video_bwd + dp_bwd),
+        "launches": (train_bwd + driver_bwd + llff_bwd + jpeg_bwd
+                     + depth_bwd + occ_bwd + video_bwd + dp_bwd),
         "max_abs_err": bwd_err, "ms": bt["kernel_ms"],
         "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"],
         "bound_by": bt["bound_by"], "library_ms": bt["library_ms"]}]

@@ -6,13 +6,13 @@ the average camera, spherification for 360 scenes, the spiral render
 path).  The pose algebra is numpy, copied op for op, so poses, bounds and
 render poses come out equal to the JAX package's.
 
-Images are read with ``data/png.py``.  Minification (``images_{factor}/``
-or ``images_{W}x{H}/``, written when missing) is ``area_resize``, cv2's
-``INTER_AREA`` in numpy, for PNG sources; the JAX package calls cv2, and
-the reference shells out to ImageMagick (load_llff.py:8-57).  A JPEG
-source has no decoder here: it must come with its minified PNG folder
-(the published ``nerf_llff_data`` scenes ship ``images_4/`` and
-``images_8/``), or the loader raises ``SystemExit`` (ROADMAP A7c).
+Images are read with ``data/png.py`` and ``data/jpeg.py`` (the JAX
+package reads them with imageio and cv2, which decode JPEG with
+libjpeg-turbo; the port's decoder is bit-equal to both).  Minification
+(``images_{factor}/`` or ``images_{W}x{H}/``, written when missing) decodes
+the PNG or JPEG sources and writes ``area_resize``, cv2's ``INTER_AREA``
+in numpy, as PNGs; the JAX package calls cv2, and the reference shells
+out to ImageMagick (load_llff.py:8-57).
 """
 from __future__ import annotations
 
@@ -22,11 +22,10 @@ from typing import Tuple
 
 import numpy as np
 
+from .jpeg import read_jpeg
 from .png import read_png, write_png
 
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png")
-_NO_JPEG = ("has no PNG copy at this size, and the port has no JPEG "
-            "decoder (ROADMAP A7c): write the minified images as PNGs")
 
 
 def _normalize(v):
@@ -163,7 +162,10 @@ def area_resize(img: np.ndarray, size) -> np.ndarray:
     if (w, h) == (W, H):
         return img.copy()
     wy, wx = _area_weights(H, h), _area_weights(W, w)
-    out = np.einsum("yi,ij...,xj->yx...", wy, img.astype(np.float64), wx)
+    # rows, then columns: two products (one three-operand einsum would
+    # loop over h x H x W x w terms)
+    out = np.tensordot(wy, img.astype(np.float64), axes=(1, 0))
+    out = np.moveaxis(np.tensordot(wx, out, axes=(1, 1)), 0, 1)
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
@@ -193,15 +195,14 @@ def _image_shape(path: str) -> Tuple[int, int]:
 
 
 def _read_rgb(path: str) -> np.ndarray:
-    if _is_jpeg(path):
-        raise SystemExit(f"{path}: a JPEG image " + _NO_JPEG)
-    return read_png(path)
+    return read_jpeg(path) if _is_jpeg(path) else read_png(path)
 
 
 def _minify(basedir: str, factor: int = None, resolution=None):
     """Write ``images_{factor}/`` (or ``images_{W}x{H}/`` for an explicit
-    ``resolution=(H, W)``) beside ``images/`` when it is missing, as
-    area-resized PNGs (load_llff.py:8-57's two target kinds)."""
+    ``resolution=(H, W)``) beside ``images/`` when it is missing: each PNG
+    or JPEG source decoded and written as an area-resized PNG
+    (load_llff.py:8-57's two target kinds)."""
     if resolution is not None:
         h, w = resolution
         out_dir = os.path.join(basedir, f"images_{w}x{h}")
@@ -211,13 +212,9 @@ def _minify(basedir: str, factor: int = None, resolution=None):
         return
     src_dir = os.path.join(basedir, "images")
     names = _image_names(src_dir)
-    jpegs = [n for n in names if _is_jpeg(n)]
-    if jpegs:
-        raise SystemExit(f"{src_dir}: {len(jpegs)} JPEG images "
-                         f"({jpegs[0]}, ...) " + _NO_JPEG)
     os.makedirs(out_dir)
     for name in names:
-        img = read_png(os.path.join(src_dir, name))
+        img = _read_rgb(os.path.join(src_dir, name))
         h, w = img.shape[:2]
         size = ((int(round(w / factor)), int(round(h / factor)))
                 if resolution is None else (resolution[1], resolution[0]))

@@ -3,12 +3,10 @@ replacement for the reference's PyMCubes ``mcubes.marching_cubes(u,
 threshold)``, nerf_extract_mesh.py:581).
 
 ``marching_cubes_native`` runs ``_marching_cubes.cpp`` through ctypes.
-The source is compiled with g++ at first use into ``build/plnerf_torch/``
-at the repository root (beside the CUDA kernels of ``kernels/build.py``),
-under a file name that carries a hash of the source; the build writes a
-temporary file and renames it, so a build running in parallel never loads
-a half-written library.  ``marching_cubes_numpy`` is the plain version of
-the same algorithm, a Python loop over the active cubes.
+The source is compiled with g++ at first use by ``native.build`` into
+``build/plnerf_torch/libmarching_cubes-<hash of the source>.so``.
+``marching_cubes_numpy`` is the plain version of the same algorithm, a
+Python loop over the active cubes.
 
 Both return ``(verts [V, 3] float32, faces [F, 3] int32)``: verts in
 grid-index coordinates (the caller rescales them to the world bbox), each
@@ -22,65 +20,30 @@ version runs only when it is called by name.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 from typing import Optional, Tuple
 
 import numpy as np
 
-from ..kernels import build as kbuild
+from .. import native
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                    "_marching_cubes.cpp")
-BUILD_DIR = kbuild.BUILD_DIR
-CXX = "g++"
-CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+BUILD_DIR = native.BUILD_DIR
+CXX = native.CXX
+CXX_FLAGS = list(native.CXX_FLAGS)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-
-
-def library_path() -> str:
-    with open(SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"libmarching_cubes-{digest}.so")
-
-
-def build() -> str:
-    """Compile ``_marching_cubes.cpp`` unless its library exists; returns
-    the library path.  Raises ``RuntimeError`` with the compiler's output
-    when the build fails or the compiler is missing."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        try:
-            proc = subprocess.run([CXX] + CXX_FLAGS + [SRC, "-o", tmp],
-                                  capture_output=True, text=True)
-        except OSError as e:
-            raise RuntimeError(f"marching cubes: cannot run {CXX!r} to "
-                               f"build {SRC}: {e}") from e
-        if proc.returncode != 0:
-            raise RuntimeError(f"marching cubes: {CXX} failed for "
-                               f"{SRC}:\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            lib = ctypes.CDLL(native.build(SRC, "marching_cubes", CXX,
+                                           CXX_FLAGS, BUILD_DIR))
             lib.mc_run.restype = ctypes.c_int
             lib.mc_run.argtypes = [
                 ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,

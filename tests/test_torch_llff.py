@@ -5,7 +5,9 @@ cv2) on the CPU.  Scenes: ``tests/fixtures.make_llff_scene`` (the sphere,
 
 Tolerances: poses, bounds and render poses 1e-6; images equal, except
 after a minify, where the port's area resize and cv2's ``INTER_AREA``
-agree within one uint8 level."""
+agree within one uint8 level.  JPEG sources (a JPEG-only copy of the
+forward-facing fixture) are decoded by the port's decoder and by
+imageio / cv2, bit-equal."""
 import argparse
 import os
 
@@ -118,23 +120,101 @@ def test_area_resize_matches_cv2(shape, size, channels):
     assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
 
 
+def test_area_resize_halves_a_source_sized_view_exactly():
+    """A 1008x756 view (a capture's ``images/``) to 504x378, as ``--factor
+    2`` minifies it: the 2x2 box mean, rounded half to even, and quick (one
+    three-operand einsum took minutes at this size)."""
+    img = np.random.default_rng(1).integers(0, 256, (756, 1008, 3),
+                                            dtype=np.uint8)
+    box = img.reshape(378, 2, 504, 2, 3).astype(np.float64).mean((1, 3))
+    np.testing.assert_array_equal(llff.area_resize(img, (504, 378)),
+                                  np.rint(box).astype(np.uint8))
+
+
 def test_area_resize_refuses_to_enlarge():
     with pytest.raises(ValueError, match="shrinks only"):
         llff.area_resize(np.zeros((4, 4, 3), np.uint8), (5, 4))
 
 
-def test_jpeg_source_without_its_minified_folder_exits(tmp_path):
-    d = synthetic.make_llff_fixture(str(tmp_path), n=2, H=8, W=10)
+def _to_jpeg(d: str) -> None:
+    """Replace each ``images/*.png`` of an LLFF scene by a q90 JPEG (even
+    views baseline, odd views progressive)."""
+    names = sorted(os.listdir(os.path.join(d, "images")))
+    for k, name in enumerate(names):
+        path = os.path.join(d, "images", name)
+        params = [cv2.IMWRITE_JPEG_QUALITY, 90]
+        if k % 2:
+            params += [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+        cv2.imwrite(path[:-4] + ".jpg", cv2.imread(path), params)
+        os.remove(path)
+
+
+@pytest.fixture(scope="module")
+def jpeg_scene(scenes, tmp_path_factory):
+    """The forward-facing fixture with JPEG sources only."""
+    import shutil
+
+    d = tmp_path_factory.mktemp("llff_jpeg") / "ff"
+    shutil.copytree(scenes["ff_jax"], d)
+    _to_jpeg(str(d))
+    return str(d)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(factor=1), dict(factor=2), dict(factor=None, height=16),
+    dict(factor=None, width=20)],
+    ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_jpeg_capture_loads_as_jax(jpeg_scene, tmp_path, kw):
+    """A JPEG-only capture: the images equal the JAX package's at factor
+    1 (the port's decoder and imageio's are bit-equal); after a minify
+    within one level (area_resize against cv2's INTER_AREA), with the
+    written PNGs held the same way; poses, bounds, render poses and
+    i_test as ``test_load_llff_data_matches_jax``."""
+    import shutil
+
+    for who in ("jax", "port"):
+        shutil.copytree(jpeg_scene, tmp_path / who)
+    ref = jllff.load_llff_data(str(tmp_path / "jax"), **kw)
+    got = llff.load_llff_data(str(tmp_path / "port"), **kw)
+    resized = kw.get("factor") != 1
+    _same(got, ref, images_atol=1.0 / 255 + 1e-6 if resized else 0.0)
+    subs = sorted(d for d in os.listdir(tmp_path / "port")
+                  if d.startswith("images_"))
+    assert subs == sorted(d for d in os.listdir(tmp_path / "jax")
+                          if d.startswith("images_"))
+    assert len(subs) == (1 if resized else 0)
+    for sub in subs:
+        names = sorted(os.listdir(tmp_path / "port" / sub))
+        assert names == sorted(os.listdir(tmp_path / "jax" / sub))
+        for name in names:
+            a = read_png(str(tmp_path / "port" / sub / name)).astype(int)
+            b = cv2.imread(str(tmp_path / "jax" / sub / name))[..., ::-1]
+            assert np.abs(a - b).max() <= 1, name
+
+
+def test_jpeg_source_minifies_as_jax(tmp_path):
+    """A folder holding one JPEG among PNGs minifies as the JAX package
+    minifies it, and a minified PNG folder already beside the JPEGs is
+    used as it is."""
+    import shutil
+
+    d = synthetic.make_llff_fixture(str(tmp_path / "port"), n=2, H=8, W=10)
     img = os.path.join(d, "images", "000.png")
-    os.rename(img, img[:-4] + ".jpg")
-    with pytest.raises(SystemExit, match="JPEG.*A7c"):
-        llff.load_llff_data(d, factor=2)
-    # the minified PNG folder beside the JPEGs is enough
+    cv2.imwrite(img[:-4] + ".jpg", cv2.imread(img))
+    os.remove(img)
+    shutil.copytree(d, tmp_path / "jax")
+    got = llff.load_llff_data(d, factor=2)
+    ref = jllff.load_llff_data(str(tmp_path / "jax"), factor=2)
+    _same(got, ref, images_atol=1.0 / 255 + 1e-6)
+    assert got[0].shape == (2, 4, 5, 3)
+    # the minified PNG folder beside the JPEGs is used as it is
+    shutil.rmtree(os.path.join(d, "images_2"))
     os.makedirs(os.path.join(d, "images_2"))
     for name in ("000", "001"):
         write_png(os.path.join(d, "images_2", name + ".png"),
                   np.zeros((4, 5, 3), np.uint8))
-    assert llff.load_llff_data(d, factor=2)[0].shape == (2, 4, 5, 3)
+    images = llff.load_llff_data(d, factor=2)[0]
+    assert images.shape == (2, 4, 5, 3) and not images.any()
 
 
 def test_image_shape_reads_png_and_jpeg_headers(tmp_path):

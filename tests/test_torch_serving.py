@@ -168,7 +168,8 @@ def test_port_imports_neither_jax_nor_plnerf():
             "plnerf_torch.tools.export_reference_ckpt",
             "plnerf_torch.tools.serving_bench",
             "plnerf_torch.data.fault_injection", "plnerf_torch.eval.lpips",
-            "plnerf_torch.parallel.mesh"} <= set(mods)
+            "plnerf_torch.parallel.mesh", "plnerf_torch.data.jpeg",
+            "plnerf_torch.native"} <= set(mods)
     # JAX, the JAX package and its tools, the image libraries the JAX
     # package reads and writes with, and the checkpoint format's libraries
     # (none is on the card's machine)
@@ -195,15 +196,18 @@ def test_port_imports_neither_jax_nor_plnerf():
 def test_loaders_run_without_image_libraries(tmp_path):
     """The LLFF and DTU loaders read, minify and resize with the port's own
     code: a run that writes the forward-facing fixture, loads it with a
-    minify, resizes and decomposes as the DTU loaders do, and ends with
-    cv2, PIL and imageio never imported (the check above sees only what
-    importing the modules pulls in)."""
+    minify, decodes a JPEG, resizes and decomposes as the DTU loaders do,
+    and ends with cv2, PIL and imageio never imported (the check above
+    sees only what importing the modules pulls in)."""
     code = (
         "import sys, numpy as np\n"
         "from plnerf_torch.data import dtu, llff, synthetic\n"
         f"d = synthetic.make_llff_fixture({str(tmp_path)!r}, n=3, H=8, "
         "W=12)\n"
         "assert llff.load_llff_data(d, factor=2)[0].shape == (3, 4, 6, 3)\n"
+        "from plnerf_torch.data import jpeg\n"
+        "assert jpeg.read_jpeg('tests/data/torch_jpeg/conformance/"
+        "s420_61x83.jpg').shape == (61, 83, 3)\n"
         "img = np.zeros((8, 12, 3), np.uint8)\n"
         "assert dtu.bilinear_resize(img, (6, 4)).shape == (4, 6, 3)\n"
         "dtu.decompose_projection(np.eye(3, 4))\n"
