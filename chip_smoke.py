@@ -245,6 +245,26 @@ Phases, one line each, then the result line:
            through ``ServingRenderer.load(devices=[cuda:0, cuda:0])`` (and
            [cuda:0, cuda:1] with a second card): its three 32,768-ray
            requests and a 400x400 image bit-equal to one device.
+17. dispatch ``--steps_per_dispatch``: first a census of the step
+           flavours the drivers run (the NVS step in fp32 and bf16, the
+           vanilla joint Adam, a pool slice, the grid's bf16 step, the
+           depth step with camera embeddings, with and without the grid),
+           each at full width: one window of 8 steps under
+           ``torch.cuda.set_sync_debug_mode("error")`` (a wait on the card
+           inside it raises), then one traced (the host's waits per step
+           by op chain, expected 0; device ms and busy share).  Then the
+           driver's recipes at N = 8 against N = 1 for 120 steps with
+           precrop / constant quadrature at 30 / 60: fp32 and bf16 on the
+           driver phases' sphere, fp32 with batching on a 100x100 sphere
+           whose pool reshuffles inside the run, and the occ recipe (bf16)
+           across a warm-up of 40; the depth recipe at N = 4 against N = 1
+           for 40 steps on the multi-object scene at 100x100.  Each pair's
+           final checkpoint (and grid) and its losses at the steps both
+           logged must be bit-equal, each run launch both kernels twice a
+           step, and the ``--profile 8`` windows of the fp32, bf16 and occ
+           runs hold no wait on the card; ms per step of every run (the
+           print records past step 24) and each trace's busy share are
+           printed beside the card's name and power limit.
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -3592,9 +3612,423 @@ def _dp_serving(dev, art: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# dispatch: --steps_per_dispatch N, windows in which the host never waits
+# ---------------------------------------------------------------------------
+
+# N = 8 against N = 1 for 120 steps of the driver's recipe, its precrop and
+# constant quadrature cut to 30 / 60 so that windows split (and the grid's
+# warm-up to 40); prints every 8 steps, so both runs print about as often
+# and the windows ending at 8, 16, 24 and 120 log in both
+DISPATCH_N, DISPATCH_STEPS, DISPATCH_PRINT = 8, 120, 8
+DISPATCH_TRAIN = ["--precrop_iters", "30", "--constant_init", "60",
+                  "--i_print", str(DISPATCH_PRINT), "--i_weights",
+                  str(DISPATCH_STEPS), "--i_img", "1000000",
+                  "--i_testset", "1000000", "--i_video", "1000000",
+                  "--num_iterations", str(DISPATCH_STEPS)]
+DISPATCH_OCC_WARMUP = 40
+# a sphere at 100x100: 8 views hold 80,000 rays, 78 full batches an epoch,
+# so the pool runs reshuffle inside their 120 steps
+DISPATCH_POOL_SIZE = 100
+# the depth recipe, 40 steps at N = 4 against N = 1, past its warm start
+# and its scale / shift freeze, on the multi-object scene at 100x100
+DISPATCH_DEPTH_N, DISPATCH_DEPTH_STEPS, DISPATCH_DEPTH_SIZE = 4, 40, 100
+DISPATCH_DEPTH = ["--i_print", "4", "--i_img", "1000000", "--i_weights",
+                  str(DISPATCH_DEPTH_STEPS), "--num_iterations",
+                  str(DISPATCH_DEPTH_STEPS), "--warm_start_nerf", "10",
+                  "--freeze_ss", "20"]
+# --profile on the N = 8 and N = 1 runs: 8 steps, from the window that
+# starts past step 3 (9-16 at N = 8, 4-11 at N = 1)
+DISPATCH_PROFILE = 8
+# the census: one window of each step flavour at full width, as the
+# drivers call them, after a window that builds and warms up
+CENSUS_WINDOW = 8
+CENSUS_FLAVOURS = ("nvs_fp32", "nvs_bf16", "vanilla_fp32", "pool_fp32",
+                   "occ_bf16", "depth_fp32", "depth_occ_fp32")
+# the host's waits per fp32 step before (PERF.md §5: profile_step, PR 5)
+PR5_SYNCS_PER_STEP = 13
+
+
+def _census_scene(dev) -> tuple:
+    """(images, poses, K, i_train) of the numpy sphere at 200x200 on the
+    card, as the NVS driver holds them."""
+    from plnerf_torch.data.synthetic import make_sphere_dataset
+
+    images, poses, hwf, K = make_sphere_dataset(8, 200, 200)
+    return (torch.as_tensor(images, device=dev),
+            torch.as_tensor(poses[:, :3, :4], device=dev),
+            torch.as_tensor(K, device=dev), torch.arange(8, device=dev))
+
+
+def _flavour(dev, flavour: str, scene: tuple):
+    """A closure running one step of ``flavour`` as the drivers call it
+    (their ``build_configs`` on the recipe's flags, the batch made on the
+    card from ``scene``, ``_census_scene``): the NVS step (two Adams) in
+    fp32 and bf16, the vanilla joint Adam, a pool slice, the grid's step,
+    the depth step with camera embeddings (frozen scale / shift from step
+    4), with and without the grid."""
+    import dataclasses
+
+    from plnerf_torch.cli import config, run_depth, run_plnerf
+    from plnerf_torch.core import occgrid
+    from plnerf_torch.device import make_generator
+    from plnerf_torch.train import batching
+    from plnerf_torch.train.step import (apply_occ_update, init_state,
+                                         make_depth_train_step,
+                                         make_occ_train_step,
+                                         make_train_step)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    images, poses, K, i_train = scene
+    g = make_generator(1, dev)
+    near, far = 2.0, 6.0
+    if flavour.startswith("depth"):
+        argv = ["train"] + DEPTH_TRAIN + ["--dataset", "blender2_depth",
+                                          "--set_near_plane", "2.0",
+                                          "--white_bkgd", "--freeze_ss", "4"]
+        if flavour == "depth_occ_fp32":
+            argv += ["--occ_grid", "--occ_bound", "1.5"]
+        args = run_depth.config_parser().parse_args(argv)
+        _, rcfg, setup = run_depth.build_configs(args)
+        occ_cfg = run_plnerf.occ_cfg_from_args(args)
+        if occ_cfg is not None:
+            setup = dataclasses.replace(setup, rcfg=dataclasses.replace(
+                rcfg, occ=occ_cfg))
+        grid = (None if occ_cfg is None else
+                occgrid.init_grid([-1.5] * 3, [1.5] * 3, occ_cfg, dev))
+        state = init_state(make_generator(0, dev), setup, dev, n_images=8)
+        step = make_depth_train_step(setup)
+        intr = torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]).expand(
+            8, 4).contiguous()
+        depths = torch.full(images.shape[:3], 4.0, device=dev)
+        mask = torch.ones(images.shape[:3], device=dev)
+        rng = np.random.default_rng(0)
+
+        def run():
+            nonlocal state, grid
+            batch = run_depth.depth_batch(
+                images, poses, intr, depths, mask, int(rng.choice(8)),
+                N_RAND, near, far, rcfg.use_viewdirs, g)
+            if occ_cfg is None:
+                state, _ = step(state, batch, g)
+            else:
+                state, m = step(state, dict(batch, occ_grid=grid), g)
+                grid, _ = apply_occ_update(setup, grid, batch, m)
+
+        return run
+    cfg = "blender_linear_occ.txt" if flavour == "occ_bf16" \
+        else "blender_linear.txt"
+    argv = ["--config", os.path.join(root, "configs", cfg)]
+    if flavour == "nvs_bf16":
+        argv += ["--mlp_dtype", "bfloat16"]
+    args = config.config_parser().parse_args(argv)
+    _, rcfg, setup = run_plnerf.build_configs(
+        args, vanilla=flavour.startswith("vanilla"))
+    occ_cfg = run_plnerf.occ_cfg_from_args(args)
+    state = init_state(make_generator(0, dev), setup, dev)
+    grid = None
+    if occ_cfg is not None:
+        setup = dataclasses.replace(setup, rcfg=dataclasses.replace(
+            rcfg, occ=occ_cfg))
+        grid = occgrid.init_grid([-1.5] * 3, [1.5] * 3, occ_cfg, dev)
+        step = make_occ_train_step(setup)
+    else:
+        step = make_train_step(setup)
+    pool = None
+    if flavour.startswith("pool"):
+        pool = torch.as_tensor(batching.build_ray_pool(
+            images.cpu().numpy(), poses.cpu().numpy(), K.cpu().numpy(),
+            range(8)), device=dev)
+    i_batch = 0
+
+    def run():
+        nonlocal state, grid, i_batch
+        if pool is not None:
+            rays, target = batching.pool_batch(pool, i_batch, N_RAND, near,
+                                               far, rcfg.use_viewdirs)
+            i_batch += N_RAND
+        else:
+            rays, target, _ = batching.sample_one_image_batch(
+                images, poses, K, i_train, g, N_RAND, near, far,
+                rcfg.use_viewdirs)
+        batch = {"rays": rays, "target": target}
+        if occ_cfg is None:
+            state, _ = step(state, batch, g)
+        else:
+            state, grid, _ = step(state, grid, batch, g)
+
+    return run
+
+
+def _window_spans(trace: dict) -> list:
+    """(start, end) us of the trace's ``dispatch_window`` spans on the
+    host (the drivers' windows; the card's copies of them are
+    ``gpu_user_annotation``)."""
+    from plnerf_torch.cli.run_plnerf import WINDOW_SPAN
+
+    return [(e["ts"], e["ts"] + e["dur"]) for e in trace["traceEvents"]
+            if e.get("ph") == "X" and e.get("name") == WINDOW_SPAN
+            and e.get("cat") == "user_annotation"]
+
+
+def _trace_syncs(trace: dict, steps: int, spans) -> dict:
+    """The host's waits on the card inside ``spans`` ((start, end) us) of
+    a Chrome trace, per step and by op chain
+    (``utils/profile.trace_host_syncs``)."""
+    from plnerf_torch.utils.profile import trace_host_syncs
+
+    def inside(e):
+        ts = e.get("ts")
+        return ts is not None and any(a <= ts <= b for a, b in spans)
+
+    chains = trace_host_syncs({"traceEvents": [
+        e for e in trace["traceEvents"] if inside(e)]})
+    return {"per_step": sum(c for _, c, _ in chains) / steps,
+            "chains": [[ch[:160], c / steps, round(ms / steps, 4)]
+                       for ch, c, ms in chains]}
+
+
+def _busy(trace: dict, t0: float, t1: float) -> dict:
+    """Device ms (kernels, copies, sets) that start in [t0, t1] us, and
+    their share of the span from t0 to the last one's end."""
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"
+             and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+             and t0 <= e["ts"] <= t1]
+    if not spans:
+        return {"device_ms": 0.0, "span_ms": 0.0, "busy": None}
+    end = max(e["ts"] + e["dur"] for e in spans)
+    dev_ms = sum(e["dur"] for e in spans) / 1e3
+    span = (end - t0) / 1e3
+    return {"device_ms": dev_ms, "span_ms": span, "busy": dev_ms / span}
+
+
+def step_census(dev, debug_mode=None, flavours=CENSUS_FLAVOURS,
+                out_dir=None) -> dict:
+    """For each step flavour (``_flavour``): a window of
+    ``CENSUS_WINDOW`` steps that builds and warms up, then one under
+    ``torch.cuda.set_sync_debug_mode(debug_mode)`` (``"error"``: a wait on
+    the card raises), then one under ``torch.profiler``: the host's waits
+    per step by op chain, device ms per step and the busy share of the
+    window's wall time.  Uses only the package's public functions, so it
+    runs against an earlier commit's package too."""
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    tmp = out_dir or tempfile.mkdtemp(prefix="plnerf_census_")
+    scene = _census_scene(dev)
+    for name in flavours:
+        run = _flavour(dev, name, scene)
+        for _ in range(CENSUS_WINDOW):
+            run()
+        torch.cuda.synchronize()
+        if debug_mode is not None:
+            torch.cuda.set_sync_debug_mode(debug_mode)
+            try:
+                for _ in range(CENSUS_WINDOW):
+                    run()
+            except RuntimeError as e:
+                raise AssertionError(f"census {name}: the window waited on "
+                                     f"the card: {e}") from e
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("dispatch_window"):
+                for _ in range(CENSUS_WINDOW):
+                    run()
+            torch.cuda.synchronize()
+        path = os.path.join(tmp, f"census_{name}.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+        win = next(e for e in trace["traceEvents"]
+                   if e.get("name") == "dispatch_window"
+                   and e.get("ph") == "X"
+                   and e.get("cat") == "user_annotation")
+        t0, t1 = win["ts"], win["ts"] + win["dur"]
+        busy = _busy(trace, t0, float("inf"))
+        out[name] = {"syncs": _trace_syncs(trace, CENSUS_WINDOW, [(t0, t1)]),
+                     "host_ms_per_step": win["dur"] / 1e3 / CENSUS_WINDOW,
+                     "device_ms_per_step": busy["device_ms"] / CENSUS_WINDOW,
+                     "busy": busy["busy"]}
+    return out
+
+
+def _steady_ms(exp: str, after: int) -> float:
+    """ms per step of a driver run from its print records past step
+    ``after``: each covers the steps since the previous print, at its
+    ``steps_per_sec``."""
+    recs = _records(exp, "train/steps_per_sec")
+    steps = sorted(recs)
+    t = n = 0.0
+    for prev, k in zip(steps, steps[1:]):
+        if prev >= after:
+            t += (k - prev) / recs[k]["train/steps_per_sec"]
+            n += k - prev
+    return 1e3 * t / n
+
+
+def _pair(exp1: str, expn: str, steps: int) -> dict:
+    """The N = 1 and N > 1 runs' final checkpoints (and sidecars) and
+    their losses at the steps both logged: counts of what differs and the
+    largest differences; bit-equal expected."""
+    name = f"{steps:06d}"
+    out = {"state": _state_diff(
+        torch.load(os.path.join(exp1, name + ".ckpt"), weights_only=False),
+        torch.load(os.path.join(expn, name + ".ckpt"), weights_only=False))}
+    occ = os.path.join(exp1, name + ".occ")
+    if os.path.exists(occ):
+        out["grid"] = _state_diff(
+            torch.load(occ, weights_only=True),
+            torch.load(os.path.join(expn, name + ".occ"), weights_only=True))
+    r1, rn = _records(exp1, "train/loss"), _records(expn, "train/loss")
+    shared = sorted(set(r1) & set(rn))
+    out["shared_logged_steps"] = shared
+    out["loss_max_abs"] = max(abs(r1[k]["train/loss"] - rn[k]["train/loss"])
+                              for k in shared)
+    out["logged_steps_n"] = sorted(rn)
+    if (out["state"]["tensors"] or out.get("grid", {}).get("tensors")
+            or out["loss_max_abs"] != 0.0 or steps not in shared):
+        raise AssertionError(f"{expn}: N changed a number: {out}")
+    return out
+
+
+def phase_dispatch(dev, work):
+    """Returns (forward launches, backward launches) of the driver runs
+    of ``--steps_per_dispatch`` N against N = 1.  ``work['scenes']``: the
+    driver phases' sphere (written here when missing)."""
+    import shutil
+
+    from plnerf_torch.cli import run_depth
+    from plnerf_torch.data.synthetic import (write_blender2_depth_scene,
+                                             write_sphere_scene)
+    from plnerf_torch.utils.profile import trace_device_gaps
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="plnerf_dispatch_")
+    try:
+        t0 = time.perf_counter()
+        data, _ = sphere_data(work["scenes"])
+        write_sphere_scene(os.path.join(root, "pool"), DISPATCH_POOL_SIZE,
+                           DRIVER_VIEWS)
+        write_blender2_depth_scene(
+            os.path.join(root, "mobj"), DEPTH_VIEWS, DISPATCH_DEPTH_SIZE,
+            DISPATCH_DEPTH_SIZE, LEGO_CAMERA_ANGLE_X, seed=0,
+            workers=min(8, os.cpu_count() or 1))
+        scene_s = time.perf_counter() - t0
+        t_runs = time.perf_counter()
+        census = step_census(dev, "error", out_dir=root)
+        census_s = time.perf_counter() - t_runs
+        bad = {k: v["syncs"] for k, v in census.items()
+               if v["syncs"]["per_step"]}
+        if bad:
+            raise AssertionError(f"census: waits inside a window: {bad}")
+
+        configs = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "configs")
+        pool_cfg = os.path.join(root, "blender_linear_batching.txt")
+        with open(os.path.join(configs, "blender_linear.txt")) as f, \
+                open(pool_cfg, "w") as g:
+            g.writelines(l for l in f if not l.startswith("no_batching"))
+        ckpt = os.path.join(root, "ckpt")
+        prof = ["--profile", str(DISPATCH_PROFILE)]
+        recipes = {
+            "fp32": (os.path.join(configs, "blender_linear.txt"), data,
+                     "sphere", prof),
+            "pool_fp32": (pool_cfg, root, "pool", []),
+            "bf16": (os.path.join(configs, "blender_linear.txt"), data,
+                     "sphere", prof + ["--mlp_dtype", "bfloat16"]),
+            "occ_bf16": (os.path.join(configs, "blender_linear_occ.txt"),
+                         data, "sphere", prof + [
+                             "--occ_warmup", str(DISPATCH_OCC_WARMUP)]),
+        }
+        run, expect, launches, runs = _driver_runs()
+        pairs, ms, traces = {}, {}, {}
+        for name, (cfg, data_dir, scene, extra) in recipes.items():
+            for n in (1, DISPATCH_N):
+                exp = f"{name}_n{n}"
+                run(exp, ["--config", cfg, "--task", "train", "--ckpt_dir",
+                          ckpt, "--expname", exp, "--data_dir", data_dir,
+                          "--scene_id", scene, "--steps_per_dispatch",
+                          str(n)] + DISPATCH_TRAIN + extra)
+                expect(exp, 2 * DISPATCH_STEPS, 2 * DISPATCH_STEPS)
+                ms[exp] = _steady_ms(os.path.join(ckpt, exp), 24)
+                if extra[:1] == ["--profile"]:
+                    first = 1 + (DISPATCH_N if n > 1 else 3)
+                    path = os.path.join(ckpt, exp, "profile",
+                                        f"trace_{first:06d}.json")
+                    with open(path) as f:
+                        tr = json.load(f)
+                    first_launch = min(
+                        (e["ts"] for e in tr["traceEvents"]
+                         if e.get("cat") == "cuda_runtime"
+                         and "Launch" in e.get("name", "")), default=0.0)
+                    spans = _window_spans(tr)
+                    traces[exp] = {
+                        "steps": DISPATCH_PROFILE, "windows": len(spans),
+                        "syncs": _trace_syncs(tr, DISPATCH_PROFILE, spans),
+                        "busy": _busy(tr, first_launch,
+                                      float("inf"))["busy"],
+                        "gaps": trace_device_gaps(tr)}
+                    if (len(spans) != (1 if n > 1 else DISPATCH_PROFILE)
+                            or traces[exp]["syncs"]["per_step"]):
+                        raise AssertionError(
+                            f"{exp}: waits inside the traced windows: "
+                            f"{traces[exp]}")
+            pairs[name] = _pair(os.path.join(ckpt, f"{name}_n1"),
+                                os.path.join(ckpt, f"{name}_n{DISPATCH_N}"),
+                                DISPATCH_STEPS)
+
+        drun, dexpect, dlaunches, druns = _driver_runs(run_depth.main)
+        for n in (1, DISPATCH_DEPTH_N):
+            exp = f"depth_n{n}"
+            drun(exp, ["train"] + DEPTH_TRAIN + DISPATCH_DEPTH + [
+                "--ckpt_dir", ckpt, "--expname", exp, "--data_dir", root,
+                "--scene_id", "mobj", "--dataset", "blender2_depth",
+                "--set_near_plane", "2.0", "--white_bkgd",
+                "--steps_per_dispatch", str(n)])
+            dexpect(exp, 2 * DISPATCH_DEPTH_STEPS, 2 * DISPATCH_DEPTH_STEPS)
+        pairs["depth"] = _pair(
+            os.path.join(ckpt, "depth_n1"),
+            os.path.join(ckpt, f"depth_n{DISPATCH_DEPTH_N}"),
+            DISPATCH_DEPTH_STEPS)
+        launches.update(dlaunches)
+        runs.update(druns)
+        fwd = sum(v["fused_mlp_fwd"] for v in launches.values())
+        bwd = sum(v["fused_mlp_bwd"] for v in launches.values())
+        log("dispatch", card=card_line(), n=DISPATCH_N,
+            depth_n=DISPATCH_DEPTH_N, steps=DISPATCH_STEPS,
+            depth_steps=DISPATCH_DEPTH_STEPS, bit_equal=pairs,
+            census={k: {"syncs_per_step": v["syncs"]["per_step"],
+                        "host_ms_per_step": v["host_ms_per_step"],
+                        "device_ms_per_step": v["device_ms_per_step"],
+                        "busy": v["busy"]} for k, v in census.items()},
+            syncs_per_step_pr5=PR5_SYNCS_PER_STEP,
+            traces=traces, ms_per_step=ms, launches=launches,
+            launches_per_train_step={"fused_mlp_fwd": 2, "fused_mlp_bwd": 2},
+            run_s=runs, scene_s=scene_s, census_s=census_s,
+            phase_s=time.perf_counter() - t_phase,
+            runs_s=time.perf_counter() - t_runs,
+            note="bit_equal: the final checkpoints (and grids) of N = 1 "
+                 "and N > 1, and their losses at the steps both logged; "
+                 "census: one window of each step flavour under "
+                 "set_sync_debug_mode('error') and then traced "
+                 "(syncs: the host's waits on the card per step); traces: "
+                 "the drivers' --profile windows (syncs inside their "
+                 "dispatch_window spans, busy: device time over the span "
+                 "from the first launch); ms_per_step: the print records "
+                 "past step 24 (warm-up and the profiled window excluded), "
+                 "val renders off")
+        return fwd, bwd
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 PHASES = ("kernel", "probes", "bwd", "slice", "reference", "export",
           "train", "interop", "train_reference", "driver", "llff", "jpeg",
-          "depth", "occ", "video", "mesh", "dp")
+          "depth", "occ", "video", "mesh", "dp", "dispatch")
 # the phases each phase reads the checkpoints (interop: the state; dp:
 # the artifacts) of
 NEEDS = {"video": ("driver", "depth"), "mesh": ("driver",),
@@ -3655,7 +4089,8 @@ def main(argv=None) -> int:
                     lambda d: phase_occ(d, work["scenes"]),
                     lambda d: phase_video(d, work),
                     lambda d: phase_mesh(d, work),
-                    lambda d: phase_dp(d, work))))
+                    lambda d: phase_dp(d, work),
+                    lambda d: phase_dispatch(d, work))))
                 need = set(only).union(*(NEEDS.get(n, ()) for n in only))
                 for name in PHASES:
                     if name in need:
@@ -3680,6 +4115,7 @@ def main(argv=None) -> int:
             video_fwd, video_bwd = phase_video(dev, work)
             mesh_fwd = phase_mesh(dev, work)
             dp_fwd, dp_bwd = phase_dp(dev, work)
+            dispatch_fwd, dispatch_bwd = phase_dispatch(dev, work)
     except Exception:
         traceback.print_exc()
         return 1
@@ -3689,7 +4125,8 @@ def main(argv=None) -> int:
             or jpeg_fwd < 1 or jpeg_bwd < 1
             or depth_fwd < 1 or depth_bwd < 1 or occ_fwd < 1
             or occ_bwd < 1 or video_fwd < 1 or video_bwd < 1
-            or mesh_fwd < 1 or export_fwd < 1 or dp_fwd < 1 or dp_bwd < 1):
+            or mesh_fwd < 1 or export_fwd < 1 or dp_fwd < 1 or dp_bwd < 1
+            or dispatch_fwd < 1 or dispatch_bwd < 1):
         print("chip_smoke: a main path launched no kernel", file=sys.stderr)
         return 1
     # the training path runs folded heads in fp32
@@ -3700,7 +4137,7 @@ def main(argv=None) -> int:
         "replaces": KERNEL_REPLACES,
         "launches": (launches + train_fwd + probe_fwd + driver_fwd
                      + llff_fwd + jpeg_fwd + depth_fwd + occ_fwd + video_fwd
-                     + mesh_fwd + export_fwd + dp_fwd),
+                     + mesh_fwd + export_fwd + dp_fwd + dispatch_fwd),
         "max_abs_err": err, "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"]}, {
@@ -3708,7 +4145,8 @@ def main(argv=None) -> int:
         "source": "plnerf_torch/kernels/csrc/fused_mlp_bwd.cu",
         "replaces": BWD_REPLACES,
         "launches": (train_bwd + driver_bwd + llff_bwd + jpeg_bwd
-                     + depth_bwd + occ_bwd + video_bwd + dp_bwd),
+                     + depth_bwd + occ_bwd + video_bwd + dp_bwd
+                     + dispatch_bwd),
         "max_abs_err": bwd_err, "ms": bt["kernel_ms"],
         "plain_ms": bt["plain_ms"], "bound_ms": bt["bound_ms"],
         "bound_by": bt["bound_by"], "library_ms": bt["library_ms"]}]

@@ -11,8 +11,9 @@ Every flag name and default of the JAX package is kept, so each
 ``configs/*.txt`` parses to the same values.  The port differs in two
 flags: ``--use_kernel`` (the fused CUDA MLP, a tri-state) replaces
 ``--use_pallas``, and ``--device`` picks ``cpu`` or ``cuda`` (unset: the
-CUDA device, raising where there is none).  ``--steps_per_dispatch``
-parses and is refused above 1 by the drivers (``cli/run_plnerf.py``).
+CUDA device, raising where there is none).  ``--steps_per_dispatch N``
+runs windows of N train steps in which the host never waits on the
+device, cut as the JAX driver cuts its scans (``cli/run_plnerf.py``).
 """
 from __future__ import annotations
 
@@ -202,8 +203,9 @@ def add_base_flags(parser: ConfigArgumentParser) -> None:
       help="where to run; unset means the CUDA device (raises without "
            "one)")
     a("--steps_per_dispatch", type=int, default=1,
-      help="kept for config parity with the JAX driver, which scans N "
-           "steps in one program; the port accepts only 1")
+      help="run N optimization steps per window in which the host "
+           "reads nothing back from the device; logging/ckpt cadences "
+           "round to the windows' ends")
     a("--remat", action="store_true",
       help="recompute the MLP in backward (torch.utils.checkpoint) to "
            "raise the ray-batch memory ceiling")

@@ -39,8 +39,10 @@ Runs on the CUDA device unless ``--device cpu`` is given, and raises where
 there is none.  ``--use_kernel`` (for ``--use_pallas``) is AUTO, on
 whenever the device is CUDA, as in ``run_plnerf``.  ``test`` /
 ``test_opt`` score LPIPS as ``run_plnerf`` does (``--lpips_weights``).
-``--steps_per_dispatch`` above 1 is refused (the port runs one step per
-loop iteration).
+``--steps_per_dispatch N`` trains in windows of N steps in which the host
+reads nothing back from the device, as ``run_plnerf`` does; a window is
+cut only at the end of the grid's warm-up (the JAX driver's cut,
+run_depth.py:350-353), and the cadences fire at a window's last step.
 
 Data parallelism: ``torchrun --nproc_per_node N -m
 plnerf_torch.cli.run_depth train ...`` as ``run_plnerf`` describes it
@@ -54,8 +56,12 @@ Randomness: each step's image is ``np.random.default_rng(--random_seed)
 .choice(i_train)``, the sequence the JAX driver draws; its pixels and the
 renderer's draws come from one ``torch.Generator`` seeded
 ``--random_seed``.  A resumed run restarts both from the seed, as the JAX
-driver does.  Unlike the JAX driver, the eval tasks honour
-``--no_reload`` (evaluate the fresh init), as ``run_plnerf``'s do.
+driver does.  Every window keeps that host image sequence, so
+``--steps_per_dispatch`` changes no number; the JAX driver draws the
+image on the device in its full windows (run_depth.py:356-361) and from
+the host sequence only in its shorter ones.  Unlike the JAX driver, the
+eval tasks honour ``--no_reload`` (evaluate the fresh init), as
+``run_plnerf``'s do.
 """
 from __future__ import annotations
 
@@ -82,10 +88,11 @@ from ..train.step import (TrainSetup, apply_occ_update, init_state,
 from ..utils.logging import MetricsLogger
 from .config import (ConfigArgumentParser, add_occ_flags, resolve_args,
                      str2bool)
-from .run_plnerf import (_lpips, _occ_advisory, _resolve_kernel,
-                         eval_render_config, join_mesh, occ_cfg_from_args,
-                         occ_for_eval, occ_train_grid, save_checkpoint,
-                         state_tensors)
+from .run_plnerf import (WINDOW_SPAN, _lpips, _occ_advisory,
+                         _resolve_kernel, eval_render_config, fires,
+                         join_mesh, occ_cfg_from_args, occ_for_eval,
+                         occ_train_grid, phase_boundaries, save_checkpoint,
+                         state_tensors, window_end)
 
 TASKS = ("train", "test", "test_opt", "test_samples_error", "video")
 
@@ -160,8 +167,8 @@ def config_parser() -> ConfigArgumentParser:
     a("--lpips_weights", type=str, default=None,
       help="LPIPS weights for test / test_opt (see run_plnerf)")
     a("--steps_per_dispatch", type=int, default=1,
-      help="kept for config parity with the JAX driver, which scans N "
-           "steps in one program; the port accepts only 1")
+      help="run N optimization steps per window in which the host "
+           "reads nothing back from the device (see run_plnerf)")
     a("--mlp_dtype", type=str, default="float32")
     a("--use_kernel", action=argparse.BooleanOptionalAction, default=None,
       help="the fused CUDA MLP kernels (folded heads); unset is AUTO: on "
@@ -320,26 +327,36 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
         occ_step = make_depth_train_step(occ_setup, mesh)
     g = make_generator(args.random_seed, device)
     rng = np.random.default_rng(args.random_seed)
+    n_inner = max(1, args.steps_per_dispatch)
     t0 = time.time()
     steps_since_print = 0
     occ_warned = False
-    for i in range(start + 1, args.num_iterations + 1):
-        img_i = int(rng.choice(i_train))
-        batch = depth_batch(images, poses, intrinsics, depths, sc_mask,
-                            img_i, args.N_rand, data.near, data.far,
-                            rcfg.use_viewdirs, g)
-        occ_on = occ_cfg is not None and i > occ_warm_end
-        if occ_on:
-            state, metrics = occ_step(state, dict(batch, occ_grid=occ_state),
-                                      g)
-            occ_state, metrics = apply_occ_update(
-                occ_setup, occ_state, pmesh.shard_batch(batch, mesh),
-                metrics, mesh)
-        else:
-            state, metrics = step_fn(state, batch, g)
-        steps_since_print += 1
+    i0 = start + 1
+    while i0 <= args.num_iterations:
+        occ_on = occ_cfg is not None and i0 > occ_warm_end
+        i = window_end(i0, n_inner, phase_boundaries(
+            occ_warm_end + 1 if occ_cfg is not None else 0),
+            args.num_iterations)
+        n_this = i - i0 + 1
+        # the window: its steps read nothing back from the device
+        with torch.profiler.record_function(WINDOW_SPAN):
+            for _ in range(n_this):
+                img_i = int(rng.choice(i_train))
+                batch = depth_batch(images, poses, intrinsics, depths,
+                                    sc_mask, img_i, args.N_rand, data.near,
+                                    data.far, rcfg.use_viewdirs, g)
+                if occ_on:
+                    state, metrics = occ_step(
+                        state, dict(batch, occ_grid=occ_state), g)
+                    occ_state, metrics = apply_occ_update(
+                        occ_setup, occ_state, pmesh.shard_batch(batch, mesh),
+                        metrics, mesh)
+                else:
+                    state, metrics = step_fn(state, batch, g)
+        i0 = i + 1
+        steps_since_print += n_this
 
-        if i % args.i_print == 0:
+        if fires(i, n_this, args.i_print):
             m = {k: float(v) for k, v in metrics.items()}   # host sync
             m["steps_per_sec"] = steps_since_print / max(
                 time.time() - t0, 1e-9)
@@ -356,7 +373,7 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
                 # depth supervision usually closes the degenerate-scene
                 # gap, so this only advises
                 occ_warned = _occ_advisory(m, i, occ_warm_end, occ_warned)
-        if i % args.i_img == 0 and len(i_val) > 0:
+        if fires(i, n_this, args.i_img) and len(i_val) > 0:
             # a val view and its depth RMSE (reference :1203-1232)
             vi = int(i_val[(i // args.i_img) % len(i_val)])
             out = EI.render_image(
@@ -375,7 +392,7 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
                                                   valid)
             logger.scalars(i, rec, prefix="val/")
             logger.image(i, "val/rgb", np.clip(out["rgb_map"], 0, 1))
-        if i % args.i_weights == 0 and main:
+        if fires(i, n_this, args.i_weights) and main:
             save_checkpoint(args, state, occ_state)
     if main:
         save_checkpoint(args, state, occ_state)
@@ -447,10 +464,6 @@ def run_video(args, data, setup: TrainSetup, mcfg: ModelConfig, test_rcfg,
 
 
 def _refuse_unported(args) -> None:
-    if args.steps_per_dispatch > 1:
-        raise SystemExit(f"--steps_per_dispatch {args.steps_per_dispatch}: "
-                         "the port runs one step per loop iteration; only 1 "
-                         "is accepted")
     if args.task == "train" and not args.no_mesh:
         pmesh.refuse_unsplit(args.N_rand)
     if args.task not in TASKS:

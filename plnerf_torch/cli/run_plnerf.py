@@ -49,9 +49,11 @@ checkpoint of the port, of the JAX package or a reference ``.tar``
 (``checkpoint/io.py``).  The eval tasks score LPIPS with
 ``--lpips_weights`` (else ``$PLNERF_LPIPS_WEIGHTS``, else
 ``weights/lpips_alex.npz``; without a file metrics.txt notes it as
-UNAVAILABLE).  ``--profile N`` traces N training steps from the fourth
-with ``torch.profiler`` into ``<expname>/profile/`` and prints the top
-device ops.
+UNAVAILABLE).  ``--profile N`` traces at least N training steps with
+``torch.profiler`` into ``<expname>/profile/`` and prints the top device
+ops: it starts at the first window that begins past the third step and
+stops at the end of the window that holds the N-th traced step.  Each
+window is a ``dispatch_window`` span of the trace (``WINDOW_SPAN``).
 
 Data parallelism (``parallel/mesh.py``):
 
@@ -72,11 +74,18 @@ Differences from the JAX driver:
   library MLP in both passes (PERF.md).  The JAX driver turns its Pallas
   kernel on only for TPU bf16 training and strips it at eval.  On the CPU
   AUTO means off; ``--use_kernel`` there runs the kernels' plain versions.
-* One step per loop iteration: ``--steps_per_dispatch`` (the JAX
-  driver's scan of N steps in one program, whose only other effect is to
-  round the cadences to windows of N) is parsed for config parity and
-  refused above 1.  Cadences fire on the iterations where the JAX driver's
-  fire at N = 1.
+* ``--steps_per_dispatch N``: the JAX driver scans N sample-and-step
+  iterations in one device program; the port runs them as a window of N
+  eager steps in which the host reads nothing back from the device (no
+  step waits on it), the window cut as the JAX driver cuts it: never
+  across a phase boundary (``constant_init`` in linear mode, the precrop
+  without batching, the end of the grid's warm-up), and in pool mode at
+  the end of the epoch's full batches, the reshuffle between windows.
+  The cadences (``i_print``, ``i_weights``, ``i_img``, ``i_testset``,
+  ``i_video``) fire at the last step of a window that holds a multiple of
+  their period, and the logged metrics are that step's.  A window draws
+  from the generator in the order of N single steps, so N changes no
+  number; the JAX driver's fused windows draw from keys split per window.
 * ``test_samples_error`` renders NDC rays for LLFF scenes, as the
   reference's render_kwargs do; the JAX driver renders world-space rays
   there between NDC bounds (0, 1).
@@ -91,9 +100,9 @@ Differences from the JAX driver:
   AUTO on CUDA (as an operator inside the exported program); the JAX
   driver strips Pallas from an export.  The artifact runs on the device
   it was exported on only.
-* The degenerate-guidance guard reads ``occ_ray_frac`` (a host sync) only
-  on the steps where it can fire, past the grace window; the JAX driver
-  reads it after every dispatch window.  The decisions are the same.
+* The degenerate-guidance guard reads ``occ_ray_frac`` (a host sync) at
+  the end of a window only where it can fire, past the grace window; the
+  JAX driver reads it after every window.  The decisions are the same.
 * The JAX driver takes every device by itself (``get_mesh``); the port
   spreads over several only under ``torchrun``, and on a machine with
   several cards without it prints one line naming ``torchrun``.
@@ -364,6 +373,35 @@ def _dead_coarse_advisory(m: dict, step: int, warned: bool,
     return True
 
 
+# the name of each dispatch window's span in a --profile trace
+WINDOW_SPAN = "dispatch_window"
+
+
+def phase_boundaries(*steps: int) -> list:
+    """The sorted positive steps at which a new training phase starts;
+    0 marks a phase the run does not have."""
+    return sorted({b for b in steps if b > 0})
+
+
+def window_end(i0: int, n: int, boundaries, last: int,
+               full_batches=None) -> int:
+    """The last step of the dispatch window that starts at step ``i0``:
+    ``n`` steps, cut before the next phase boundary, at ``last`` and,
+    with a ray pool, after the ``full_batches`` batches left in its epoch
+    (the JAX driver's cuts, run_plnerf.py:560-569)."""
+    nb = next((b for b in boundaries if b > i0), last + 1)
+    end = min(i0 + n - 1, nb - 1, last)
+    if full_batches is not None:
+        end = min(end, i0 + full_batches - 1)
+    return end
+
+
+def fires(i: int, n_this: int, period: int) -> bool:
+    """A multiple of ``period`` falls in the window of ``n_this`` steps
+    that ends at step ``i`` (JAX run_plnerf.py:627-629)."""
+    return i // period > (i - n_this) // period
+
+
 def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
                  mcfg: ModelConfig, rcfg: RenderConfig, mesh=None):
     """The train loop; returns the final ``TrainState``.  ``mesh``: this
@@ -419,43 +457,63 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
         K = torch.as_tensor(np.asarray(data.K, np.float32), device=device)
         i_train = torch.as_tensor(np.asarray(bundle.i_train), device=device)
 
+    n_inner = max(1, args.steps_per_dispatch)
+    # windows never straddle a phase boundary, so every step trains in the
+    # phase the reference would use (JAX run_plnerf.py:548-556)
+    boundaries = phase_boundaries(
+        args.constant_init if rcfg.mode == "linear" else 0,
+        0 if use_batching else args.precrop_iters,
+        occ_warm_end + 1 if occ_cfg is not None else 0)
     t0 = time.time()
     steps_since_print = 0
     dead_warned = occ_warned = False
     profile_n = args.profile if main else 0
     prof = prof_first = None
-    for i in range(start + 1, n_iters + 1):
-        if profile_n and prof_first is None and i > start + 3:
+    i0 = start + 1
+    while i0 <= n_iters:
+        # the pool tail: a window ends where the epoch's full batches end
+        # (JAX :562-569), so the reshuffle falls between windows
+        i = window_end(i0, n_inner, boundaries, n_iters,
+                       (pool.shape[0] - i_batch) // n_rand
+                       if use_batching else None)
+        n_this = i - i0 + 1
+        if profile_n and prof_first is None and i0 > start + 3:
             # from the fourth step: the first ones build and warm up
-            prof, prof_first = uprofile.start_trace(device), i
-        elif prof is not None and i >= prof_first + profile_n:
-            _stop_profile(args, prof, prof_first, device, profile_n)
-            prof = None
-        # the phases of step i, as the reference picks them
-        occ_on = occ_cfg is not None and i > occ_warm_end
-        step_fn = steps[(i < args.constant_init and rcfg.mode == "linear",
+            prof, prof_first = uprofile.start_trace(device), i0
+        # the phases of the window's steps, as the reference picks them
+        occ_on = occ_cfg is not None and i0 > occ_warm_end
+        step_fn = steps[(i0 < args.constant_init and rcfg.mode == "linear",
                          occ_on)]
-        if use_batching:
-            rays, target = batching.pool_batch(
-                pool, i_batch, n_rand, near, far, rcfg.use_viewdirs)
-            i_batch += n_rand
-        else:
-            rays, target, _ = batching.sample_one_image_batch(
-                images, poses, K, i_train, g, n_rand, near, far,
-                rcfg.use_viewdirs, i < args.precrop_iters, args.precrop_frac,
-                ndc=bundle.ndc, focal=float(data.hwf[2]))
-        batch = {"rays": rays, "target": target}
-        if occ_on:
-            state, occ_state, metrics = step_fn(state, occ_state, batch, g)
-        else:
-            state, metrics = step_fn(state, batch, g)
+        precrop = i0 < args.precrop_iters
+        # the window: its steps read nothing back from the device
+        with torch.profiler.record_function(WINDOW_SPAN):
+            for _ in range(n_this):
+                if use_batching:
+                    rays, target = batching.pool_batch(
+                        pool, i_batch, n_rand, near, far, rcfg.use_viewdirs)
+                    i_batch += n_rand
+                else:
+                    rays, target, _ = batching.sample_one_image_batch(
+                        images, poses, K, i_train, g, n_rand, near, far,
+                        rcfg.use_viewdirs, precrop, args.precrop_frac,
+                        ndc=bundle.ndc, focal=float(data.hwf[2]))
+                batch = {"rays": rays, "target": target}
+                if occ_on:
+                    state, occ_state, metrics = step_fn(state, occ_state,
+                                                        batch, g)
+                else:
+                    state, metrics = step_fn(state, batch, g)
         if use_batching and pool.shape[0] - i_batch < n_rand:
             # every full batch of the epoch is consumed before the
             # reshuffle (run_plnerf.py:1244-1248 of the reference)
             pool = pool[torch.randperm(pool.shape[0], generator=g,
                                        device=device)]
             i_batch = 0
-        steps_since_print += 1
+        i0 = i + 1
+        steps_since_print += n_this
+        if prof is not None and i >= prof_first + profile_n - 1:
+            _stop_profile(args, prof, prof_first, device, i + 1 - prof_first)
+            prof = None
 
         if (occ_on and not occ_warned
                 and i > occ_warm_end + OCC_ADVISORY_GRACE):
@@ -472,7 +530,7 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
                     # sidecars; later eval tasks see no grid
                     occ_cfg = occ_state = None
 
-        if i % args.i_print == 0:
+        if fires(i, n_this, args.i_print):
             m = {k: float(v) for k, v in metrics.items()}   # host sync
             m["steps_per_sec"] = steps_since_print / max(
                 time.time() - t0, 1e-9)
@@ -490,10 +548,10 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
                         f"[Numerical Fail] non-finite metrics at iter {i}: "
                         f"{bad} (reference DEBUG scan, run_plnerf.py:754)")
 
-        if i % args.i_weights == 0 and main:
+        if fires(i, n_this, args.i_weights) and main:
             save_checkpoint(args, state, occ_state)
 
-        if i % args.i_img == 0 and len(bundle.i_val) > 0:
+        if fires(i, n_this, args.i_img) and len(bundle.i_val) > 0:
             vi = int(bundle.i_val[(i // args.i_img) % len(bundle.i_val)])
             out = _oom_retry(lambda c: EI.render_image(
                 state.params_coarse, state.params_fine, data.poses[vi],
@@ -507,13 +565,13 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
                            prefix="val/")
             logger.image(i, "val/rgb", np.clip(out["rgb_map"], 0, 1))
 
-        if i % args.i_testset == 0 and i < n_iters:
+        if fires(i, n_this, args.i_testset) and i < n_iters:
             _oom_retry(lambda c: run_test(
                 args, bundle, mcfg, rcfg, state=state, suffix=f"_{i:06d}",
                 setup=setup, chunk=c, occ=(occ_cfg, occ_state),
                 mesh=mesh), ev_chunk)
 
-        if i % args.i_video == 0 and i < n_iters:
+        if fires(i, n_this, args.i_video) and i < n_iters:
             _oom_retry(lambda c: run_video(
                 args, bundle, mcfg, rcfg, setup, state=state, step=i,
                 chunk=c, occ=(occ_cfg, occ_state), mesh=mesh), ev_chunk)
@@ -788,10 +846,6 @@ def _refuse_unported(args) -> None:
                 "--device to choose it")
     if args.task == "train" and not args.no_mesh:
         pmesh.refuse_unsplit(args.N_rand)
-    if args.steps_per_dispatch > 1:
-        raise SystemExit(f"--steps_per_dispatch {args.steps_per_dispatch}: "
-                         "the port runs one step per loop iteration; only 1 "
-                         "is accepted")
     if args.task not in TASKS:
         raise SystemExit(f"Unknown task {args.task}")
 

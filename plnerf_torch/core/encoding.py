@@ -17,16 +17,23 @@ def freq_bands(multires: int) -> np.ndarray:
     return 2.0 ** np.linspace(0.0, multires - 1, multires)
 
 
+def bands(multires: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """``freq_bands(multires)`` as a tensor made on ``device``, as ``1 <<
+    k`` (exact powers of two, so the same bits), with no copy from the
+    host and so no wait on the device."""
+    k = torch.arange(multires, device=device)
+    return torch.bitwise_left_shift(torch.ones_like(k), k).to(dtype)
+
+
 def embed(x: torch.Tensor, multires: int, pi_bands: bool = False
           ) -> torch.Tensor:
     """gamma(x): [..., d] -> [..., d * (1 + 2*multires)]."""
     if multires <= 0:
         return x
-    bands = torch.as_tensor(freq_bands(multires), dtype=x.dtype,
-                            device=x.device)
+    b = bands(multires, x.dtype, x.device)
     if pi_bands:
-        bands = bands * math.pi
-    xb = x[..., None, :] * bands[:, None]                  # [..., F, d]
+        b = b * math.pi
+    xb = x[..., None, :] * b[:, None]                      # [..., F, d]
     sc = torch.stack([torch.sin(xb), torch.cos(xb)], dim=-2)  # [..., F, 2, d]
     sc = sc.reshape(*x.shape[:-1], 2 * multires * x.shape[-1])
     return torch.cat([x, sc], dim=-1)

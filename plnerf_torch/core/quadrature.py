@@ -5,6 +5,11 @@ piecewise-constant and the paper's piecewise-linear weights, and
 Shapes (R rays, S samples): constant weights [R, S]; linear augments z
 with near/far (S+2 boundaries, S+1 intervals): tau [R, S+2],
 T [R, S+2], weights [R, S+1].
+
+Both transmittances are running products along the samples
+(``cumprod``), whose backward here never waits on the device: torch's
+own checks the input for zeros on the host first, and the linear far
+interval's ``exp(-1e10 * d)`` is exactly 0 on every ray.
 """
 from __future__ import annotations
 
@@ -17,6 +22,57 @@ TAU_NEAR = 1e-10  # tau at the near boundary (reference run_plnerf.py:528)
 TAU_FAR = 1e10    # tau at the far boundary ("will hit an opaque surface")
 
 Noise = Union[torch.Tensor, float]
+
+
+def _revcumsum(w: torch.Tensor) -> torch.Tensor:
+    """The sums of ``w`` from each position to the end of the last axis
+    (torch's ``reversed_cumsum``: flip, cumsum, flip)."""
+    return torch.cumsum(w.flip(-1), dim=-1).flip(-1)
+
+
+class ZeroSafeCumprod(torch.autograd.Function):
+    """``torch.cumprod`` along the last axis (the forward is that call)
+    whose backward is torch's own formula for inputs with zeros, written
+    with selects: up to each row's first zero ``revcumsum(y * g) / x``
+    over the positions before it; at the first zero the prefix product
+    before it times the sum of ``g`` times the running product of the
+    inputs after it, up to the second zero; past it, 0.  torch's backward
+    first asks the host whether any input is 0 and then scatters by
+    masks, each a wait on the device; this one takes no host branch and
+    gives the same values on the same operations."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        y = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        x, y = ctx.saved_tensors
+        w = y * g
+        seen = torch.cumsum(x == 0, dim=-1)               # zeros so far
+        before = seen == 0
+        grad = torch.where(before, _revcumsum(w.masked_fill(~before, 0.0))
+                           / x, 0.0)
+        span = seen == 1                 # from the first zero to the next
+        first_i = span.max(dim=-1, keepdim=True).indices
+        first = torch.zeros_like(span).scatter_(-1, first_i, True) & span
+        span = span & ~first
+        prefix = torch.gather(y, -1, (first_i - 1).clamp_min(0)).masked_fill(
+            first_i == 0, 1.0)
+        at = (x.masked_fill(~span, 1.0).cumprod(-1)
+              * g.masked_fill(seen != 1, 0.0)).sum(-1, keepdim=True) * prefix
+        return torch.where(first, at, grad)
+
+
+def cumprod(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumprod(x, -1)``, differentiable without a host wait
+    (``ZeroSafeCumprod`` where a gradient is taken)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return ZeroSafeCumprod.apply(x)
+    return torch.cumprod(x, dim=-1)
 
 
 def _ray_norm(rays_d: torch.Tensor) -> torch.Tensor:
@@ -32,8 +88,7 @@ def compute_weights_constant(sigma: torch.Tensor, z_vals: torch.Tensor,
     dists = dists * _ray_norm(rays_d)
     alpha = 1.0 - torch.exp(-F.relu(sigma + noise) * dists)
     ones = torch.ones_like(alpha[..., :1])
-    trans = torch.cumprod(
-        torch.cat([ones, 1.0 - alpha + 1e-10], dim=-1), dim=-1)[..., :-1]
+    trans = cumprod(torch.cat([ones, 1.0 - alpha + 1e-10], dim=-1))[..., :-1]
     return alpha * trans
 
 
@@ -53,7 +108,7 @@ def compute_weights_piecewise_linear(
     interval_ave_tau = 0.5 * (tau[..., 1:] + tau[..., :-1])      # [R, S+1]
     expr = torch.exp(-interval_ave_tau * dists)
     ones = torch.ones_like(expr[..., :1])
-    T = torch.cumprod(torch.cat([ones, expr], dim=-1), dim=-1)   # [R, S+2]
+    T = cumprod(torch.cat([ones, expr], dim=-1))                 # [R, S+2]
     weights = (1.0 - expr) * T[..., :-1]                         # [R, S+1]
     return weights, tau, T
 
@@ -101,9 +156,10 @@ def raw2outputs(raw: torch.Tensor, z_vals: torch.Tensor, near: torch.Tensor,
         raise ValueError(f"unknown mode {mode!r}")
 
     acc_map = torch.sum(weights, dim=-1)
-    # maximum propagates NaN (0/0 on an empty ray) exactly as jnp.maximum
+    # maximum propagates NaN (0/0 on an empty ray) exactly as jnp.maximum;
+    # its floor filled on the device (a host scalar would be copied)
     disp_map = 1.0 / torch.maximum(depth_map / acc_map,
-                                   depth_map.new_tensor(1e-10))
+                                   depth_map.new_full((), 1e-10))
     if white_bkgd:
         rgb_map = rgb_map + (1.0 - acc_map[..., None])
     return {"rgb_map": rgb_map, "disp_map": disp_map, "acc_map": acc_map,

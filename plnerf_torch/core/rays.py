@@ -4,6 +4,7 @@ corners (``get_rays``), the depth-experiments pixel-centre variant,
 LLFF's NDC warp and the per-ray row packing."""
 from __future__ import annotations
 
+import numbers
 from typing import Optional, Tuple
 
 import torch
@@ -71,12 +72,20 @@ def ndc_rays(H: int, W: int, focal: float, near: float, rays_o, rays_d):
             torch.stack([d0, d1, d2], dim=-1))
 
 
+def _bound_column(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` (a number, array or tensor) as float32 broadcast to
+    ``like[..., :1]``; a number is filled on ``like``'s device, with no
+    copy from the host (so no wait on the device)."""
+    shape = like[..., :1].shape
+    if isinstance(v, numbers.Real):
+        return like.new_full(shape, float(v), dtype=torch.float32)
+    return as_tensor(v, like.device).expand(shape)
+
+
 def pack_rays(rays_o, rays_d, near, far, viewdirs=None):
     """Per-ray rows ``[o(3), d(3), near, far, viewdirs(3)?]``."""
-    shape = rays_d[..., :1].shape
-    n = as_tensor(near, rays_d.device).expand(shape)
-    f = as_tensor(far, rays_d.device).expand(shape)
-    parts = [rays_o, rays_d, n, f]
+    parts = [rays_o, rays_d, _bound_column(near, rays_d),
+             _bound_column(far, rays_d)]
     if viewdirs is not None:
         parts.append(viewdirs)
     return torch.cat(parts, dim=-1)

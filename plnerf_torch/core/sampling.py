@@ -27,12 +27,12 @@ import torch
 def linspace01(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """``jnp.linspace(0, 1, n)`` bit for bit: ``iota * (1/(n-1))`` in the
     working dtype with the endpoint set to exactly 1 (torch.linspace
-    rounds some interior points differently)."""
+    rounds some interior points differently), by a select on the device
+    rather than a store of a host scalar."""
     if n == 1:
         return torch.zeros(1, dtype=dtype, device=device)
-    t = torch.arange(n, dtype=dtype, device=device) * (1.0 / (n - 1))
-    t[-1] = 1.0
-    return t
+    i = torch.arange(n, dtype=dtype, device=device)
+    return torch.where(i == n - 1, 1.0, i * (1.0 / (n - 1)))
 
 
 def stratified_z_vals(near: torch.Tensor, far: torch.Tensor, n_samples: int,

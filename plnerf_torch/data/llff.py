@@ -178,20 +178,39 @@ def _is_jpeg(name: str) -> bool:
 
 
 def _image_shape(path: str) -> Tuple[int, int]:
-    """(H, W) of a PNG or JPEG file, from its header alone."""
+    """(H, W) of a PNG or JPEG file, from its header alone: a PNG's IHDR,
+    or a JPEG's SOF, reached by seeking over the marker segments before it
+    whatever their size (EXIF thumbnails, XMP, ICC and MPF segments can
+    fill more than 64 KiB).  Bytes before a marker and 0xFF fill bytes are
+    skipped, as libjpeg's next_marker does."""
     with open(path, "rb") as f:
-        buf = f.read(1 << 16)
-    if buf[:8] == b"\x89PNG\r\n\x1a\n":
-        W, H = struct.unpack(">II", buf[16:24])
-        return H, W
-    pos = 2
-    while buf[:2] == b"\xff\xd8" and pos + 9 <= len(buf):
-        marker, n = buf[pos + 1], struct.unpack(">H", buf[pos + 2:pos + 4])[0]
-        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            H, W = struct.unpack(">HH", buf[pos + 5:pos + 9])
+        head = f.read(24)
+        if head[:8] == b"\x89PNG\r\n\x1a\n":
+            W, H = struct.unpack(">II", head[16:24])
             return H, W
-        pos += 2 + n
-    raise ValueError(f"{path}: no PNG or JPEG size in its first 64 KiB")
+        if head[:2] == b"\xff\xd8":
+            f.seek(2)
+            while (b := f.read(1)):
+                if b != b"\xff":
+                    continue
+                while b == b"\xff":
+                    b = f.read(1)
+                if not b or b[0] in (0xD9, 0xDA):        # EOI, SOS
+                    break
+                m = b[0]
+                if m == 0 or m == 0x01 or 0xD0 <= m <= 0xD8:
+                    continue                         # no segment follows
+                at = f.tell()
+                seg = f.read(7)
+                if len(seg) < 2:
+                    break
+                if 0xC0 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
+                    if len(seg) < 7:
+                        break
+                    H, W = struct.unpack(">HH", seg[3:7])
+                    return H, W
+                f.seek(at + struct.unpack(">H", seg[:2])[0])
+    raise ValueError(f"{path}: no PNG or JPEG size in its header")
 
 
 def _read_rgb(path: str) -> np.ndarray:

@@ -113,7 +113,8 @@ _STREAM_INDEX: dict = {}
 
 def _stream_index(p: "PackedMLP", device: torch.device) -> torch.Tensor:
     """Positions in the row-major block buffer of the ``wgmma_stream``'s
-    elements, per layout and device (built once, from element ids)."""
+    elements, per layout and device (built once, from element ids, on the
+    host; copied to a card from pinned memory without waiting on it)."""
     key = (p.head, p.n_layers, p.skip_mask, p.in_p, p.w_p, p.v_p, p.h_p,
            str(device))
     if key not in _STREAM_INDEX:
@@ -123,8 +124,10 @@ def _stream_index(p: "PackedMLP", device: torch.device) -> torch.Tensor:
             ids.append(torch.arange(off, off + n,
                                     dtype=torch.float64).reshape(shape))
             off += n
-        _STREAM_INDEX[key] = wgmma_stream(dataclasses.replace(
-            p, weights=ids)).long().to(device)
+        idx = wgmma_stream(dataclasses.replace(p, weights=ids)).long()
+        if torch.device(device).type == "cuda":
+            idx = idx.pin_memory()
+        _STREAM_INDEX[key] = idx.to(device, non_blocking=True)
     return _STREAM_INDEX[key]
 
 

@@ -80,14 +80,16 @@ def sample_one_image_batch(
     H, W = images.shape[1], images.shape[2]
     dev = images.device
     if draws is None:
-        ti = torch.randint(0, i_train.shape[0], (), generator=generator,
+        ti = torch.randint(0, i_train.shape[0], (1,), generator=generator,
                            device=dev)
         y, x = select_pixels(generator, H, W, n_rand, precrop, precrop_frac,
                              dev)
     else:
         ti, y, x = (torch.as_tensor(d, device=dev) for d in draws)
-    img_i = i_train[ti]
-    c2w = poses[img_i][:3, :4]
+    # the image index stays a 1-element tensor: a 0-dim one used as an
+    # index is read on the host
+    img_i = i_train.index_select(0, ti.reshape(1).long())
+    c2w = poses.index_select(0, img_i)[0, :3, :4]
     y, x = y.long(), x.long()
     rays_o, rays_d = rays_for_pixels(K, c2w, y, x)
     target = images[img_i, y, x]
@@ -97,7 +99,7 @@ def sample_one_image_batch(
     if ndc:
         rays_o, rays_d = raysmod.ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
     return raysmod.pack_rays(rays_o, rays_d, near, far, viewdirs), target, \
-        img_i
+        img_i[0]
 
 
 def build_ray_pool(images: np.ndarray, poses: np.ndarray, K, i_train,

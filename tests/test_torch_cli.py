@@ -140,20 +140,19 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked(tmp_path):
     (["--task", "export_serving", "--serve_platforms", "tpu"], None,
      "serve_platforms tpu"),
     (["--N_rand", "63"], "2", "--N_rand 63 does not split over the 2 ranks"),
-    (["--no_mesh"], "2", "--no_mesh under torchrun with WORLD_SIZE 2"),
-    (["--steps_per_dispatch", "4"], None, "steps_per_dispatch 4")],
+    (["--no_mesh"], "2", "--no_mesh under torchrun with WORLD_SIZE 2")],
     ids=["flags0-serve_platforms tpu", "flags1-N_rand 63 WORLD_SIZE 2",
-         "flags2-no_mesh WORLD_SIZE 2", "flags3-steps_per_dispatch 4"])
+         "flags2-no_mesh WORLD_SIZE 2"])
 def test_unported_paths_are_refused(scene_dir, tmp_path, monkeypatch, flags,
                                     world, item):
     """What cannot run is refused before anything is written: an export
     for another device, a train batch that does not split over the ranks
     of a ``torchrun`` launch (``WORLD_SIZE``), ``--no_mesh`` under one
-    (refused before the process group is joined), more than one step per
-    dispatch.  ``--profile`` and ``--lpips_weights``, refused before data
-    parallelism, LPIPS and the profiler were ported, run: see
-    ``test_profile_flag_writes_a_trace`` and
-    ``test_train_resume_test``."""
+    (refused before the process group is joined).  ``--profile``,
+    ``--lpips_weights`` and ``--steps_per_dispatch`` above 1, refused
+    before the profiler, LPIPS, data parallelism and the dispatch windows
+    were ported, run: see ``test_profile_flag_writes_a_trace``,
+    ``test_train_resume_test`` and ``tests/test_torch_dispatch.py``."""
     data_dir, scene_id = scene_dir
     if world:
         monkeypatch.setenv("WORLD_SIZE", world)

@@ -121,15 +121,15 @@ def test_entry_point_needs_cuda_unless_cpu_is_asked(scene_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags, world, item", [
-    (["train"], "3", f"--N_rand {N_RAND} does not split over the 3 ranks"),
-    (["train", "--steps_per_dispatch", "4"], None, "steps_per_dispatch 4")],
-    ids=["flags0-N_rand WORLD_SIZE 3", "flags1-steps_per_dispatch 4"])
+    (["train"], "3", f"--N_rand {N_RAND} does not split over the 3 ranks")],
+    ids=["flags0-N_rand WORLD_SIZE 3"])
 def test_unported_paths_are_refused(scene_dir, tmp_path, monkeypatch, flags,
                                     world, item):
     """A train batch that does not split over the ranks of a ``torchrun``
-    launch and more than one step per dispatch are refused before
-    anything is written (``--lpips_weights``, refused before LPIPS was
-    ported, scores: see the witness)."""
+    launch is refused before anything is written (``--lpips_weights``,
+    refused before LPIPS was ported, scores: see the witness;
+    ``--steps_per_dispatch`` above 1 trains: see
+    ``tests/test_torch_dispatch.py``)."""
     data_dir, scene_id = scene_dir
     if world:
         monkeypatch.setenv("WORLD_SIZE", world)

@@ -451,3 +451,108 @@ def test_cuda_walk_refuses_a_stream_of_the_wrong_length(cuda_device, walk):
     assert launch(x.data_ptr(), w.data_ptr(), w.numel() * 2, out.data_ptr(),
                   x.shape[0], 64, stream) == 0
     torch.cuda.synchronize()
+
+
+SYNC_FREE = {
+    "nvs_fp32": dict(), "nvs_bf16": dict(mlp_dtype="bfloat16"),
+    "vanilla": dict(vanilla=True), "pool": dict(pool=True),
+    "occ_bf16": dict(occ=True, mlp_dtype="bfloat16"),
+    "depth": dict(depth=True), "depth_occ": dict(depth=True, occ=True)}
+
+
+@pytest.mark.parametrize("flavour", list(SYNC_FREE))
+def test_cuda_train_step_never_waits_on_the_card(cuda_device, flavour):
+    """A train step of each flavour the drivers run (folded-head kernels;
+    the two Adams, the joint Adam, a pool slice, the grid, the depth step
+    with camera embeddings), its batch made as the drivers make it, under
+    ``torch.cuda.set_sync_debug_mode("error")``: the host reads nothing
+    back, so it raises nothing.  One step runs first (the kernels build,
+    the optimizers make their state); the bf16 weight stream's index,
+    kept per layout, is made again under the check."""
+    import numpy as np
+
+    from plnerf_torch.cli.run_depth import depth_batch
+    from plnerf_torch.core import occgrid
+    from plnerf_torch.core.config import RenderConfig
+    from plnerf_torch.data.synthetic import make_sphere_dataset
+    from plnerf_torch.train import batching
+    from plnerf_torch.train.step import (TrainSetup, apply_occ_update,
+                                         init_state, make_depth_train_step,
+                                         make_occ_train_step,
+                                         make_train_step)
+
+    kw = SYNC_FREE[flavour]
+    dev = cuda_device
+    depth = kw.get("depth", False)
+    mcfg = ModelConfig(netdepth=4, netwidth=64, skips=(2,), multires=6,
+                       multires_views=2, pi_bands=depth,
+                       input_ch_cam=3 if depth else 0)
+    occ = occgrid.OccGridConfig(resolution=16, candidates=32) \
+        if kw.get("occ") else None
+    rcfg = RenderConfig(n_samples=16, n_importance=16, white_bkgd=True,
+                        perturb=True, raw_noise_std=1.0,
+                        mlp_dtype=kw.get("mlp_dtype", "float32"),
+                        use_fused_mlp=True, fused_fold_heads=True, occ=occ,
+                        compute_pred_hyp=depth, trim_first_weight=depth)
+    setup = TrainSetup(mcfg=mcfg, rcfg=rcfg, lrate=5e-3,
+                       joint_optimizer=kw.get("vanilla", False) or depth,
+                       grad_clip_value=0.1 if depth else None,
+                       space_carving_weight=0.007 if depth else 0.0,
+                       freeze_ss=1, opt_ch_cam=depth)
+    images, poses, _, K = make_sphere_dataset(4, 32, 32)
+    images = torch.as_tensor(images, device=dev)
+    poses = torch.as_tensor(poses[:, :3, :4], device=dev)
+    K = torch.as_tensor(K, device=dev)
+    i_train = torch.arange(4, device=dev)
+    pool = torch.as_tensor(batching.build_ray_pool(
+        images.cpu().numpy(), poses.cpu().numpy(), K.cpu().numpy(),
+        range(4)), device=dev)
+    intr = torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]).expand(
+        4, 4).contiguous()
+    depths = torch.full((4, 32, 32), 4.0, device=dev)
+    mask = torch.ones(4, 32, 32, device=dev)
+    state = init_state(torch.Generator(device=dev).manual_seed(0), setup,
+                       dev, n_images=4 if depth else 0)
+    grid = occgrid.init_grid([-1.5] * 3, [1.5] * 3, occ, dev) \
+        if occ else None
+    step = (make_depth_train_step(setup) if depth else
+            make_occ_train_step(setup) if occ else make_train_step(setup))
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def one(k):
+        nonlocal state, grid
+        if depth:
+            batch = depth_batch(images, poses, intr, depths, mask, k % 4, 64,
+                                2.0, 6.0, True, g)
+            if occ:
+                state, m = step(state, dict(batch, occ_grid=grid), g)
+                grid, m = apply_occ_update(setup, grid, batch, m)
+            else:
+                state, m = step(state, batch, g)
+            return m
+        if kw.get("pool"):
+            rays, target = batching.pool_batch(pool, 64 * k, 64, 2.0, 6.0,
+                                               True)
+        else:
+            rays, target, _ = batching.sample_one_image_batch(
+                images, poses, K, i_train, g, 64, 2.0, 6.0, True)
+        batch = {"rays": rays, "target": target}
+        if occ:
+            state, grid, m = step(state, grid, batch, g)
+        else:
+            state, m = step(state, batch, g)
+        return m
+
+    one(0)
+    torch.cuda.synchronize()
+    # the bf16 weight stream's index is built again, inside the check
+    fused_mlp._STREAM_INDEX.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k in range(1, 4):
+            m = one(k)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(np.isfinite(float(v)) for k, v in m.items()
+               if not k.startswith("_"))
+    assert state.step == 4

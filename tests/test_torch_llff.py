@@ -224,6 +224,60 @@ def test_image_shape_reads_png_and_jpeg_headers(tmp_path):
     assert llff._image_shape(str(tmp_path / "b.jpg")) == (11, 13)
 
 
+def _bulky_jpeg(path: str, img: np.ndarray) -> None:
+    """A cv2 JPEG of ``img`` with three 60 KB APP1 segments spliced in
+    after SOI, so that its SOF lies past the first 64 KiB (as a phone's
+    EXIF thumbnail, XMP or MPF segments can put it)."""
+    import struct
+
+    ok, buf = cv2.imencode(".jpg", img[..., ::-1])
+    assert ok
+    b = buf.tobytes()
+    payload = b"PLNERF\0" + bytes(60000 - 7)
+    seg = b"\xff\xe1" + struct.pack(">H", len(payload) + 2) + payload
+    with open(path, "wb") as f:
+        f.write(b[:2] + 3 * seg + b[2:])
+
+
+def test_image_shape_seeks_past_large_app_segments(tmp_path):
+    """The SOF of a 60x40 JPEG behind 180 KB of APP1 segments: the size
+    equals imageio's, and the decoder reads the file as imageio does."""
+    import imageio.v2 as imageio
+
+    from plnerf_torch.data.jpeg import read_jpeg
+
+    img = np.random.default_rng(0).integers(0, 256, (40, 60, 3), np.uint8)
+    path = str(tmp_path / "bulky.jpg")
+    _bulky_jpeg(path, img)
+    with open(path, "rb") as f:
+        assert f.read().find(b"\xff\xc0") > 1 << 16
+    ref = imageio.imread(path)
+    assert llff._image_shape(path) == ref.shape[:2] == (40, 60)
+    np.testing.assert_array_equal(read_jpeg(path), ref)
+
+
+@pytest.mark.parametrize("kw", [dict(factor=None, height=20),
+                                dict(factor=None, width=30)],
+                         ids=["height=20", "width=30"])
+def test_bulky_jpeg_capture_loads_as_jax(tmp_path, kw):
+    """A capture of such files through the height / width branch (which
+    reads the first source's size): the loaders agree as in
+    ``test_jpeg_capture_loads_as_jax``."""
+    import shutil
+
+    d = jsynthetic.make_llff_fixture(str(tmp_path / "src"), n=4, H=40, W=60)
+    for name in sorted(os.listdir(os.path.join(d, "images"))):
+        path = os.path.join(d, "images", name)
+        _bulky_jpeg(path[:-4] + ".jpg", read_png(path))
+        os.remove(path)
+    for who in ("jax", "port"):
+        shutil.copytree(d, tmp_path / who)
+    ref = jllff.load_llff_data(str(tmp_path / "jax"), **kw)
+    got = llff.load_llff_data(str(tmp_path / "port"), **kw)
+    _same(got, ref, images_atol=1.0 / 255 + 1e-6)
+    assert got[0].shape == (4, 20, 30, 3)
+
+
 @pytest.mark.parametrize("no_ndc", [False, True])
 @pytest.mark.parametrize("llffhold", [8, 0])
 def test_llff_bundle_matches_jax(scenes, no_ndc, llffhold):
