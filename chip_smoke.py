@@ -1608,28 +1608,49 @@ def _driver_view(argv, state, stride: int = 8, hyp: bool = False,
     return out
 
 
+# {run name: {"captures", "replays", "capture_s"}}: the CUDA graphs of each
+# ``_driver_runs`` run's windows (``train/graph.py``)
+GRAPH_RUNS = {}
+
+
 def _driver_runs(entry=None):
     """(run, expect, launches, runs): ``run(name, argv)`` calls the driver's
     entry point (``run_plnerf.main`` unless ``entry`` is given), the
-    kernels' launch counters set to 0 just before and read just after into
-    ``launches[name]``, its seconds into ``runs[name]``; ``expect(name,
-    fwd, bwd)`` holds a run's launches."""
+    kernels' launch counters (which count a graph's replays) set to 0 just
+    before and read just after into ``launches[name]``, its seconds into
+    ``runs[name]``, its graphs' captures and replays into
+    ``GRAPH_RUNS[name]``; ``expect(name, fwd, bwd)`` holds a run's
+    launches."""
     from plnerf_torch.cli import run_plnerf
     from plnerf_torch.kernels import fused_mlp
+    from plnerf_torch.train import graph
 
     entry = entry or run_plnerf.main
 
     launches, runs = {}, {}
 
     def run(name, argv):
+        made, orig = [], graph.Graphs
+
+        class Seen(orig):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                made.append(self)
+
         torch.cuda.synchronize()
         fused_mlp.launches = fused_mlp.bwd_launches = 0   # path starts
+        graph.Graphs = Seen
         t = time.perf_counter()
-        out = entry(argv)
+        try:
+            out = entry(argv)
+        finally:
+            graph.Graphs = orig
         torch.cuda.synchronize()
         runs[name] = time.perf_counter() - t
         launches[name] = {"fused_mlp_fwd": fused_mlp.launches,  # ends
                           "fused_mlp_bwd": fused_mlp.bwd_launches}
+        GRAPH_RUNS[name] = {k: sum(getattr(g, k) for g in made)
+                            for k in ("captures", "replays", "capture_s")}
         return out
 
     def expect(name, fwd, bwd):
@@ -3637,6 +3658,9 @@ DISPATCH_DEPTH = ["--i_print", "4", "--i_img", "1000000", "--i_weights",
                   str(DISPATCH_DEPTH_STEPS), "--num_iterations",
                   str(DISPATCH_DEPTH_STEPS), "--warm_start_nerf", "10",
                   "--freeze_ss", "20"]
+# the print records of steps 84-115 (depth 13-40): at N > 1 only replayed
+# windows (76-83 is the last phase's first replay after its capture)
+DISPATCH_REPLAYED, DISPATCH_DEPTH_REPLAYED = (83, 115), (12, 40)
 # --profile on the N = 8 and N = 1 runs: 8 steps, from the window that
 # starts past step 3 (9-16 at N = 8, 4-11 at N = 1)
 DISPATCH_PROFILE = 8
@@ -3645,6 +3669,9 @@ DISPATCH_PROFILE = 8
 CENSUS_WINDOW = 8
 CENSUS_FLAVOURS = ("nvs_fp32", "nvs_bf16", "vanilla_fp32", "pool_fp32",
                    "occ_bf16", "depth_fp32", "depth_occ_fp32")
+# the same flavours as the drivers run a full window: one CUDA graph
+# (``_graph_flavour``), staged and replayed under the same checks
+GRAPH_CENSUS = tuple("graph_" + f for f in CENSUS_FLAVOURS)
 # the host's waits per fp32 step before (PERF.md §5: profile_step, PR 5)
 PR5_SYNCS_PER_STEP = 13
 
@@ -3660,27 +3687,25 @@ def _census_scene(dev) -> tuple:
             torch.as_tensor(K, device=dev), torch.arange(8, device=dev))
 
 
-def _flavour(dev, flavour: str, scene: tuple):
-    """A closure running one step of ``flavour`` as the drivers call it
-    (their ``build_configs`` on the recipe's flags, the batch made on the
-    card from ``scene``, ``_census_scene``): the NVS step (two Adams) in
-    fp32 and bf16, the vanilla joint Adam, a pool slice, the grid's step,
-    the depth step with camera embeddings (frozen scale / shift from step
-    4), with and without the grid."""
+def _flavour_parts(dev, flavour: str, scene: tuple) -> dict:
+    """A step flavour as the drivers build it (their ``build_configs``
+    on the recipe's flags, the batch made on the card from ``scene``,
+    ``_census_scene``): the NVS step (two Adams) in fp32 and bf16, the
+    vanilla joint Adam, a pool slice, the grid's step, the depth step
+    with camera embeddings (frozen scale / shift from step 4), with and
+    without the grid.  {setup, state, grid, depth, batch}: ``batch(g,
+    i_batch, img)`` is one step's batch (the pool's rows from ``i_batch``,
+    the depth step's image ``img``)."""
     import dataclasses
 
     from plnerf_torch.cli import config, run_depth, run_plnerf
     from plnerf_torch.core import occgrid
     from plnerf_torch.device import make_generator
     from plnerf_torch.train import batching
-    from plnerf_torch.train.step import (apply_occ_update, init_state,
-                                         make_depth_train_step,
-                                         make_occ_train_step,
-                                         make_train_step)
+    from plnerf_torch.train.step import init_state
 
     root = os.path.dirname(os.path.abspath(__file__))
     images, poses, K, i_train = scene
-    g = make_generator(1, dev)
     near, far = 2.0, 6.0
     if flavour.startswith("depth"):
         argv = ["train"] + DEPTH_TRAIN + ["--dataset", "blender2_depth",
@@ -3697,25 +3722,18 @@ def _flavour(dev, flavour: str, scene: tuple):
         grid = (None if occ_cfg is None else
                 occgrid.init_grid([-1.5] * 3, [1.5] * 3, occ_cfg, dev))
         state = init_state(make_generator(0, dev), setup, dev, n_images=8)
-        step = make_depth_train_step(setup)
         intr = torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]).expand(
             8, 4).contiguous()
         depths = torch.full(images.shape[:3], 4.0, device=dev)
         mask = torch.ones(images.shape[:3], device=dev)
-        rng = np.random.default_rng(0)
 
-        def run():
-            nonlocal state, grid
-            batch = run_depth.depth_batch(
-                images, poses, intr, depths, mask, int(rng.choice(8)),
-                N_RAND, near, far, rcfg.use_viewdirs, g)
-            if occ_cfg is None:
-                state, _ = step(state, batch, g)
-            else:
-                state, m = step(state, dict(batch, occ_grid=grid), g)
-                grid, _ = apply_occ_update(setup, grid, batch, m)
+        def batch(g, i_batch, img):
+            return run_depth.depth_batch(
+                images, poses, intr, depths, mask, img, N_RAND, near, far,
+                rcfg.use_viewdirs, g)
 
-        return run
+        return dict(setup=setup, state=state, grid=grid, depth=True,
+                    batch=batch)
     cfg = "blender_linear_occ.txt" if flavour == "occ_bf16" \
         else "blender_linear.txt"
     argv = ["--config", os.path.join(root, "configs", cfg)]
@@ -3731,33 +3749,99 @@ def _flavour(dev, flavour: str, scene: tuple):
         setup = dataclasses.replace(setup, rcfg=dataclasses.replace(
             rcfg, occ=occ_cfg))
         grid = occgrid.init_grid([-1.5] * 3, [1.5] * 3, occ_cfg, dev)
-        step = make_occ_train_step(setup)
-    else:
-        step = make_train_step(setup)
     pool = None
     if flavour.startswith("pool"):
         pool = torch.as_tensor(batching.build_ray_pool(
             images.cpu().numpy(), poses.cpu().numpy(), K.cpu().numpy(),
             range(8)), device=dev)
-    i_batch = 0
 
-    def run():
-        nonlocal state, grid, i_batch
+    def batch(g, i_batch, img):
         if pool is not None:
             rays, target = batching.pool_batch(pool, i_batch, N_RAND, near,
                                                far, rcfg.use_viewdirs)
-            i_batch += N_RAND
         else:
             rays, target, _ = batching.sample_one_image_batch(
                 images, poses, K, i_train, g, N_RAND, near, far,
                 rcfg.use_viewdirs)
-        batch = {"rays": rays, "target": target}
-        if occ_cfg is None:
+        return {"rays": rays, "target": target}
+
+    return dict(setup=setup, state=state, grid=grid, depth=False,
+                batch=batch)
+
+
+def _flavour(dev, flavour: str, scene: tuple):
+    """A closure running one step of ``flavour`` (``_flavour_parts``)
+    through the public step functions, as the drivers called them
+    before their windows became graphs; uses only functions an earlier
+    commit's package has too."""
+    from plnerf_torch.device import make_generator
+    from plnerf_torch.train.step import (apply_occ_update,
+                                         make_depth_train_step,
+                                         make_occ_train_step,
+                                         make_train_step)
+
+    p = _flavour_parts(dev, flavour, scene)
+    setup, state, grid = p["setup"], p["state"], p["grid"]
+    occ = setup.rcfg.occ is not None
+    step = (make_depth_train_step(setup) if p["depth"] else
+            make_occ_train_step(setup) if occ else make_train_step(setup))
+    g = make_generator(1, dev)
+    rng = np.random.default_rng(0)
+    i_batch = 0
+
+    def run():
+        nonlocal state, grid, i_batch
+        batch = p["batch"](g, i_batch, int(rng.choice(8)))
+        i_batch += N_RAND
+        if p["depth"] and occ:
+            state, m = step(state, dict(batch, occ_grid=grid), g)
+            grid, _ = apply_occ_update(setup, grid, batch, m)
+        elif p["depth"] or not occ:
             state, _ = step(state, batch, g)
         else:
             state, grid, _ = step(state, grid, batch, g)
 
     return run
+
+
+def _graph_flavour(dev, flavour: str, scene: tuple):
+    """A closure running one window of ``CENSUS_WINDOW`` steps of
+    ``flavour`` (``graph_`` and a name of ``_flavour_parts``) as the
+    drivers run it: the host's values staged (``stage_window``), the
+    batches made on the card from the staged offsets and images, the
+    window one CUDA graph (``graph.Graphs``): the first call runs it
+    eagerly, the second captures and replays it, every later call
+    replays it.  The closure's ``graphs`` holds the plan."""
+    from plnerf_torch.device import make_generator
+    from plnerf_torch.train import graph
+    from plnerf_torch.train.step import (make_multi_train_step,
+                                         stage_window, window_counters)
+
+    p = _flavour_parts(dev, flavour[len("graph_"):], scene)
+    state, n = p["state"], CENSUS_WINDOW
+    g = make_generator(1, dev)
+    multi = make_multi_train_step(p["setup"], n, depth=p["depth"])
+    feed = graph.Feed(n, dev, len(state.optimizers()))
+    graphs = graph.Graphs(dev, n, window_counters(state), [g])
+    rng = np.random.default_rng(0)
+    i_batch = 0
+
+    def body(m):
+        return multi.window(state, m, lambda k: p["batch"](
+            g, feed.row("offset")[k], feed.row("img")[k]), g, feed,
+            p["grid"])
+
+    def window():
+        nonlocal i_batch
+        stage_window(feed, state, n, offset=range(
+            i_batch, i_batch + n * N_RAND, N_RAND),
+            img=[int(rng.choice(8)) for _ in range(n)])
+        i_batch += n * N_RAND
+        graphs.prepare("window", body, n)
+        return graphs.run("window", body, n)
+
+    window.graphs = graphs
+    return window
 
 
 def _window_spans(trace: dict) -> list:
@@ -3802,15 +3886,19 @@ def _busy(trace: dict, t0: float, t1: float) -> dict:
     return {"device_ms": dev_ms, "span_ms": span, "busy": dev_ms / span}
 
 
-def step_census(dev, debug_mode=None, flavours=CENSUS_FLAVOURS,
+def step_census(dev, debug_mode=None,
+                flavours=CENSUS_FLAVOURS + GRAPH_CENSUS,
                 out_dir=None) -> dict:
-    """For each step flavour (``_flavour``): a window of
-    ``CENSUS_WINDOW`` steps that builds and warms up, then one under
-    ``torch.cuda.set_sync_debug_mode(debug_mode)`` (``"error"``: a wait on
-    the card raises), then one under ``torch.profiler``: the host's waits
-    per step by op chain, device ms per step and the busy share of the
-    window's wall time.  Uses only the package's public functions, so it
-    runs against an earlier commit's package too."""
+    """For each step flavour (``_flavour``, or ``_graph_flavour`` for a
+    ``graph_`` one): a window of ``CENSUS_WINDOW`` steps that builds and
+    warms up (two for a graph: the eager one and the one it is captured
+    at), then one under ``torch.cuda.set_sync_debug_mode(debug_mode)``
+    (``"error"``: a wait on the card raises; a graph's staging and
+    replay), then one under ``torch.profiler``: the host's waits per step
+    by op chain, device ms per step and the busy share of the window's
+    wall time.  The step flavours use only the package's public
+    functions, so ``flavours=CENSUS_FLAVOURS`` runs against an earlier
+    commit's package too."""
     from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
 
@@ -3818,14 +3906,19 @@ def step_census(dev, debug_mode=None, flavours=CENSUS_FLAVOURS,
     tmp = out_dir or tempfile.mkdtemp(prefix="plnerf_census_")
     scene = _census_scene(dev)
     for name in flavours:
-        run = _flavour(dev, name, scene)
-        for _ in range(CENSUS_WINDOW):
+        if name.startswith("graph_"):
+            run = _graph_flavour(dev, name, scene)
+            calls, warm = 1, 2
+        else:
+            run = _flavour(dev, name, scene)
+            calls, warm = CENSUS_WINDOW, 1
+        for _ in range(warm * calls):
             run()
         torch.cuda.synchronize()
         if debug_mode is not None:
             torch.cuda.set_sync_debug_mode(debug_mode)
             try:
-                for _ in range(CENSUS_WINDOW):
+                for _ in range(calls):
                     run()
             except RuntimeError as e:
                 raise AssertionError(f"census {name}: the window waited on "
@@ -3836,7 +3929,7 @@ def step_census(dev, debug_mode=None, flavours=CENSUS_FLAVOURS,
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with record_function("dispatch_window"):
-                for _ in range(CENSUS_WINDOW):
+                for _ in range(calls):
                     run()
             torch.cuda.synchronize()
         path = os.path.join(tmp, f"census_{name}.json")
@@ -3853,18 +3946,23 @@ def step_census(dev, debug_mode=None, flavours=CENSUS_FLAVOURS,
                      "host_ms_per_step": win["dur"] / 1e3 / CENSUS_WINDOW,
                      "device_ms_per_step": busy["device_ms"] / CENSUS_WINDOW,
                      "busy": busy["busy"]}
+        if hasattr(run, "graphs"):
+            plan = [k for _, _, k in run.graphs.windows()]
+            if plan != ["first"] + ["replay"] * (len(plan) - 1):
+                raise AssertionError(f"census {name}: windows {plan}")
+            out[name]["windows"] = plan
     return out
 
 
-def _steady_ms(exp: str, after: int) -> float:
+def _steady_ms(exp: str, after: int, until: float = float("inf")) -> float:
     """ms per step of a driver run from its print records past step
-    ``after``: each covers the steps since the previous print, at its
-    ``steps_per_sec``."""
+    ``after`` up to ``until``: each covers the steps since the previous
+    print, at its ``steps_per_sec``."""
     recs = _records(exp, "train/steps_per_sec")
     steps = sorted(recs)
     t = n = 0.0
     for prev, k in zip(steps, steps[1:]):
-        if prev >= after:
+        if prev >= after and k <= until:
             t += (k - prev) / recs[k]["train/steps_per_sec"]
             n += k - prev
     return 1e3 * t / n
@@ -3945,7 +4043,7 @@ def phase_dispatch(dev, work):
                              "--occ_warmup", str(DISPATCH_OCC_WARMUP)]),
         }
         run, expect, launches, runs = _driver_runs()
-        pairs, ms, traces = {}, {}, {}
+        pairs, ms, replayed_ms, traces = {}, {}, {}, {}
         for name, (cfg, data_dir, scene, extra) in recipes.items():
             for n in (1, DISPATCH_N):
                 exp = f"{name}_n{n}"
@@ -3955,6 +4053,8 @@ def phase_dispatch(dev, work):
                           str(n)] + DISPATCH_TRAIN + extra)
                 expect(exp, 2 * DISPATCH_STEPS, 2 * DISPATCH_STEPS)
                 ms[exp] = _steady_ms(os.path.join(ckpt, exp), 24)
+                replayed_ms[exp] = _steady_ms(os.path.join(ckpt, exp),
+                                              *DISPATCH_REPLAYED)
                 if extra[:1] == ["--profile"]:
                     first = 1 + (DISPATCH_N if n > 1 else 3)
                     path = os.path.join(ckpt, exp, "profile",
@@ -3966,11 +4066,15 @@ def phase_dispatch(dev, work):
                          if e.get("cat") == "cuda_runtime"
                          and "Launch" in e.get("name", "")), default=0.0)
                     spans = _window_spans(tr)
+                    busy = _busy(tr, first_launch, float("inf"))
                     traces[exp] = {
                         "steps": DISPATCH_PROFILE, "windows": len(spans),
                         "syncs": _trace_syncs(tr, DISPATCH_PROFILE, spans),
-                        "busy": _busy(tr, first_launch,
-                                      float("inf"))["busy"],
+                        "busy": busy["busy"],
+                        "device_ms_per_step":
+                            busy["device_ms"] / DISPATCH_PROFILE,
+                        "host_ms_per_step": sum(b - a for a, b in spans)
+                            / 1e3 / DISPATCH_PROFILE,
                         "gaps": trace_device_gaps(tr)}
                     if (len(spans) != (1 if n > 1 else DISPATCH_PROFILE)
                             or traces[exp]["syncs"]["per_step"]):
@@ -3990,12 +4094,29 @@ def phase_dispatch(dev, work):
                 "--set_near_plane", "2.0", "--white_bkgd",
                 "--steps_per_dispatch", str(n)])
             dexpect(exp, 2 * DISPATCH_DEPTH_STEPS, 2 * DISPATCH_DEPTH_STEPS)
+            ms[exp] = _steady_ms(os.path.join(ckpt, exp), 8)
+            replayed_ms[exp] = _steady_ms(os.path.join(ckpt, exp),
+                                          *DISPATCH_DEPTH_REPLAYED)
         pairs["depth"] = _pair(
             os.path.join(ckpt, "depth_n1"),
             os.path.join(ckpt, f"depth_n{DISPATCH_DEPTH_N}"),
             DISPATCH_DEPTH_STEPS)
         launches.update(dlaunches)
         runs.update(druns)
+        # the N > 1 runs replay every full window but each phase's first
+        # (eager) and second (captured, then replayed); N = 1 runs none
+        graphs = {exp: GRAPH_RUNS[exp] for exp in runs}
+        for exp, gr in graphs.items():
+            if exp.endswith("_n1") != (gr["captures"] == gr["replays"] == 0):
+                raise AssertionError(f"{exp}: graphs {gr}")
+            if not exp.endswith("_n1") and gr["replays"] < gr["captures"]:
+                raise AssertionError(f"{exp}: graphs {gr}")
+        recipes_ms = {exp: {
+            **graphs[exp], "driver_ms_per_step": ms.get(exp),
+            "replayed_ms_per_step": replayed_ms.get(exp),
+            **{k: traces[exp][k] for k in ("host_ms_per_step",
+                                           "device_ms_per_step", "busy")
+               if exp in traces}} for exp in runs}
         fwd = sum(v["fused_mlp_fwd"] for v in launches.values())
         bwd = sum(v["fused_mlp_bwd"] for v in launches.values())
         log("dispatch", card=card_line(), n=DISPATCH_N,
@@ -4004,7 +4125,9 @@ def phase_dispatch(dev, work):
             census={k: {"syncs_per_step": v["syncs"]["per_step"],
                         "host_ms_per_step": v["host_ms_per_step"],
                         "device_ms_per_step": v["device_ms_per_step"],
-                        "busy": v["busy"]} for k, v in census.items()},
+                        "busy": v["busy"], "windows": v.get("windows")}
+                    for k, v in census.items()},
+            recipes=recipes_ms,
             syncs_per_step_pr5=PR5_SYNCS_PER_STEP,
             traces=traces, ms_per_step=ms, launches=launches,
             launches_per_train_step={"fused_mlp_fwd": 2, "fused_mlp_bwd": 2},
@@ -4020,7 +4143,15 @@ def phase_dispatch(dev, work):
                  "dispatch_window spans, busy: device time over the span "
                  "from the first launch); ms_per_step: the print records "
                  "past step 24 (warm-up and the profiled window excluded), "
-                 "val renders off")
+                 "val renders off; recipes: per run its graphs' captures "
+                 "and replays (N > 1: every full window a replay but each "
+                 "phase's first) and the captures' host s, driver ms per "
+                 "step (ms_per_step; "
+                 "replayed_ms_per_step: the records of steps 84-115, depth "
+                 "13-40, only replayed windows at N > 1), and "
+                 "from the profiled window host and device ms per step and "
+                 "the busy share; census graph_*: one window as one CUDA "
+                 "graph, staged and replayed under the same checks")
         return fwd, bwd
     finally:
         shutil.rmtree(root, ignore_errors=True)

@@ -94,9 +94,12 @@ def load_adam_state(opt: torch.optim.Adam, mu: Sequence[Any],
     if not len(params) == len(mu) == len(nu):
         raise ValueError(f"{len(params)} parameters, {len(mu)} / {len(nu)} "
                          "moments")
+    # Adam keeps the step on the parameter's device when it is capturable
+    on_device = any(g.get("capturable", False) for g in opt.param_groups)
     for p, m, v in zip(params, mu, nu):
         opt.state[p] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
+            "step": torch.tensor(float(count), dtype=torch.float32,
+                                 device=p.device if on_device else None),
             "exp_avg": torch.as_tensor(np.asarray(m, np.float32),
                                        device=p.device).reshape(p.shape),
             "exp_avg_sq": torch.as_tensor(np.asarray(v, np.float32),

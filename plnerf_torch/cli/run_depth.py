@@ -40,9 +40,13 @@ there is none.  ``--use_kernel`` (for ``--use_pallas``) is AUTO, on
 whenever the device is CUDA, as in ``run_plnerf``.  ``test`` /
 ``test_opt`` score LPIPS as ``run_plnerf`` does (``--lpips_weights``).
 ``--steps_per_dispatch N`` trains in windows of N steps in which the host
-reads nothing back from the device, as ``run_plnerf`` does; a window is
-cut only at the end of the grid's warm-up (the JAX driver's cut,
-run_depth.py:350-353), and the cadences fire at a window's last step.
+reads nothing back from the device, as ``run_plnerf`` does: on CUDA a
+full window is one replay of a CUDA graph per grid phase (eager under
+``torchrun``), the image of each step staged from the host sequence and
+the scale / shift freeze and the warm start read from the staged step
+count on the device; a window is cut only at the end of the grid's
+warm-up (the JAX driver's cut, run_depth.py:350-353), and the cadences
+fire at a window's last step.
 
 Data parallelism: ``torchrun --nproc_per_node N -m
 plnerf_torch.cli.run_depth train ...`` as ``run_plnerf`` describes it
@@ -83,8 +87,10 @@ from ..eval import metrics as Mx
 from ..parallel import mesh as pmesh
 from ..train import batching
 from ..train.camera_opt import optimize_camera_embedding
-from ..train.step import (TrainSetup, apply_occ_update, init_state,
-                          make_depth_train_step)
+from ..train import graph
+from ..train.step import (TrainSetup, image_index, init_state,
+                          make_multi_train_step, stage_window,
+                          window_counters)
 from ..utils.logging import MetricsLogger
 from .config import (ConfigArgumentParser, add_occ_flags, resolve_args,
                      str2bool)
@@ -249,19 +255,22 @@ def exp_dir(args) -> str:
 
 def depth_batch(images: torch.Tensor, poses: torch.Tensor,
                 intrinsics: torch.Tensor, depths: torch.Tensor,
-                sc_mask: torch.Tensor, img_i: int, n_rand: int, near: float,
+                sc_mask: torch.Tensor, img_i, n_rand: int, near: float,
                 far: float, use_viewdirs: bool,
                 generator: torch.Generator) -> dict:
     """One step's batch from image ``img_i`` (every array on the device,
     indexed by image): ``n_rand`` random pixels, their pixel-centre rays
     from the image's vector intrinsics, colours, depth hypothesis
-    ``target_h`` [1, R, 1] and validity mask."""
+    ``target_h`` [1, R, 1] and validity mask.  ``img_i``: an int or a
+    1-element device tensor (a window's staged image, which the host
+    never reads); the batch's ``img_idx`` is a 1-element tensor."""
     H, W = images.shape[1], images.shape[2]
+    img_i = image_index(img_i, images.device)
     y, x = batching.select_pixels(generator, H, W, n_rand, False, 0.5,
                                   device=images.device)
     rays_o, rays_d = raysmod.get_rays_pixelcenter(
-        H, W, intrinsics[img_i], poses[img_i, :3, :4],
-        torch.stack([y, x], -1))
+        H, W, intrinsics.index_select(0, img_i)[0],
+        poses.index_select(0, img_i)[0, :3, :4], torch.stack([y, x], -1))
     viewdirs = (rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
                 if use_viewdirs else None)
     return {"rays": raysmod.pack_rays(rays_o, rays_d, near, far, viewdirs),
@@ -319,15 +328,20 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
     depths = dev(np.asarray(data.gt_depths)[..., 0])
     sc_mask = np.asarray(data.gt_valid_depths).astype(np.float32)
     sc_mask = dev(sc_mask[..., 0] if sc_mask.ndim == 4 else sc_mask)
-    step_fn = make_depth_train_step(setup, mesh)
-    occ_setup = occ_step = None
+    n_inner = max(1, args.steps_per_dispatch)
+    # the window bodies of the grid's warm-up and guided phases
+    steps = {False: make_multi_train_step(setup, n_inner, mesh, depth=True)}
     if occ_cfg is not None:
-        occ_setup = dataclasses.replace(setup, rcfg=dataclasses.replace(
-            rcfg, occ=occ_cfg))
-        occ_step = make_depth_train_step(occ_setup, mesh)
+        steps[True] = make_multi_train_step(dataclasses.replace(
+            setup, rcfg=dataclasses.replace(rcfg, occ=occ_cfg)), n_inner,
+            mesh, depth=True)
     g = make_generator(args.random_seed, device)
     rng = np.random.default_rng(args.random_seed)
-    n_inner = max(1, args.steps_per_dispatch)
+    # a full window is one CUDA graph per phase (run_plnerf's
+    # --steps_per_dispatch), eager under data parallelism
+    feed = graph.Feed(n_inner, device, len(state.optimizers()))
+    graphs = graph.Graphs(device, n_inner, window_counters(state), [g],
+                          capture=mesh is None)
     t0 = time.time()
     steps_since_print = 0
     occ_warned = False
@@ -338,21 +352,25 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
             occ_warm_end + 1 if occ_cfg is not None else 0),
             args.num_iterations)
         n_this = i - i0 + 1
-        # the window: its steps read nothing back from the device
+        # the window reads nothing back from the device: its images come
+        # from the host sequence, staged with the rates and step counts
+        stage_window(feed, state, n_this, img=[
+            int(rng.choice(i_train)) for _ in range(n_this)])
+
+        def batch_of(k):
+            return depth_batch(images, poses, intrinsics, depths, sc_mask,
+                               feed.row("img")[k], args.N_rand, data.near,
+                               data.far, rcfg.use_viewdirs, g)
+
+        multi = steps[occ_on]
+        grid = occ_state if occ_on else None
+
+        def body(n):
+            return multi.window(state, n, batch_of, g, feed, grid)
+
+        graphs.prepare(occ_on, body, n_this)
         with torch.profiler.record_function(WINDOW_SPAN):
-            for _ in range(n_this):
-                img_i = int(rng.choice(i_train))
-                batch = depth_batch(images, poses, intrinsics, depths,
-                                    sc_mask, img_i, args.N_rand, data.near,
-                                    data.far, rcfg.use_viewdirs, g)
-                if occ_on:
-                    state, metrics = occ_step(
-                        state, dict(batch, occ_grid=occ_state), g)
-                    occ_state, metrics = apply_occ_update(
-                        occ_setup, occ_state, pmesh.shard_batch(batch, mesh),
-                        metrics, mesh)
-                else:
-                    state, metrics = step_fn(state, batch, g)
+            metrics = graphs.run(occ_on, body, n_this)
         i0 = i + 1
         steps_since_print += n_this
 
@@ -394,6 +412,10 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
             logger.image(i, "val/rgb", np.clip(out["rgb_map"], 0, 1))
         if fires(i, n_this, args.i_weights) and main:
             save_checkpoint(args, state, occ_state)
+    if graphs.capture:
+        print(f"[graphs] {len(graphs.programs)} variants, "
+              f"{graphs.captures} captures ({graphs.capture_s:.2f} s), "
+              f"{graphs.replays} replays")
     if main:
         save_checkpoint(args, state, occ_state)
     # the checkpoint is whole before any rank goes on

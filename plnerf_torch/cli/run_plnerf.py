@@ -74,18 +74,27 @@ Differences from the JAX driver:
   library MLP in both passes (PERF.md).  The JAX driver turns its Pallas
   kernel on only for TPU bf16 training and strips it at eval.  On the CPU
   AUTO means off; ``--use_kernel`` there runs the kernels' plain versions.
-* ``--steps_per_dispatch N``: the JAX driver scans N sample-and-step
-  iterations in one device program; the port runs them as a window of N
-  eager steps in which the host reads nothing back from the device (no
-  step waits on it), the window cut as the JAX driver cuts it: never
-  across a phase boundary (``constant_init`` in linear mode, the precrop
-  without batching, the end of the grid's warm-up), and in pool mode at
-  the end of the epoch's full batches, the reshuffle between windows.
-  The cadences (``i_print``, ``i_weights``, ``i_img``, ``i_testset``,
-  ``i_video``) fire at the last step of a window that holds a multiple of
-  their period, and the logged metrics are that step's.  A window draws
-  from the generator in the order of N single steps, so N changes no
-  number; the JAX driver's fused windows draw from keys split per window.
+* ``--steps_per_dispatch N``: as the JAX driver fuses N sample-and-step
+  iterations into one device program (``lax.scan``), the port runs every
+  full window of N steps on CUDA as one replay of a CUDA graph
+  (``train/graph.py``), one graph per phase (``constant_init``, the
+  precrop, the grid's warm-up), captured at its second full window (the
+  first runs eagerly on the capture stream and builds what the capture
+  needs).  A shorter window runs the same body eagerly, as every window
+  does on the CPU, where N changes nothing but the cadences, and under
+  ``torchrun`` (the all-reduce is not captured).  No step of a window
+  reads anything back from the device: the host's per-step values (the
+  rates, the step count, the pool offsets) are staged before it.  The
+  window is cut as the JAX driver cuts it: never across a phase
+  boundary, and in pool mode at the end of the epoch's full batches, the
+  reshuffle (in place) between windows.  The cadences (``i_print``,
+  ``i_weights``, ``i_img``, ``i_testset``, ``i_video``) fire at the last
+  step of a window that holds a multiple of their period, and the logged
+  metrics are that step's.  A window draws from the generator in the
+  order of N single steps (a graph replays its draws from the
+  generator's state), so N changes no number; the JAX driver's fused
+  windows draw from keys split per window.  ``--remat`` is captured too:
+  its recomputation keeps no RNG state, since the MLP draws nothing.
 * ``test_samples_error`` renders NDC rays for LLFF scenes, as the
   reference's render_kwargs do; the JAX driver renders world-space rays
   there between NDC bounds (0, 1).
@@ -131,9 +140,9 @@ from ..eval import images as EI
 from ..eval import metrics as Mx
 from ..eval.lpips import load_lpips
 from ..parallel import mesh as pmesh
-from ..train import batching
-from ..train.step import (TrainSetup, init_state, make_occ_train_step,
-                          make_train_step)
+from ..train import batching, graph
+from ..train.step import (TrainSetup, init_state, make_multi_train_step,
+                          stage_window, window_counters)
 from ..utils import profile as uprofile
 from ..utils.logging import MetricsLogger
 from .datasets import DatasetBundle, load_dataset
@@ -423,16 +432,22 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
         occ_state, occ_warm_end = occ_train_grid(args, occ_cfg, ckpt_path,
                                                  start, device)
 
+    n_inner = max(1, args.steps_per_dispatch)
+
     def make_step(const_init: bool, occ_on: bool):
         s = dataclasses.replace(setup, rcfg=dataclasses.replace(
             rcfg, constant_init=const_init, occ=occ_cfg if occ_on else None))
-        return (make_occ_train_step(s, mesh) if occ_on
-                else make_train_step(s, mesh))
+        return make_multi_train_step(s, n_inner, mesh)
 
-    # one step function per quadrature phase (constant_init on / off) and,
+    # one window body per quadrature phase (constant_init on / off) and,
     # with the grid, per grid phase (warm-up / guided)
     steps = {(ci, oc): make_step(ci, oc) for ci in (True, False)
              for oc in ((False, True) if occ_cfg is not None else (False,))}
+    # a full window is one CUDA graph per (phase, precrop), sharing one
+    # memory pool; under data parallelism every window runs eagerly
+    feed = graph.Feed(n_inner, device, len(state.optimizers()))
+    graphs = graph.Graphs(device, n_inner, window_counters(state), [g],
+                          capture=mesh is None)
 
     ev_chunk = training_eval_chunk(args, 0)   # no_batching: no pool
     if use_batching:
@@ -457,7 +472,20 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
         K = torch.as_tensor(np.asarray(data.K, np.float32), device=device)
         i_train = torch.as_tensor(np.asarray(bundle.i_train), device=device)
 
-    n_inner = max(1, args.steps_per_dispatch)
+    def batch_of(k):
+        """Step ``k`` of the window on the device: the pool's rows at the
+        staged offset, or a one-image batch drawn from ``g``."""
+        if use_batching:
+            rays, target = batching.pool_batch(
+                pool, feed.row("offset")[k], n_rand, near, far,
+                rcfg.use_viewdirs)
+        else:
+            rays, target, _ = batching.sample_one_image_batch(
+                images, poses, K, i_train, g, n_rand, near, far,
+                rcfg.use_viewdirs, precrop, args.precrop_frac,
+                ndc=bundle.ndc, focal=float(data.hwf[2]))
+        return {"rays": rays, "target": target}
+
     # windows never straddle a phase boundary, so every step trains in the
     # phase the reference would use (JAX run_plnerf.py:548-556)
     boundaries = phase_boundaries(
@@ -477,37 +505,37 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
                        (pool.shape[0] - i_batch) // n_rand
                        if use_batching else None)
         n_this = i - i0 + 1
+        # the phases of the window's steps, as the reference picks them
+        ci = i0 < args.constant_init and rcfg.mode == "linear"
+        occ_on = occ_cfg is not None and i0 > occ_warm_end
+        precrop = not use_batching and i0 < args.precrop_iters
+        # the window reads nothing back from the device: the host's
+        # per-step values are staged, the batches made on the device
+        if use_batching:
+            stage_window(feed, state, n_this, offset=range(
+                i_batch, i_batch + n_this * n_rand, n_rand))
+            i_batch += n_this * n_rand
+        else:
+            stage_window(feed, state, n_this)
+        multi, grid = steps[(ci, occ_on)], occ_state if occ_on else None
+
+        def body(n):
+            return multi.window(state, n, batch_of, g, feed, grid)
+
+        key = (ci, occ_on, precrop)
+        # a capture runs nothing, and is kept out of the trace's window
+        graphs.prepare(key, body, n_this)
         if profile_n and prof_first is None and i0 > start + 3:
             # from the fourth step: the first ones build and warm up
             prof, prof_first = uprofile.start_trace(device), i0
-        # the phases of the window's steps, as the reference picks them
-        occ_on = occ_cfg is not None and i0 > occ_warm_end
-        step_fn = steps[(i0 < args.constant_init and rcfg.mode == "linear",
-                         occ_on)]
-        precrop = i0 < args.precrop_iters
-        # the window: its steps read nothing back from the device
         with torch.profiler.record_function(WINDOW_SPAN):
-            for _ in range(n_this):
-                if use_batching:
-                    rays, target = batching.pool_batch(
-                        pool, i_batch, n_rand, near, far, rcfg.use_viewdirs)
-                    i_batch += n_rand
-                else:
-                    rays, target, _ = batching.sample_one_image_batch(
-                        images, poses, K, i_train, g, n_rand, near, far,
-                        rcfg.use_viewdirs, precrop, args.precrop_frac,
-                        ndc=bundle.ndc, focal=float(data.hwf[2]))
-                batch = {"rays": rays, "target": target}
-                if occ_on:
-                    state, occ_state, metrics = step_fn(state, occ_state,
-                                                        batch, g)
-                else:
-                    state, metrics = step_fn(state, batch, g)
+            metrics = graphs.run(key, body, n_this)
         if use_batching and pool.shape[0] - i_batch < n_rand:
             # every full batch of the epoch is consumed before the
-            # reshuffle (run_plnerf.py:1244-1248 of the reference)
-            pool = pool[torch.randperm(pool.shape[0], generator=g,
-                                       device=device)]
+            # reshuffle (run_plnerf.py:1244-1248 of the reference), in
+            # place: the graphs read the pool where it is
+            pool.copy_(pool[torch.randperm(pool.shape[0], generator=g,
+                                           device=device)])
             i_batch = 0
         i0 = i + 1
         steps_since_print += n_this
@@ -578,6 +606,10 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
 
     if prof is not None:   # the run ended inside the profiled window
         _stop_profile(args, prof, prof_first, device, n_iters + 1 - prof_first)
+    if graphs.capture:
+        print(f"[graphs] {len(graphs.programs)} variants, "
+              f"{graphs.captures} captures ({graphs.capture_s:.2f} s), "
+              f"{graphs.replays} replays")
     if main:
         save_checkpoint(args, state, occ_state)
     # the checkpoint is whole before any rank goes on

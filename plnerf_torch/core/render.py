@@ -108,7 +108,10 @@ def render_rays(
                                      fused_fold_heads=rcfg.fused_fold_heads)
 
         if rcfg.remat_mlp and torch.is_grad_enabled():
-            raw = checkpoint(query, pts, use_reentrant=False)
+            # the MLP draws nothing, so there is no RNG state to keep (and
+            # a CUDA graph cannot read the default generator's)
+            raw = checkpoint(query, pts, use_reentrant=False,
+                             preserve_rng_state=False)
         else:
             raw = query(pts)
         noise = 0.0

@@ -130,12 +130,19 @@ def build_ray_pool(images: np.ndarray, poses: np.ndarray, K, i_train,
     return pool
 
 
-def pool_batch(pool: torch.Tensor, i_batch: int, n_rand: int, near: float,
+def pool_batch(pool: torch.Tensor, i_batch, n_rand: int, near: float,
                far: float, use_viewdirs: bool):
     """Contiguous slice of the shuffled pool: (rays, target).  Pool rows
     are [o, d, rgb] (9 columns) or, for NDC pools, [ndc_o, ndc_d, rgb,
-    world viewdirs] (12 columns)."""
-    rows = pool[i_batch:i_batch + n_rand]
+    world viewdirs] (12 columns).  ``i_batch``: the first row, an int or
+    a 0-dim / 1-element device tensor (a window's staged offset, which
+    the host never reads: the rows are gathered, as the JAX driver's
+    fused window slices at ``i_batch + k * n_rand``)."""
+    if not isinstance(i_batch, torch.Tensor):
+        i_batch = torch.full((1,), int(i_batch), dtype=torch.int64,
+                             device=pool.device)
+    rows = pool.index_select(0, i_batch.reshape(1) + torch.arange(
+        n_rand, device=pool.device))
     rays_o, rays_d, target = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
     viewdirs = None
     if use_viewdirs:

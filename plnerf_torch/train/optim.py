@@ -13,7 +13,7 @@ does.
 """
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, List, Optional
 
 import torch
 
@@ -47,22 +47,50 @@ class ScheduledAdam(torch.optim.Adam):
     """Adam (betas 0.9 / 0.999, eps 1e-8) whose rate is set from
     ``schedule(count)`` before each update, ``count`` being the updates
     made before it, with an optional elementwise grad clip (the reference's
-    ``clip_grad_value_``, optax's ``clip``) applied first."""
+    ``clip_grad_value_``, optax's ``clip``) applied first.
+
+    On CUDA it is capturable: Adam's step counts live on the device and the
+    rate is a device tensor written before each update, so a CUDA graph of
+    a window of steps (``train/graph.py``) replays them with each step's
+    rate.  ``step(rate=...)`` takes that rate from a device tensor (a
+    window's staged rates, ``rates``); without one it is
+    ``schedule(count)``, written into the same tensor, so both paths do
+    the same arithmetic.  On the CPU the rate is a Python float, as
+    torch's Adam keeps it there."""
 
     def __init__(self, params: Iterable[torch.Tensor], schedule: Schedule,
-                 grad_clip_value: Optional[float] = None):
-        super().__init__(params, lr=float(schedule(0)), betas=(0.9, 0.999),
-                         eps=1e-8)
+                 grad_clip_value: Optional[float] = None,
+                 capturable: Optional[bool] = None):
+        params = list(params)
+        if capturable is None:
+            capturable = bool(params) and params[0].device.type == "cuda"
+        lr = float(schedule(0))
+        if capturable:
+            lr = torch.full((), lr, dtype=torch.float32,
+                            device=params[0].device)
+        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                         capturable=capturable,
+                         foreach=True if capturable else None)
+        # eager steps are meant: torch warns of them once per optimizer
+        self._warned_capturable_if_run_uncaptured = True
         self.schedule = schedule
         self.grad_clip_value = grad_clip_value
         self.count = 0
 
+    def rates(self, n: int) -> List[float]:
+        """The rates of the next ``n`` updates."""
+        return [float(self.schedule(self.count + k)) for k in range(n)]
+
     @torch.no_grad()
-    def step(self, closure=None):
-        lr = float(self.schedule(self.count))
+    def step(self, closure=None, rate: Optional[torch.Tensor] = None):
+        lr = float(self.schedule(self.count)) if rate is None else rate
         c = self.grad_clip_value
         for group in self.param_groups:
-            group["lr"] = lr
+            if isinstance(group["lr"], torch.Tensor):
+                (group["lr"].fill_ if rate is None else group["lr"].copy_)(lr)
+            else:
+                # the CPU: a float64 rate reads back exactly
+                group["lr"] = lr if rate is None else float(rate)
             if c is not None:
                 for p in group["params"]:
                     if p.grad is not None:

@@ -12,7 +12,9 @@ leave those fields None.
 parameters, each optimizer's Adam moments and step per parameter, its
 update ``count`` (which sets the scheduled rate and which
 ``torch.optim.Optimizer.state_dict`` does not hold), the depth tensors
-and the step count.  A depth tensor loads in place, so the optimizer that
+and the step count.  Adam's per-parameter step is written as a float
+wherever it lives (on the device for a capturable Adam, the CUDA one of
+``train/optim.py``) and loads back to where the optimizer keeps it.  A depth tensor loads in place, so the optimizer that
 holds it keeps training the same tensor.
 """
 from __future__ import annotations
@@ -28,6 +30,7 @@ from .optim import ScheduledAdam
 _MODULES = ("params_coarse", "params_fine")
 _TENSORS = ("depth_scales", "depth_shifts", "cam_embeddings")
 _OPTIMIZERS = ("opt_coarse", "opt_fine", "opt_ss", "opt_latent")
+_OPTIMIZERS_ORDER = ("opt_fine", "opt_coarse", "opt_ss", "opt_latent")
 
 
 def _params(opt: ScheduledAdam):
@@ -49,8 +52,9 @@ def _optimizer_state(opt: ScheduledAdam) -> dict:
 
 def _load_optimizer_state(opt: ScheduledAdam, sd: dict) -> None:
     """Inverse of ``_optimizer_state``; the parameters must already be on
-    their device (the moments follow them there, the step stays on the
-    CPU as Adam keeps it)."""
+    their device (the moments follow them there, the step goes where Adam
+    keeps it: on the parameter's device when the optimizer is capturable,
+    else on the CPU)."""
     n = len(_params(opt))
     state = {}
     for i, s in sd["state"].items():
@@ -78,6 +82,13 @@ class TrainState:
     opt_ss: Optional[ScheduledAdam] = None
     cam_embeddings: Optional[torch.Tensor] = None
     opt_latent: Optional[ScheduledAdam] = None
+
+    def optimizers(self) -> list:
+        """The optimizers that are not None, in a fixed order (fine or
+        joint, coarse, scale / shift, camera embeddings): the order of a
+        window's staged rates (``train/step.py`` ``StepInputs``)."""
+        return [o for o in (getattr(self, n) for n in _OPTIMIZERS_ORDER)
+                if o is not None]
 
     def state_dict(self) -> dict:
         """Every field that is not None."""

@@ -17,6 +17,15 @@ evaluations into the grid and returns the new grid.  The depth step takes
 a grid the same way (``depth_grads``' batch key ``occ_grid``; the driver
 applies ``apply_occ_update``).
 
+``make_multi_train_step`` fuses ``n_inner`` steps of any of them into one
+window: on CUDA one replay of a CUDA graph (``train/graph.py``), on the
+CPU the same body run eagerly.  Each step may take ``StepInputs``, what
+the host knows of it as device tensors (its optimizers' rates and its
+step count, staged per window), so a replay gives every step its own;
+without them a step reads the schedules and ``state.step``.  The depth
+step's warm start and scale / shift freeze read the step count on the
+device either way.
+
 Data parallelism (``mesh``, ``parallel/mesh.py``): every rank is handed
 the same global batch, drawn from the same seed at the global ray count,
 and trains on its own rows of it (``shard_batch``).  Of the two designs
@@ -39,7 +48,7 @@ rank reproduces the run without a mesh bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -49,10 +58,35 @@ from ..core.mlp import NeRF
 from ..device import DeviceLike, make_generator, resolve_device
 from ..parallel import mesh as pmesh
 from ..utils.misc import img2mse, mse2psnr
-from . import losses, optim
+from . import graph, losses, optim
 from .state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class StepInputs:
+    """What the host knows of one step, as device tensors (a row of a
+    window's staged ``graph.Feed``, so that a replayed window gives each
+    step its own): ``rates``, one 0-dim rate per optimizer in
+    ``TrainState.optimizers()`` order, and ``step``, the step count before
+    the update.  A step without them takes the rates from the schedules
+    and the count from ``state.step``."""
+    rates: Sequence[torch.Tensor]
+    step: torch.Tensor
+
+    @staticmethod
+    def of(feed, k: int) -> "StepInputs":
+        """Step ``k`` of ``feed``."""
+        return StepInputs(list(feed.rates[:, k]), feed.row("step")[k])
+
+
+def _update(state: TrainState, opts, inputs: Optional[StepInputs]) -> None:
+    """Step each optimizer of ``opts`` at its rate of ``inputs``."""
+    order = state.optimizers()
+    for o in opts:
+        o.step(rate=None if inputs is None
+               else inputs.rates[order.index(o)])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,9 +315,10 @@ def _all_reduce(mesh, tensors, metrics: Metrics) -> Metrics:
 
 
 def _step_local(setup: TrainSetup, mesh, state: TrainState, batch,
-                generator, draws):
+                generator, draws, inputs: Optional[StepInputs] = None):
     """The optimization step on this rank's ``batch`` (and ``draws``):
-    grads, their reduction over the mesh, the updates."""
+    grads, their reduction over the mesh, the updates (at ``inputs``'
+    rates)."""
     pc, pf = state.params_coarse, state.params_fine
 
     def loss_of(b, g, d=None):
@@ -297,26 +332,27 @@ def _step_local(setup: TrainSetup, mesh, state: TrainState, batch,
     metrics = _value_and_grad_accum(setup, params, batch, generator, loss_of,
                                     draws)
     metrics = _all_reduce(mesh, params, metrics)
-    for o in opts:
-        o.step()
+    _update(state, opts, inputs)
     state.step += 1
     return state, metrics
 
 
 def build_one_step(setup: TrainSetup, mesh: Optional[pmesh.Mesh] = None):
-    """The single optimization step (state, batch, generator) ->
+    """The single optimization step (state, batch, generator, inputs) ->
     (state, metrics); with ``mesh``, on this rank's rows of the global
-    batch (the module docstring)."""
+    batch (the module docstring); ``inputs``: ``StepInputs`` or None."""
 
-    def step_fn(state: TrainState, batch, generator=None):
+    def step_fn(state: TrainState, batch, generator=None, inputs=None):
         batch, draws = _local(setup, batch, generator, mesh)
-        return _step_local(setup, mesh, state, batch, generator, draws)
+        return _step_local(setup, mesh, state, batch, generator, draws,
+                           inputs)
 
     return step_fn
 
 
 def make_train_step(setup: TrainSetup, mesh: Optional[pmesh.Mesh] = None):
-    """The NVS train step: (state, batch, generator) -> (state, metrics).
+    """The NVS train step: (state, batch, generator, inputs=None) ->
+    (state, metrics).
 
     batch["rays"]: [R, 8|11]; batch["target"]: [R, 3] (the global batch
     under ``mesh``).
@@ -337,9 +373,19 @@ def _depth_tensors(setup: TrainSetup, state: TrainState) -> list:
         [state.cam_embeddings] if _trains_embeddings(setup) else [])
 
 
+def image_index(img, device) -> torch.Tensor:
+    """An image index (an int or a tensor of one element) as a
+    1-element int64 tensor on ``device``: an index the host never
+    reads."""
+    if not isinstance(img, torch.Tensor):
+        return torch.full((1,), int(img), dtype=torch.int64, device=device)
+    return img.reshape(1).to(device=device, dtype=torch.int64)
+
+
 def depth_grads(setup: TrainSetup, state: TrainState, batch,
                 generator: Optional[torch.Generator] = None,
-                overrides=None, mesh=None) -> Metrics:
+                overrides=None, mesh=None,
+                step: Optional[torch.Tensor] = None) -> Metrics:
     """Forward and backward of the depth loss: every tensor the depth step
     trains gets its ``.grad`` (before any clip), the per-image ones dense
     with zeros off ``img_idx``.  Returns the metrics.
@@ -350,21 +396,26 @@ def depth_grads(setup: TrainSetup, state: TrainState, batch,
     move the other images' rows and a skipped update would part the two
     trajectories.  ``mesh``: ``batch`` is this rank's rows, the joint
     space-carving term reduces over the ranks and the grads are not yet
-    reduced."""
-    img = int(batch["img_idx"])
+    reduced.  ``batch["img_idx"]``: an int or a 1-element device tensor;
+    ``step``: the step count as a device tensor (``StepInputs.step``),
+    else ``state.step``."""
+    img = image_index(batch["img_idx"], state.depth_scales.device)
     train_emb = _trains_embeddings(setup)
     for o in (state.opt_fine, state.opt_ss, state.opt_latent):
         if o is not None:
             o.zero_grad(set_to_none=True)
     # the reference's iteration i is step + 1: `i > warm_start` is
-    # `step >= warm_start`
-    sc_weight = (setup.space_carving_weight
-                 if state.step >= setup.warm_start_nerf else 0.0)
+    # `step >= warm_start`; on the device, so that each step of a
+    # replayed window reads its own
+    sc_weight = torch.where(_device_step(state, step)
+                            >= setup.warm_start_nerf,
+                            setup.space_carving_weight, 0.0)
     loss, metrics = _render_loss(
         state.params_coarse, state.params_fine, batch, generator, setup,
-        overrides=overrides, scale=state.depth_scales[img],
-        shift=state.depth_shifts[img], sc_weight=sc_weight,
-        cam_emb=state.cam_embeddings[img] if train_emb else None, mesh=mesh)
+        overrides=overrides, scale=state.depth_scales.index_select(0, img),
+        shift=state.depth_shifts.index_select(0, img), sc_weight=sc_weight,
+        cam_emb=(state.cam_embeddings.index_select(0, img)[0] if train_emb
+                 else None), mesh=mesh)
     loss.backward()
     for q in (state.depth_scales, state.depth_shifts) + (
             (state.cam_embeddings,) if train_emb else ()):
@@ -373,10 +424,20 @@ def depth_grads(setup: TrainSetup, state: TrainState, batch,
     return metrics
 
 
+def _device_step(state: TrainState, step: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """The step count before the update on the state's device."""
+    if step is not None:
+        return step
+    return torch.full((), state.step, dtype=torch.int64,
+                      device=state.depth_scales.device)
+
+
 def make_depth_train_step(setup: TrainSetup,
                           mesh: Optional[pmesh.Mesh] = None):
     """The depth-supervised step (reference run_nerf_sample_based_depth.py:
-    1102-1161): (state, batch, generator, overrides) -> (state, metrics).
+    1102-1161): (state, batch, generator, overrides, inputs) -> (state,
+    metrics).
 
     batch: rays [R, 8|11], target [R, 3], target_h [H, R, 1] (the image's
     depth hypotheses), sc_mask [R], img_idx (the image).  The joint Adam
@@ -384,30 +445,32 @@ def make_depth_train_step(setup: TrainSetup,
     values it moves are put back once ``step + 1 >= freeze_ss`` (the
     reference steps it while ``i < freeze_ss``), so its moments advance
     while the values hold; the camera-embedding Adam steps every step.
-    The state must come from ``init_state(..., n_images)`` with the same
-    setup.  ``mesh``: the global batch, as ``make_train_step`` takes it
-    (``overrides`` then are not taken)."""
+    The freeze and the warm start read the step count on the device
+    (``inputs.step``, else ``state.step``), so a window that crosses them
+    is one program.  The state must come from ``init_state(...,
+    n_images)`` with the same setup.  ``mesh``: the global batch, as
+    ``make_train_step`` takes it (``overrides`` then are not taken)."""
 
-    def step_fn(state: TrainState, batch, generator=None, overrides=None):
+    def step_fn(state: TrainState, batch, generator=None, overrides=None,
+                inputs: Optional[StepInputs] = None):
         if mesh is not None:
             if overrides is not None:
                 raise ValueError("overrides with a mesh")
             batch, overrides = _local(setup, batch, generator, mesh)
+        step = _device_step(state, None if inputs is None else inputs.step)
         metrics = depth_grads(setup, state, batch, generator, overrides,
-                              mesh)
+                              mesh, step)
         metrics = _all_reduce(mesh, _depth_tensors(setup, state), metrics)
-        state.opt_fine.step()
-        frozen = state.step + 1 >= setup.freeze_ss
-        held = ([q.detach().clone() for q in (state.depth_scales,
-                                               state.depth_shifts)]
-                if frozen else None)
-        state.opt_ss.step()
-        if frozen:
-            with torch.no_grad():
-                state.depth_scales.copy_(held[0])
-                state.depth_shifts.copy_(held[1])
+        _update(state, [state.opt_fine], inputs)
+        frozen = step + 1 >= setup.freeze_ss
+        ss = (state.depth_scales, state.depth_shifts)
+        held = [q.detach().clone() for q in ss]
+        _update(state, [state.opt_ss], inputs)
+        with torch.no_grad():
+            for q, h in zip(ss, held):
+                q.copy_(torch.where(frozen, h, q))
         if _trains_embeddings(setup):
-            state.opt_latent.step()
+            _update(state, [state.opt_latent], inputs)
         state.step += 1
         return state, metrics
 
@@ -434,8 +497,8 @@ def apply_occ_update(setup: TrainSetup, occ_grid: occgrid.Grid, batch,
 
 def make_occ_train_step(setup: TrainSetup,
                         mesh: Optional[pmesh.Mesh] = None):
-    """The occupancy-grid train step: (state, grid, batch, generator) ->
-    (state, grid, metrics).  The optimization of ``make_train_step`` with
+    """The occupancy-grid train step: (state, grid, batch, generator,
+    inputs=None) -> (state, grid, metrics).  The optimization of ``make_train_step`` with
     the coarse samples placed by the grid, then the grid updated from the
     step's own density evaluations.  Needs ``setup.rcfg.occ``; ``mesh``
     as in ``make_train_step``."""
@@ -443,13 +506,152 @@ def make_occ_train_step(setup: TrainSetup,
         raise ValueError("make_occ_train_step needs setup.rcfg.occ")
 
     def step_fn(state: TrainState, occ_grid: occgrid.Grid, batch,
-                generator=None):
+                generator=None, inputs: Optional[StepInputs] = None):
         batch, draws = _local(setup, batch, generator, mesh)
         state, metrics = _step_local(setup, mesh, state,
                                      dict(batch, occ_grid=occ_grid),
-                                     generator, draws)
+                                     generator, draws, inputs)
         occ_grid, metrics = apply_occ_update(setup, occ_grid, batch, metrics,
                                              mesh)
         return state, occ_grid, metrics
 
     return step_fn
+
+
+def window_counters(state: TrainState) -> list:
+    """The host integers a window of steps advances: the state's step
+    and each optimizer's update count (``graph.Graphs``' counters)."""
+    return [(state, "step")] + [(o, "count") for o in state.optimizers()]
+
+
+def stage_window(feed, state: TrainState, n: int, **ints) -> None:
+    """Fill ``feed`` (``graph.Feed``) for the next ``n`` steps of
+    ``state``: each optimizer's rates, the step counts and ``ints`` (the
+    feed's other rows, one value per step)."""
+    feed.fill([o.rates(n) for o in state.optimizers()],
+              step=range(state.step, state.step + n), **ints)
+
+
+def _one_step(setup: TrainSetup, mesh, depth: bool) -> Callable:
+    """One step of the flavour as (state, grid, batch, generator,
+    inputs) -> (state, grid, metrics); the grid None without
+    ``setup.rcfg.occ``."""
+    if depth:
+        step = make_depth_train_step(setup, mesh)
+
+        def one(state, grid, batch, generator, inputs):
+            if setup.rcfg.occ is None:
+                state, metrics = step(state, batch, generator, inputs=inputs)
+                return state, grid, metrics
+            state, metrics = step(state, dict(batch, occ_grid=grid),
+                                  generator, inputs=inputs)
+            grid, metrics = apply_occ_update(
+                setup, grid, pmesh.shard_batch(batch, mesh), metrics, mesh)
+            return state, grid, metrics
+
+        return one
+    if setup.rcfg.occ is not None:
+        return make_occ_train_step(setup, mesh)
+    step = make_train_step(setup, mesh)
+
+    def one(state, grid, batch, generator, inputs):
+        state, metrics = step(state, batch, generator, inputs)
+        return state, grid, metrics
+
+    return one
+
+
+class MultiTrainStep:
+    """``n_inner`` optimization steps as one window (``make_multi_train_step``):
+    ``window`` is its body, which the drivers run with their own batches;
+    calling it runs the JAX function's window on stacked batches."""
+
+    def __init__(self, setup: TrainSetup, n_inner: int,
+                 mesh: Optional[pmesh.Mesh] = None, depth: bool = False):
+        if n_inner < 1:
+            raise ValueError(f"n_inner {n_inner} < 1")
+        self.setup, self.n_inner, self.mesh = setup, n_inner, mesh
+        self.one = _one_step(setup, mesh, depth)
+        self._bound = None
+
+    def window(self, state: TrainState, n: int, batch_of: Callable,
+               generator: Optional[torch.Generator] = None, feed=None,
+               occ_grid: Optional[occgrid.Grid] = None,
+               mean: bool = False) -> Metrics:
+        """The window body: ``n`` steps, step ``k`` on ``batch_of(k)``
+        with row ``k`` of ``feed`` (``StepInputs.of``; None: the
+        schedules and ``state.step``), the grid handed from step to step
+        and the last one written into ``occ_grid`` in place.  Returns the
+        last step's metrics, or with ``mean`` their mean over the steps."""
+        grid, acc = occ_grid, None
+        for k in range(n):
+            inputs = None if feed is None else StepInputs.of(feed, k)
+            state, grid, metrics = self.one(state, grid, batch_of(k),
+                                            generator, inputs)
+            if mean:
+                acc = metrics if acc is None else {
+                    key: acc[key] + metrics[key] for key in acc}
+        if occ_grid is not None:
+            with torch.no_grad():
+                for key, v in grid.items():
+                    if v is not occ_grid[key]:
+                        occ_grid[key].copy_(v)
+        return {key: v / n for key, v in acc.items()} if mean else metrics
+
+    def __call__(self, state: TrainState, batch,
+                 generator: Optional[torch.Generator] = None,
+                 occ_grid: Optional[occgrid.Grid] = None):
+        """The JAX function's window: ``batch`` stacked [n_inner, ...]
+        per key, step ``k`` on its row ``k``.  Returns (state, metrics)
+        with the metrics averaged over the steps, with ``occ_grid``
+        (state, grid, metrics).  On CUDA the first call runs eagerly, the
+        second captures the window and every call from then on replays it
+        (the batch copied into static buffers first), so the state, the
+        generator and the grid must be those of the first call; the CPU
+        runs it eagerly."""
+        n = self.n_inner
+        if self._bound is None:
+            dev = next(state.params_coarse.parameters()).device
+            self._bound = (state, generator, occ_grid)
+            self._graphs = graph.Graphs(dev, n, window_counters(state),
+                                        [generator],
+                                        capture=self.mesh is None)
+            self._feed = graph.Feed(n, dev, len(state.optimizers()))
+            self._batch = {k: torch.empty_like(v) for k, v in batch.items()}
+        elif any(a is not b for a, b in zip((state, generator, occ_grid),
+                                            self._bound)):
+            raise ValueError("a MultiTrainStep runs the state, generator "
+                             "and grid of its first call")
+        if any(v.shape[0] != n for v in batch.values()):
+            raise ValueError(f"batches stacked [{n}, ...] expected")
+        src = batch
+        if self._graphs.capture:
+            for k, v in batch.items():
+                self._batch[k].copy_(v)
+            src = self._batch
+        stage_window(self._feed, state, n)
+        metrics = self._graphs.run("window", lambda m: self.window(
+            state, m, lambda k: {key: v[k] for key, v in src.items()},
+            generator, self._feed, occ_grid, mean=True), n)
+        if occ_grid is not None:
+            return state, occ_grid, metrics
+        return state, metrics
+
+
+def make_multi_train_step(setup: TrainSetup, n_inner: int,
+                          mesh: Optional[pmesh.Mesh] = None,
+                          depth: bool = False) -> MultiTrainStep:
+    """Fuse ``n_inner`` optimization steps into one device program (port
+    of the JAX package's ``make_multi_train_step``, which scans them with
+    ``lax.scan``): on CUDA one replay of a CUDA graph per window
+    (``train/graph.py``), on the CPU the same body run eagerly.
+
+    The step is the NVS step of ``make_train_step`` (two Adams, or the
+    joint one), the grid's of ``make_occ_train_step`` with
+    ``setup.rcfg.occ``, or with ``depth`` the depth step of
+    ``make_depth_train_step`` (the grid folded by ``apply_occ_update``
+    after each step).  Its body is bit-equal to ``n_inner`` single steps,
+    the draws included: the rates and the step count come from the
+    host's schedules, staged per window.  ``mesh``: windows run eagerly
+    (the all-reduce is not captured)."""
+    return MultiTrainStep(setup, n_inner, mesh, depth)

@@ -556,3 +556,175 @@ def test_cuda_train_step_never_waits_on_the_card(cuda_device, flavour):
     assert all(np.isfinite(float(v)) for k, v in m.items()
                if not k.startswith("_"))
     assert state.step == 4
+
+
+# ---------------------------------------------------------------------------
+# a window of steps as one CUDA graph (train/graph.py)
+# ---------------------------------------------------------------------------
+
+GRAPH_N = 4
+GRAPH_FLAVOURS = {"sampled": dict(), "pool": dict(pool=True),
+                  "occ": dict(occ=True, mlp_dtype="bfloat16"),
+                  "depth": dict(depth=True)}
+
+
+def _graph_run(dev, flavour, capture, windows=3, debug_after=None):
+    """``windows`` windows of GRAPH_N steps of ``flavour`` through
+    ``graph.Graphs`` (``capture`` False: every window eager), the batches
+    made on the card from the staged feed as the drivers make them.
+    Returns (state, grid, metrics, graphs); the windows from
+    ``debug_after`` on run (and stage) under ``set_sync_debug_mode
+    ("error")``."""
+    from plnerf_torch.cli.run_depth import depth_batch
+    from plnerf_torch.core import occgrid
+    from plnerf_torch.core.config import RenderConfig
+    from plnerf_torch.data.synthetic import make_sphere_dataset
+    from plnerf_torch.train import batching, graph
+    from plnerf_torch.train.step import (TrainSetup, init_state,
+                                         make_multi_train_step,
+                                         stage_window, window_counters)
+
+    kw = GRAPH_FLAVOURS[flavour]
+    depth = kw.get("depth", False)
+    mcfg = ModelConfig(netdepth=4, netwidth=64, skips=(2,), multires=6,
+                       multires_views=2, pi_bands=depth,
+                       input_ch_cam=3 if depth else 0)
+    occ = occgrid.OccGridConfig(resolution=16, candidates=32) \
+        if kw.get("occ") else None
+    rcfg = RenderConfig(n_samples=16, n_importance=16, white_bkgd=True,
+                        perturb=True, raw_noise_std=0.0 if depth else 1.0,
+                        mlp_dtype=kw.get("mlp_dtype", "float32"),
+                        use_fused_mlp=True, fused_fold_heads=True, occ=occ,
+                        compute_pred_hyp=depth, trim_first_weight=depth)
+    # depth: the warm start ends at step 2 and the freeze at step 5, both
+    # inside a window
+    setup = TrainSetup(mcfg=mcfg, rcfg=rcfg, lrate=5e-3, lrate_decay=1,
+                       joint_optimizer=depth,
+                       grad_clip_value=0.1 if depth else None,
+                       space_carving_weight=0.007 if depth else 0.0,
+                       warm_start_nerf=2, freeze_ss=6, scaleshift_lr=1e-3,
+                       opt_ch_cam=depth)
+    images, poses, _, K = make_sphere_dataset(4, 32, 32)
+    images = torch.as_tensor(images, device=dev)
+    poses = torch.as_tensor(poses[:, :3, :4], device=dev)
+    K = torch.as_tensor(K, device=dev)
+    i_train = torch.arange(4, device=dev)
+    pool = torch.as_tensor(batching.build_ray_pool(
+        images.cpu().numpy(), poses.cpu().numpy(), K.cpu().numpy(),
+        range(4)), device=dev)
+    intr = torch.stack([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]).expand(
+        4, 4).contiguous()
+    depths = torch.full((4, 32, 32), 4.0, device=dev)
+    mask = torch.ones(4, 32, 32, device=dev)
+    state = init_state(torch.Generator(device=dev).manual_seed(0), setup,
+                       dev, n_images=4 if depth else 0)
+    grid = occgrid.init_grid([-1.5] * 3, [1.5] * 3, occ, dev) \
+        if occ else None
+    g = torch.Generator(device=dev).manual_seed(1)
+    multi = make_multi_train_step(setup, GRAPH_N, depth=depth)
+    feed = graph.Feed(GRAPH_N, dev, len(state.optimizers()))
+    graphs = graph.Graphs(dev, GRAPH_N, window_counters(state), [g],
+                          capture=capture)
+
+    def batch_of(k):
+        if depth:
+            return depth_batch(images, poses, intr, depths, mask,
+                               feed.row("img")[k], 64, 2.0, 6.0, True, g)
+        if kw.get("pool"):
+            rays, target = batching.pool_batch(pool, feed.row("offset")[k],
+                                               64, 2.0, 6.0, True)
+        else:
+            rays, target, _ = batching.sample_one_image_batch(
+                images, poses, K, i_train, g, 64, 2.0, 6.0, True)
+        return {"rays": rays, "target": target}
+
+    def body(n):
+        return multi.window(state, n, batch_of, g, feed, grid)
+
+    m = None
+    for w in range(windows):
+        if w == debug_after:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            s0 = state.step
+            stage_window(feed, state, GRAPH_N,
+                         offset=[64 * (s0 + k) for k in range(GRAPH_N)],
+                         img=[(3 * (s0 + k)) % 4 for k in range(GRAPH_N)])
+            m = graphs.run("v", body, GRAPH_N)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return state, grid, m, graphs
+
+
+@pytest.mark.parametrize("flavour", list(GRAPH_FLAVOURS))
+def test_cuda_replayed_window_is_eager_steps(cuda_device, flavour):
+    """Three windows of 4: the first eager on the capture stream, the
+    second captured and replayed, the third replayed (staged and run
+    under ``set_sync_debug_mode("error")``), against the same windows run
+    eagerly: the state, the grid and the last metrics bit for bit, and
+    the launch counters at 2 forward and 2 backward launches a step."""
+    fused_mlp.launches = fused_mlp.bwd_launches = 0
+    a, ga, ma, graphs = _graph_run(cuda_device, flavour, True,
+                                   debug_after=2)
+    steps = 3 * GRAPH_N
+    assert (fused_mlp.launches, fused_mlp.bwd_launches) == (2 * steps,
+                                                            2 * steps)
+    assert [k for _, _, k in graphs.windows()] == ["first", "replay",
+                                                   "replay"]
+    assert (graphs.captures, graphs.replays) == (1, 2)
+    assert graphs.programs["v"].delta[-2:] == [2 * GRAPH_N, 2 * GRAPH_N]
+    b, gb, mb, _ = _graph_run(cuda_device, flavour, False)
+    assert a.step == b.step == steps
+    sa, sb = a.state_dict(), b.state_dict()
+
+    def same(x, y, where):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y), where
+        elif isinstance(x, dict):
+            assert set(x) == set(y), where
+            for k in x:
+                same(x[k], y[k], f"{where}/{k}")
+        else:
+            assert x == y, where
+
+    same(sa, sb, "state")
+    if ga is not None:
+        same(ga, gb, "grid")
+    same(ma, mb, "metrics")
+
+
+def test_cuda_capture_of_a_host_read_raises():
+    """A window body that reads a value on the host cannot be captured:
+    ``Graphs`` raises (in a process of its own, since a failed capture
+    leaves the allocator mid-capture) and never runs it eagerly
+    instead."""
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode "
+                    "(python3 chip_smoke.py runs them on the H100)")
+    code = (
+        "import torch\n"
+        "from plnerf_torch.train import graph\n"
+        "dev = torch.device('cuda')\n"
+        "x = torch.ones(8, device=dev)\n"
+        "def body(n):\n"
+        "    y = x * 2\n"
+        "    if float(y.sum()) > 0:\n"
+        "        y = y + 1\n"
+        "    return {'y': y.sum()}\n"
+        "g = graph.Graphs(dev, 2)\n"
+        "g.run('k', body, 2)\n"
+        "try:\n"
+        "    g.run('k', body, 2)\n"
+        "except RuntimeError as e:\n"
+        "    print('RAISED', g.replays)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=os.path.dirname(
+                             os.path.dirname(os.path.abspath(__file__))))
+    # torch's AcceleratorError is a RuntimeError
+    assert "RAISED 0" in out.stdout, out.stdout + out.stderr
