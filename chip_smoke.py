@@ -249,10 +249,13 @@ Phases, one line each, then the result line:
            flavours the drivers run (the NVS step in fp32 and bf16, the
            vanilla joint Adam, a pool slice, the grid's bf16 step, the
            depth step with camera embeddings, with and without the grid),
-           each at full width: one window of 8 steps under
-           ``torch.cuda.set_sync_debug_mode("error")`` (a wait on the card
-           inside it raises), then one traced (the host's waits per step
-           by op chain, expected 0; device ms and busy share).  Then the
+           each at full width, as eager steps and as the drivers' CUDA
+           graph of a window (``train/graph.py``): one window of 8 steps
+           under ``torch.cuda.set_sync_debug_mode("error")`` (a wait on
+           the card inside it raises, staging included), then one traced
+           (the host's waits per step by op chain, expected 0; device ms,
+           busy share, and the fused kernels the card ran, 2 + 2 a step,
+           a replay's included).  Then the
            driver's recipes at N = 8 against N = 1 for 120 steps with
            precrop / constant quadrature at 30 / 60: fp32 and bf16 on the
            driver phases' sphere, fp32 with batching on a 100x100 sphere
@@ -260,11 +263,15 @@ Phases, one line each, then the result line:
            across a warm-up of 40; the depth recipe at N = 4 against N = 1
            for 40 steps on the multi-object scene at 100x100.  Each pair's
            final checkpoint (and grid) and its losses at the steps both
-           logged must be bit-equal, each run launch both kernels twice a
-           step, and the ``--profile 8`` windows of the fp32, bf16 and occ
-           runs hold no wait on the card; ms per step of every run (the
-           print records past step 24) and each trace's busy share are
-           printed beside the card's name and power limit.
+           logged must be bit-equal; at N > 1 every full window but each
+           phase's first is a graph's replay.  The wrappers must count
+           both kernels twice a step of the windows run eagerly, and the
+           ``--profile 8`` windows of the fp32, bf16 and occ runs (at N
+           = 8 a replay) hold no wait on the card and 2 + 2 fused kernels
+           a step in the card's trace; each run's captures, replays, ms
+           per step (the print records past step 24, and over replayed
+           windows only) and each trace's host and device ms and busy
+           share are printed beside the card's name and power limit.
 
 Then one JSON line with every kernel's numbers, the card line, and the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -1608,19 +1615,22 @@ def _driver_view(argv, state, stride: int = 8, hyp: bool = False,
     return out
 
 
-# {run name: {"captures", "replays", "capture_s"}}: the CUDA graphs of each
-# ``_driver_runs`` run's windows (``train/graph.py``)
+# {run name: {"captures", "replays", "capture_s", "eager_steps"}}: the CUDA
+# graphs of each ``_driver_runs`` run's windows (``train/graph.py``) and
+# the steps its windows ran eagerly, whose launches the wrappers count
 GRAPH_RUNS = {}
 
 
 def _driver_runs(entry=None):
     """(run, expect, launches, runs): ``run(name, argv)`` calls the driver's
     entry point (``run_plnerf.main`` unless ``entry`` is given), the
-    kernels' launch counters (which count a graph's replays) set to 0 just
-    before and read just after into ``launches[name]``, its seconds into
-    ``runs[name]``, its graphs' captures and replays into
-    ``GRAPH_RUNS[name]``; ``expect(name, fwd, bwd)`` holds a run's
-    launches."""
+    kernels' launch counters set to 0 just before and read just after into
+    ``launches[name]`` (the wrappers count what they launch: a graph's
+    replays launch nothing from Python, and ``phase_dispatch`` counts
+    their kernels in traces), its seconds into ``runs[name]``, its
+    graphs' captures and replays and the steps of the windows it ran
+    eagerly into ``GRAPH_RUNS[name]``; ``expect(name, fwd, bwd)`` holds
+    a run's launches."""
     from plnerf_torch.cli import run_plnerf
     from plnerf_torch.kernels import fused_mlp
     from plnerf_torch.train import graph
@@ -1651,6 +1661,9 @@ def _driver_runs(entry=None):
                           "fused_mlp_bwd": fused_mlp.bwd_launches}
         GRAPH_RUNS[name] = {k: sum(getattr(g, k) for g in made)
                             for k in ("captures", "replays", "capture_s")}
+        GRAPH_RUNS[name]["eager_steps"] = sum(
+            n for g in made for _, n, kind in g.windows()
+            if kind not in graph.STAGED)
         return out
 
     def expect(name, fwd, bwd):
@@ -3772,8 +3785,7 @@ def _flavour_parts(dev, flavour: str, scene: tuple) -> dict:
 def _flavour(dev, flavour: str, scene: tuple):
     """A closure running one step of ``flavour`` (``_flavour_parts``)
     through the public step functions, as the drivers called them
-    before their windows became graphs; uses only functions an earlier
-    commit's package has too."""
+    before their windows became graphs."""
     from plnerf_torch.device import make_generator
     from plnerf_torch.train.step import (apply_occ_update,
                                          make_depth_train_step,
@@ -3807,11 +3819,12 @@ def _flavour(dev, flavour: str, scene: tuple):
 def _graph_flavour(dev, flavour: str, scene: tuple):
     """A closure running one window of ``CENSUS_WINDOW`` steps of
     ``flavour`` (``graph_`` and a name of ``_flavour_parts``) as the
-    drivers run it: the host's values staged (``stage_window``), the
-    batches made on the card from the staged offsets and images, the
-    window one CUDA graph (``graph.Graphs``): the first call runs it
-    eagerly, the second captures and replays it, every later call
-    replays it.  The closure's ``graphs`` holds the plan."""
+    drivers run it, one CUDA graph (``graph.Graphs``): the first call
+    runs it eagerly from the host's values, the second captures and
+    replays it, every later call replays it, each of these with the
+    host's values staged (``stage_window``) and the batches made on the
+    card from the staged offsets and images.  The closure's ``graphs``
+    holds the plan."""
     from plnerf_torch.device import make_generator
     from plnerf_torch.train import graph
     from plnerf_torch.train.step import (make_multi_train_step,
@@ -3826,17 +3839,21 @@ def _graph_flavour(dev, flavour: str, scene: tuple):
     rng = np.random.default_rng(0)
     i_batch = 0
 
-    def body(m):
-        return multi.window(state, m, lambda k: p["batch"](
-            g, feed.row("offset")[k], feed.row("img")[k]), g, feed,
-            p["grid"])
-
     def window():
         nonlocal i_batch
-        stage_window(feed, state, n, offset=range(
-            i_batch, i_batch + n * N_RAND, N_RAND),
-            img=[int(rng.choice(8)) for _ in range(n)])
+        offsets = range(i_batch, i_batch + n * N_RAND, N_RAND)
+        imgs = [int(rng.choice(8)) for _ in range(n)]
+        staged = graphs.schedule("window", n) in graph.STAGED
+        if staged:
+            stage_window(feed, state, n, offset=offsets, img=imgs)
+            offsets, imgs = feed.row("offset"), feed.row("img")
         i_batch += n * N_RAND
+
+        def body(m):
+            return multi.window(state, m, lambda k: p["batch"](
+                g, offsets[k], imgs[k]), g, feed if staged else None,
+                p["grid"])
+
         graphs.prepare("window", body, n)
         return graphs.run("window", body, n)
 
@@ -3890,17 +3907,22 @@ def step_census(dev, debug_mode=None,
                 flavours=CENSUS_FLAVOURS + GRAPH_CENSUS,
                 out_dir=None) -> dict:
     """For each step flavour (``_flavour``, or ``_graph_flavour`` for a
-    ``graph_`` one): a window of ``CENSUS_WINDOW`` steps that builds and
+    ``graph_`` one, run after its eager flavour): a window of
+    ``CENSUS_WINDOW`` steps that builds and
     warms up (two for a graph: the eager one and the one it is captured
     at), then one under ``torch.cuda.set_sync_debug_mode(debug_mode)``
     (``"error"``: a wait on the card raises; a graph's staging and
     replay), then one under ``torch.profiler``: the host's waits per step
-    by op chain, device ms per step and the busy share of the window's
-    wall time.  The step flavours use only the package's public
-    functions, so ``flavours=CENSUS_FLAVOURS`` runs against an earlier
-    commit's package too."""
+    by op chain, device ms per step, the busy share of the window's wall
+    time, the launches the wrappers counted in it (2 + 2 a step eagerly,
+    none in a replay) and the fused kernels the card ran in it
+    (``utils/profile.trace_kernel_counts``: a replay's the same as the
+    eager window's)."""
     from torch.autograd.profiler import record_function
     from torch.profiler import ProfilerActivity, profile
+
+    from plnerf_torch.kernels import fused_mlp
+    from plnerf_torch.utils.profile import trace_kernel_counts
 
     out = {}
     tmp = out_dir or tempfile.mkdtemp(prefix="plnerf_census_")
@@ -3926,12 +3948,15 @@ def step_census(dev, debug_mode=None,
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             torch.cuda.synchronize()
+        counted = (fused_mlp.launches, fused_mlp.bwd_launches)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with record_function("dispatch_window"):
                 for _ in range(calls):
                     run()
             torch.cuda.synchronize()
+        counted = (fused_mlp.launches - counted[0],
+                   fused_mlp.bwd_launches - counted[1])
         path = os.path.join(tmp, f"census_{name}.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
@@ -3942,13 +3967,28 @@ def step_census(dev, debug_mode=None,
                    and e.get("cat") == "user_annotation")
         t0, t1 = win["ts"], win["ts"] + win["dur"]
         busy = _busy(trace, t0, float("inf"))
+        kernels = trace_kernel_counts(trace, t0=t0)
         out[name] = {"syncs": _trace_syncs(trace, CENSUS_WINDOW, [(t0, t1)]),
                      "host_ms_per_step": win["dur"] / 1e3 / CENSUS_WINDOW,
                      "device_ms_per_step": busy["device_ms"] / CENSUS_WINDOW,
-                     "busy": busy["busy"]}
+                     "busy": busy["busy"], "launches": counted,
+                     "traced_kernels": kernels}
+        # the eager window: the wrappers count 2 + 2 launches a step; the
+        # replay, which they do not see, runs the same fused kernels
+        eager = out.get(name[len("graph_"):]) if name.startswith(
+            "graph_") else out[name]
+        want = (0, 0) if name.startswith("graph_") else (
+            2 * CENSUS_WINDOW, 2 * CENSUS_WINDOW)
+        if (eager is None or counted != want
+                or kernels.get("weight_kernel") != 2 * CENSUS_WINDOW
+                or kernels != eager["traced_kernels"]):
+            raise AssertionError(
+                f"census {name}: {counted} launches counted, fused kernels "
+                f"traced {kernels} (eager: "
+                f"{eager and eager['traced_kernels']})")
         if hasattr(run, "graphs"):
             plan = [k for _, _, k in run.graphs.windows()]
-            if plan != ["first"] + ["replay"] * (len(plan) - 1):
+            if plan != ["first", "capture"] + ["replay"] * (len(plan) - 2):
                 raise AssertionError(f"census {name}: windows {plan}")
             out[name]["windows"] = plan
     return out
@@ -4002,7 +4042,8 @@ def phase_dispatch(dev, work):
     from plnerf_torch.cli import run_depth
     from plnerf_torch.data.synthetic import (write_blender2_depth_scene,
                                              write_sphere_scene)
-    from plnerf_torch.utils.profile import trace_device_gaps
+    from plnerf_torch.utils.profile import (trace_device_gaps,
+                                            trace_kernel_counts)
 
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="plnerf_dispatch_")
@@ -4051,7 +4092,12 @@ def phase_dispatch(dev, work):
                           ckpt, "--expname", exp, "--data_dir", data_dir,
                           "--scene_id", scene, "--steps_per_dispatch",
                           str(n)] + DISPATCH_TRAIN + extra)
-                expect(exp, 2 * DISPATCH_STEPS, 2 * DISPATCH_STEPS)
+                # the wrappers count the eager windows' launches: all of
+                # N = 1, each phase's first and the short ones at N = 8
+                eager = GRAPH_RUNS[exp]["eager_steps"]
+                if (eager == DISPATCH_STEPS) != (n == 1):
+                    raise AssertionError(f"{exp}: {eager} eager steps")
+                expect(exp, 2 * eager, 2 * eager)
                 ms[exp] = _steady_ms(os.path.join(ckpt, exp), 24)
                 replayed_ms[exp] = _steady_ms(os.path.join(ckpt, exp),
                                               *DISPATCH_REPLAYED)
@@ -4069,6 +4115,7 @@ def phase_dispatch(dev, work):
                     busy = _busy(tr, first_launch, float("inf"))
                     traces[exp] = {
                         "steps": DISPATCH_PROFILE, "windows": len(spans),
+                        "kernels": trace_kernel_counts(tr),
                         "syncs": _trace_syncs(tr, DISPATCH_PROFILE, spans),
                         "busy": busy["busy"],
                         "device_ms_per_step":
@@ -4076,11 +4123,19 @@ def phase_dispatch(dev, work):
                         "host_ms_per_step": sum(b - a for a, b in spans)
                             / 1e3 / DISPATCH_PROFILE,
                         "gaps": trace_device_gaps(tr)}
+                    # at N = 8 the traced window (9-16) is a replay: the
+                    # card ran in it the fused kernels of the N = 1 run's
+                    # eager steps 4-11 (the same phases), whose wrappers
+                    # counted 2 + 2 a step
+                    kern = traces[exp]["kernels"]
                     if (len(spans) != (1 if n > 1 else DISPATCH_PROFILE)
-                            or traces[exp]["syncs"]["per_step"]):
+                            or traces[exp]["syncs"]["per_step"]
+                            or kern.get("weight_kernel")
+                            != 2 * DISPATCH_PROFILE
+                            or kern != traces[f"{name}_n1"]["kernels"]):
                         raise AssertionError(
-                            f"{exp}: waits inside the traced windows: "
-                            f"{traces[exp]}")
+                            f"{exp}: waits or launches inside the traced "
+                            f"windows: {traces[exp]}")
             pairs[name] = _pair(os.path.join(ckpt, f"{name}_n1"),
                                 os.path.join(ckpt, f"{name}_n{DISPATCH_N}"),
                                 DISPATCH_STEPS)
@@ -4093,7 +4148,10 @@ def phase_dispatch(dev, work):
                 "--scene_id", "mobj", "--dataset", "blender2_depth",
                 "--set_near_plane", "2.0", "--white_bkgd",
                 "--steps_per_dispatch", str(n)])
-            dexpect(exp, 2 * DISPATCH_DEPTH_STEPS, 2 * DISPATCH_DEPTH_STEPS)
+            eager = GRAPH_RUNS[exp]["eager_steps"]
+            if (eager == DISPATCH_DEPTH_STEPS) != (n == 1):
+                raise AssertionError(f"{exp}: {eager} eager steps")
+            dexpect(exp, 2 * eager, 2 * eager)
             ms[exp] = _steady_ms(os.path.join(ckpt, exp), 8)
             replayed_ms[exp] = _steady_ms(os.path.join(ckpt, exp),
                                           *DISPATCH_DEPTH_REPLAYED)
@@ -4125,17 +4183,29 @@ def phase_dispatch(dev, work):
             census={k: {"syncs_per_step": v["syncs"]["per_step"],
                         "host_ms_per_step": v["host_ms_per_step"],
                         "device_ms_per_step": v["device_ms_per_step"],
-                        "busy": v["busy"], "windows": v.get("windows")}
+                        "busy": v["busy"], "windows": v.get("windows"),
+                        "launches": v["launches"],
+                        "traced_kernels": v["traced_kernels"]}
                     for k, v in census.items()},
             recipes=recipes_ms,
             syncs_per_step_pr5=PR5_SYNCS_PER_STEP,
             traces=traces, ms_per_step=ms, launches=launches,
             launches_per_train_step={"fused_mlp_fwd": 2, "fused_mlp_bwd": 2},
+            eager_steps={exp: GRAPH_RUNS[exp]["eager_steps"]
+                         for exp in runs},
             run_s=runs, scene_s=scene_s, census_s=census_s,
             phase_s=time.perf_counter() - t_phase,
             runs_s=time.perf_counter() - t_runs,
             note="bit_equal: the final checkpoints (and grids) of N = 1 "
                  "and N > 1, and their losses at the steps both logged; "
+                 "launches: the wrappers' counts, 2 + 2 per eagerly run "
+                 "step (eager_steps; a graph's replays launch nothing from "
+                 "Python); traced_kernels / traces.kernels: the fused "
+                 "kernels the card ran in a traced window (census: one "
+                 "window; traces: the --profile window, a replay at N = "
+                 "8), a replay's equal to the eager window's, whose "
+                 "wrappers counted 2 + 2 a step (one weight_kernel per "
+                 "backward call, one bf16_kernel per bf16 forward call); "
                  "census: one window of each step flavour under "
                  "set_sync_debug_mode('error') and then traced "
                  "(syncs: the host's waits on the card per step); traces: "

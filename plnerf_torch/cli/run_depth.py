@@ -44,9 +44,10 @@ reads nothing back from the device, as ``run_plnerf`` does: on CUDA a
 full window is one replay of a CUDA graph per grid phase (eager under
 ``torchrun``), the image of each step staged from the host sequence and
 the scale / shift freeze and the warm start read from the staged step
-count on the device; a window is cut only at the end of the grid's
-warm-up (the JAX driver's cut, run_depth.py:350-353), and the cadences
-fire at a window's last step.
+count on the device (an eager window takes them from the host); a
+window is cut only at the end of the grid's warm-up (the JAX driver's
+cut, run_depth.py:350-353), and the cadences fire at a window's last
+step.
 
 Data parallelism: ``torchrun --nproc_per_node N -m
 plnerf_torch.cli.run_depth train ...`` as ``run_plnerf`` describes it
@@ -354,19 +355,24 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
         n_this = i - i0 + 1
         # the window reads nothing back from the device: its images come
         # from the host sequence, staged with the rates and step counts
-        stage_window(feed, state, n_this, img=[
-            int(rng.choice(i_train)) for _ in range(n_this)])
+        # for a window that captures or replays
+        staged = graphs.schedule(occ_on, n_this) in graph.STAGED
+        imgs = [int(rng.choice(i_train)) for _ in range(n_this)]
+        if staged:
+            stage_window(feed, state, n_this, img=imgs)
+            imgs = feed.row("img")
 
         def batch_of(k):
             return depth_batch(images, poses, intrinsics, depths, sc_mask,
-                               feed.row("img")[k], args.N_rand, data.near,
-                               data.far, rcfg.use_viewdirs, g)
+                               imgs[k], args.N_rand, data.near, data.far,
+                               rcfg.use_viewdirs, g)
 
         multi = steps[occ_on]
         grid = occ_state if occ_on else None
 
         def body(n):
-            return multi.window(state, n, batch_of, g, feed, grid)
+            return multi.window(state, n, batch_of, g,
+                                feed if staged else None, grid)
 
         graphs.prepare(occ_on, body, n_this)
         with torch.profiler.record_function(WINDOW_SPAN):

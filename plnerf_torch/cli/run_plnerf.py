@@ -80,17 +80,20 @@ Differences from the JAX driver:
   (``train/graph.py``), one graph per phase (``constant_init``, the
   precrop, the grid's warm-up), captured at its second full window (the
   first runs eagerly on the capture stream and builds what the capture
-  needs).  A shorter window runs the same body eagerly, as every window
+  needs).  A variant that comes back after another was captured (the
+  uniform phase, when the occupancy advisory drops the grid) is captured
+  anew.  A shorter window runs the same body eagerly, as every window
   does on the CPU, where N changes nothing but the cadences, and under
   ``torchrun`` (the all-reduce is not captured).  No step of a window
-  reads anything back from the device: the host's per-step values (the
-  rates, the step count, the pool offsets) are staged before it.  The
-  window is cut as the JAX driver cuts it: never across a phase
-  boundary, and in pool mode at the end of the epoch's full batches, the
-  reshuffle (in place) between windows.  The cadences (``i_print``,
-  ``i_weights``, ``i_img``, ``i_testset``, ``i_video``) fire at the last
-  step of a window that holds a multiple of their period, and the logged
-  metrics are that step's.  A window draws from the generator in the
+  reads anything back from the device: a window that captures or replays
+  reads the host's per-step values (the rates, the step count, the pool
+  offsets) from device buffers staged before it, an eager one takes them
+  from the host as N = 1 does.  The window is cut as the JAX driver cuts
+  it: never across a phase boundary, and in pool mode at the end of the
+  epoch's full batches, the reshuffle (in place) between windows.  The
+  cadences (``i_print``, ``i_weights``, ``i_img``, ``i_testset``,
+  ``i_video``) fire at the last step of a window that holds a multiple
+  of their period, and the logged metrics are that step's.  A window draws from the generator in the
   order of N single steps (a graph replays its draws from the
   generator's state), so N changes no number; the JAX driver's fused
   windows draw from keys split per window.  ``--remat`` is captured too:
@@ -462,7 +465,6 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
         print(f"[pool] built {pool.shape[0]:,} rays in "
               f"{time.time() - t_pool:.1f} s")
         ev_chunk = training_eval_chunk(args, pool.numel() * 4)
-        i_batch = 0
     else:
         # on the device once, before the loop
         images = torch.as_tensor(np.asarray(data.images, np.float32),
@@ -472,13 +474,14 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
         K = torch.as_tensor(np.asarray(data.K, np.float32), device=device)
         i_train = torch.as_tensor(np.asarray(bundle.i_train), device=device)
 
+    i_batch = 0   # the pool's next row
+
     def batch_of(k):
         """Step ``k`` of the window on the device: the pool's rows at the
-        staged offset, or a one-image batch drawn from ``g``."""
+        window's ``offsets[k]``, or a one-image batch drawn from ``g``."""
         if use_batching:
             rays, target = batching.pool_batch(
-                pool, feed.row("offset")[k], n_rand, near, far,
-                rcfg.use_viewdirs)
+                pool, offsets[k], n_rand, near, far, rcfg.use_viewdirs)
         else:
             rays, target, _ = batching.sample_one_image_batch(
                 images, poses, K, i_train, g, n_rand, near, far,
@@ -509,20 +512,25 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
         ci = i0 < args.constant_init and rcfg.mode == "linear"
         occ_on = occ_cfg is not None and i0 > occ_warm_end
         precrop = not use_batching and i0 < args.precrop_iters
-        # the window reads nothing back from the device: the host's
-        # per-step values are staged, the batches made on the device
+        # the window reads nothing back from the device, its batches made
+        # there; one that captures or replays reads the host's per-step
+        # values (rates, step counts, pool offsets) from the staged feed,
+        # any other from the host
+        key = (ci, occ_on, precrop)
+        staged = graphs.schedule(key, n_this) in graph.STAGED
+        offsets = range(i_batch, i_batch + n_this * n_rand, n_rand)
+        if staged:
+            stage_window(feed, state, n_this, **(
+                {"offset": offsets} if use_batching else {}))
+            offsets = feed.row("offset")
         if use_batching:
-            stage_window(feed, state, n_this, offset=range(
-                i_batch, i_batch + n_this * n_rand, n_rand))
             i_batch += n_this * n_rand
-        else:
-            stage_window(feed, state, n_this)
         multi, grid = steps[(ci, occ_on)], occ_state if occ_on else None
 
         def body(n):
-            return multi.window(state, n, batch_of, g, feed, grid)
+            return multi.window(state, n, batch_of, g,
+                                feed if staged else None, grid)
 
-        key = (ci, occ_on, precrop)
         # a capture runs nothing, and is kept out of the trace's window
         graphs.prepare(key, body, n_this)
         if profile_n and prof_first is None and i0 > start + 3:

@@ -62,7 +62,9 @@ BWD_KERNEL = "fused_mlp_bwd"
 
 # CUDA launches made by ``forward_cuda`` and ``backward_cuda`` (chip_smoke.py
 # resets and reads them to show that a render or a train step went through
-# the kernels)
+# the kernels).  A launch recorded into a CUDA graph runs nothing and is
+# not counted; a graph's replays run no Python, and their launches are
+# counted in a device trace (``utils/profile.trace_kernel_counts``)
 launches = 0
 bwd_launches = 0
 
@@ -440,7 +442,8 @@ def _launch(p: PackedMLP, wbuf: torch.Tensor, bbuf: torch.Tensor,
         if rc != 0:
             msg = lib.plnerf_cuda_error_string(rc).decode()
             raise RuntimeError(f"fused_mlp_fwd launch failed: {msg} ({rc})")
-    launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launches += 1
     return raw
 
 
@@ -738,7 +741,8 @@ def backward_cuda(p: PackedMLP, x: torch.Tensor, v: torch.Tensor,
         if rc != 0:
             msg = lib.plnerf_cuda_error_string(rc).decode()
             raise RuntimeError(f"fused_mlp_bwd launch failed: {msg} ({rc})")
-        bwd_launches += 1
+        if not torch.cuda.is_current_stream_capturing():
+            bwd_launches += 1
     dW, dB, off = [], [], 0
     for w in p.weights:
         dW.append(grads[off:off + w.numel()].view(w.shape))

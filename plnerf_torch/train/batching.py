@@ -138,11 +138,11 @@ def pool_batch(pool: torch.Tensor, i_batch, n_rand: int, near: float,
     a 0-dim / 1-element device tensor (a window's staged offset, which
     the host never reads: the rows are gathered, as the JAX driver's
     fused window slices at ``i_batch + k * n_rand``)."""
-    if not isinstance(i_batch, torch.Tensor):
-        i_batch = torch.full((1,), int(i_batch), dtype=torch.int64,
-                             device=pool.device)
-    rows = pool.index_select(0, i_batch.reshape(1) + torch.arange(
-        n_rand, device=pool.device))
+    if isinstance(i_batch, torch.Tensor):
+        rows = pool.index_select(0, i_batch.reshape(1) + torch.arange(
+            n_rand, device=pool.device))
+    else:
+        rows = pool[i_batch:i_batch + n_rand]
     rays_o, rays_d, target = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
     viewdirs = None
     if use_viewdirs:

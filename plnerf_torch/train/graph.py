@@ -20,15 +20,21 @@ as eager steps would), the occupancy grid (written back in place at the
 window's end), the ray pool (reshuffled in place) and the ``Feed``: the
 per-step values the host knows (each optimizer's rate, the step count,
 the pool offset, the image index), staged into device buffers through
-pinned memory before each window, with no host wait.  The host's own
-counters that a replay skips (the state's step, each optimizer's update
-count, the kernels' launch counters) advance by what the capture added
-to them, once per replay.
+pinned memory before each window that captures or replays, with no host
+wait.  A window that runs eagerly takes those values from the host
+instead.  The host's own counters that a replay skips (the state's step
+and each optimizer's update count) advance by what the capture added to
+them, once per replay.  The kernels' launch counters count only what
+their wrappers launch: a replay's launches show in a device trace
+(``utils/profile.trace_kernel_counts``).
 
-The graphs of one run share one memory pool.  Their variants follow one
-another in phase order and never interleave, and every result a window
-leaves for the next (parameters, Adam's state, the grid) lives outside
-the pool; the metrics a replay returns are copied out of it.
+The graphs of one run share one memory pool, which holds for graphs
+replayed in the order of their captures: a variant's graph replays only
+while it is the latest capture, and a variant that comes back after
+another was captured (the NVS driver's uniform phase, when the occupancy
+advisory drops the grid) is captured anew.  Every result a window leaves
+for the next (parameters, Adam's state, the grid) lives outside the
+pool, and the metrics a replay returns are copied out of it.
 """
 from __future__ import annotations
 
@@ -37,7 +43,6 @@ from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..kernels import fused_mlp
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -97,26 +102,30 @@ class _Program:
         self.delta: List[int] = []
 
 
+# the kinds of window that read the staged ``Feed``
+STAGED = ("capture", "replay")
+
+
 class Graphs:
     """The dispatch windows of one training run on ``device``: per
     variant ``key`` a ``_Program``, captured at the variant's second full
     window of ``n_inner`` steps and replayed from then on.
 
-    ``counters``: (object, attribute) pairs of host integers a window
-    advances (the state's step, the optimizers' counts); the kernels'
-    launch counters are added.  ``generators``: those the steps draw
-    from.  ``capture`` False (the CPU, or data parallelism) runs every
-    window eagerly.  ``captures``, ``replays`` and ``capture_s`` (the
-    captures' host seconds) count what ran; ``plan`` holds what a CUDA
-    run does with each window (``windows``)."""
+    Each window is planned (``schedule``: its kind, recorded in ``plan``
+    whatever the device), then captured if it is a capture (``prepare``,
+    outside any profiler span) and run (``run``).  ``counters``: (object,
+    attribute) pairs of host integers a window advances (the state's step,
+    the optimizers' counts).  ``generators``: those the steps draw from.
+    ``capture`` False (the CPU, or data parallelism) runs every window
+    eagerly.  ``captures``, ``replays`` and ``capture_s`` (the captures'
+    host seconds) count what ran."""
 
     def __init__(self, device: torch.device, n_inner: int,
                  counters: Sequence[Tuple[object, str]] = (),
                  generators: Sequence[torch.Generator] = (),
                  capture: bool = True):
         self.device, self.n_inner = torch.device(device), n_inner
-        self.counters = list(counters) + [(fused_mlp, "launches"),
-                                          (fused_mlp, "bwd_launches")]
+        self.counters = list(counters)
         self.generators = [g for g in generators if g is not None]
         # the plan (which windows are graphs) does not depend on the
         # device; only CUDA captures them
@@ -125,52 +134,82 @@ class Graphs:
         self.programs: Dict[Hashable, _Program] = {}
         self.captures = self.replays = 0
         self.capture_s = 0.0
-        # [key, n, "eager" | "first" | "replay", repeats] runs of equal
-        # windows: what a CUDA run does with each (the CPU runs each one
-        # eagerly)
+        # [key, n, kind, repeats] runs of equal windows, kind "eager",
+        # "first", "capture" or "replay": what a CUDA run does with each
+        # (the CPU runs each one eagerly)
         self.plan: List[list] = []
+        # the variant of the latest capture, and the window planned and
+        # not yet run: [key, n, kind, captured]
+        self.last: Optional[Hashable] = None
+        self._next: Optional[list] = None
         self.pool = self.stream = None
         if self.capture:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.device)
 
     def windows(self) -> List[Tuple[Hashable, int, str]]:
-        """(key, n, kind) of every window run, in order."""
+        """(key, n, kind) of every window planned, in order."""
         return [(k, n, kind) for k, n, kind, r in self.plan
                 for _ in range(r)]
 
-    def _kind(self, key: Hashable, n: int) -> str:
+    def schedule(self, key: Hashable, n: int) -> str:
+        """Plan the next window, ``n`` steps of variant ``key``: "eager"
+        (fewer than ``n_inner`` steps, or no graphs), "first" (the
+        variant's first full window), "capture" (its second, or its first
+        since another variant was captured: captured, then replayed) or
+        "replay".  A window of a kind in ``STAGED`` reads the ``Feed``."""
+        if self._next is not None:
+            raise RuntimeError(f"window {self._next[:3]} was planned and "
+                               "not run")
         if not (self.graphs and n == self.n_inner):
-            return "eager"
-        return "replay" if key in self.programs else "first"
-
-    def prepare(self, key: Hashable, body: Callable[[int], Metrics],
-                n: int) -> None:
-        """Capture ``key``'s program if this full window is its second.
-        A capture records and runs nothing; the drivers call this outside
-        any profiler span, before ``run`` replays it."""
-        if self.capture and self._kind(key, n) == "replay" \
-                and self.programs[key].graph is None:
-            self._capture(self.programs[key], body, n)
-
-    def run(self, key: Hashable, body: Callable[[int], Metrics],
-            n: int) -> Metrics:
-        """One window of ``n`` steps: ``body(n)`` returns the metrics of
-        its last step (0-dim tensors).  A full window on CUDA runs eagerly
-        on the capture stream the first time, else as a replay (captured
-        first where ``prepare`` has not); any other window runs eagerly."""
-        kind = self._kind(key, n)
+            kind = "eager"
+        elif key not in self.programs:
+            kind = "first"
+            self.programs[key] = _Program()
+        elif self.last == key:
+            kind = "replay"
+        else:
+            kind, self.last = "capture", key
         if self.plan and self.plan[-1][:3] == [key, n, kind]:
             self.plan[-1][3] += 1
         else:
             self.plan.append([key, n, kind, 1])
-        if kind == "first":
-            self.programs[key] = _Program()
+        self._next = [key, n, kind, False]
+        return kind
+
+    def _planned(self, key: Hashable, n: int) -> list:
+        if self._next is None:
+            self.schedule(key, n)
+        elif self._next[:2] != [key, n]:
+            raise RuntimeError(f"window {self._next[:3]} was planned, "
+                               f"{[key, n]} run")
+        return self._next
+
+    def prepare(self, key: Hashable, body: Callable[[int], Metrics],
+                n: int) -> None:
+        """Capture the window (planned by ``schedule``, else planned here)
+        if it is a capture on CUDA.  A capture records and runs nothing;
+        the drivers call this outside any profiler span, before ``run``
+        replays it."""
+        nxt = self._planned(key, n)
+        if self.capture and nxt[2] == "capture" and not nxt[3]:
+            self._capture(self.programs[key], body, n)
+            nxt[3] = True
+
+    def run(self, key: Hashable, body: Callable[[int], Metrics],
+            n: int) -> Metrics:
+        """The window (planned by ``schedule``, else planned here):
+        ``body(n)`` returns the metrics of its last step (0-dim tensors).
+        On CUDA a "first" window runs eagerly on the capture stream, a
+        "capture" or "replay" one as a replay (captured first where
+        ``prepare`` has not); any other window runs eagerly."""
+        self.prepare(key, body, n)
+        kind = self._next[2]
+        self._next = None
         if not self.capture or kind == "eager":
             return body(n)
         if kind == "first":
             return self._on_stream(body, n)
-        self.prepare(key, body, n)
         return self._replay(self.programs[key])
 
     def _on_stream(self, body, n: int) -> Metrics:
@@ -185,6 +224,8 @@ class Graphs:
 
     def _capture(self, prog: _Program, body, n: int) -> None:
         t0 = time.perf_counter()
+        # an older graph of the variant gives its blocks back to the pool
+        prog.graph = prog.out = None
         before = [getattr(o, a) for o, a in self.counters]
         g = torch.cuda.CUDAGraph()
         for gen in self.generators:

@@ -52,25 +52,25 @@ class ScheduledAdam(torch.optim.Adam):
     On CUDA it is capturable: Adam's step counts live on the device and the
     rate is a device tensor written before each update, so a CUDA graph of
     a window of steps (``train/graph.py``) replays them with each step's
-    rate.  ``step(rate=...)`` takes that rate from a device tensor (a
-    window's staged rates, ``rates``); without one it is
+    rate.  It is torch's fused Adam there, one kernel per update with the
+    bias corrections computed on the device (the foreach Adam's capturable
+    path takes a dozen more launches and a division per tensor a step).
+    ``step(rate=...)`` takes that rate from a device tensor (a window's
+    staged rates, ``rates``); without one it is
     ``schedule(count)``, written into the same tensor, so both paths do
     the same arithmetic.  On the CPU the rate is a Python float, as
     torch's Adam keeps it there."""
 
     def __init__(self, params: Iterable[torch.Tensor], schedule: Schedule,
-                 grad_clip_value: Optional[float] = None,
-                 capturable: Optional[bool] = None):
+                 grad_clip_value: Optional[float] = None):
         params = list(params)
-        if capturable is None:
-            capturable = bool(params) and params[0].device.type == "cuda"
+        capturable = bool(params) and params[0].device.type == "cuda"
         lr = float(schedule(0))
         if capturable:
             lr = torch.full((), lr, dtype=torch.float32,
                             device=params[0].device)
         super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                         capturable=capturable,
-                         foreach=True if capturable else None)
+                         capturable=capturable, fused=capturable or None)
         # eager steps are meant: torch warns of them once per optimizer
         self._warned_capturable_if_run_uncaptured = True
         self.schedule = schedule

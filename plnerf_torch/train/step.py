@@ -58,7 +58,7 @@ from ..core.mlp import NeRF
 from ..device import DeviceLike, make_generator, resolve_device
 from ..parallel import mesh as pmesh
 from ..utils.misc import img2mse, mse2psnr
-from . import graph, losses, optim
+from . import losses, optim
 from .state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -563,8 +563,8 @@ def _one_step(setup: TrainSetup, mesh, depth: bool) -> Callable:
 
 class MultiTrainStep:
     """``n_inner`` optimization steps as one window (``make_multi_train_step``):
-    ``window`` is its body, which the drivers run with their own batches;
-    calling it runs the JAX function's window on stacked batches."""
+    ``window`` is its body, which the drivers run with their own batches
+    through ``graph.Graphs``."""
 
     def __init__(self, setup: TrainSetup, n_inner: int,
                  mesh: Optional[pmesh.Mesh] = None, depth: bool = False):
@@ -572,71 +572,26 @@ class MultiTrainStep:
             raise ValueError(f"n_inner {n_inner} < 1")
         self.setup, self.n_inner, self.mesh = setup, n_inner, mesh
         self.one = _one_step(setup, mesh, depth)
-        self._bound = None
 
     def window(self, state: TrainState, n: int, batch_of: Callable,
                generator: Optional[torch.Generator] = None, feed=None,
-               occ_grid: Optional[occgrid.Grid] = None,
-               mean: bool = False) -> Metrics:
+               occ_grid: Optional[occgrid.Grid] = None) -> Metrics:
         """The window body: ``n`` steps, step ``k`` on ``batch_of(k)``
         with row ``k`` of ``feed`` (``StepInputs.of``; None: the
         schedules and ``state.step``), the grid handed from step to step
         and the last one written into ``occ_grid`` in place.  Returns the
-        last step's metrics, or with ``mean`` their mean over the steps."""
-        grid, acc = occ_grid, None
+        last step's metrics."""
+        grid = occ_grid
         for k in range(n):
             inputs = None if feed is None else StepInputs.of(feed, k)
             state, grid, metrics = self.one(state, grid, batch_of(k),
                                             generator, inputs)
-            if mean:
-                acc = metrics if acc is None else {
-                    key: acc[key] + metrics[key] for key in acc}
         if occ_grid is not None:
             with torch.no_grad():
                 for key, v in grid.items():
                     if v is not occ_grid[key]:
                         occ_grid[key].copy_(v)
-        return {key: v / n for key, v in acc.items()} if mean else metrics
-
-    def __call__(self, state: TrainState, batch,
-                 generator: Optional[torch.Generator] = None,
-                 occ_grid: Optional[occgrid.Grid] = None):
-        """The JAX function's window: ``batch`` stacked [n_inner, ...]
-        per key, step ``k`` on its row ``k``.  Returns (state, metrics)
-        with the metrics averaged over the steps, with ``occ_grid``
-        (state, grid, metrics).  On CUDA the first call runs eagerly, the
-        second captures the window and every call from then on replays it
-        (the batch copied into static buffers first), so the state, the
-        generator and the grid must be those of the first call; the CPU
-        runs it eagerly."""
-        n = self.n_inner
-        if self._bound is None:
-            dev = next(state.params_coarse.parameters()).device
-            self._bound = (state, generator, occ_grid)
-            self._graphs = graph.Graphs(dev, n, window_counters(state),
-                                        [generator],
-                                        capture=self.mesh is None)
-            self._feed = graph.Feed(n, dev, len(state.optimizers()))
-            self._batch = {k: torch.empty_like(v) for k, v in batch.items()}
-        elif any(a is not b for a, b in zip((state, generator, occ_grid),
-                                            self._bound)):
-            raise ValueError("a MultiTrainStep runs the state, generator "
-                             "and grid of its first call")
-        if any(v.shape[0] != n for v in batch.values()):
-            raise ValueError(f"batches stacked [{n}, ...] expected")
-        src = batch
-        if self._graphs.capture:
-            for k, v in batch.items():
-                self._batch[k].copy_(v)
-            src = self._batch
-        stage_window(self._feed, state, n)
-        metrics = self._graphs.run("window", lambda m: self.window(
-            state, m, lambda k: {key: v[k] for key, v in src.items()},
-            generator, self._feed, occ_grid, mean=True), n)
-        if occ_grid is not None:
-            return state, occ_grid, metrics
-        return state, metrics
-
+        return metrics
 
 def make_multi_train_step(setup: TrainSetup, n_inner: int,
                           mesh: Optional[pmesh.Mesh] = None,

@@ -12,13 +12,15 @@ under the profiler and splits device time into named kernel groups, the
 rest and the device's busy share of the wall time.  ``trace_host_syncs``
 and ``trace_device_gaps`` read the Chrome trace such a run exports: where
 the host waits on the device, and how long the device idles between its
-kernels.  ``start_trace`` / ``stop_trace`` bracket a window of a training
+kernels; ``trace_kernel_counts`` counts its kernels by name.
+``start_trace`` / ``stop_trace`` bracket a window of a training
 loop (the drivers' ``--profile N``).
 """
 from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import time
 from collections import defaultdict
@@ -33,6 +35,17 @@ FUSED_MLP_GROUPS: Dict[str, Tuple[str, ...]] = {
     "fused_mlp_bwd_weight": ("weight_kernel",),
     "fused_mlp_bwd_reduce": ("reduce_kernel",),
 }
+
+# the fused MLP's kernels by their names in a Chrome trace (group 1 the
+# short name): a forward call launches one ``bf16_kernel``, or one
+# ``fp32_kernel`` per product and chunk; a backward call one each of
+# ``weight_kernel`` and ``reduce_kernel`` and its data pass
+# (``data_kernel``, or ``sgemm_data_kernel`` per product);
+# ``trace_kernel_counts`` counts them where the wrappers' counters cannot
+# (a CUDA graph's replays)
+FUSED_MLP_KERNELS = (r"\(anonymous namespace\)::(fp32_kernel|bf16_kernel|"
+                     r"sgemm_data_kernel|data_kernel|weight_kernel|"
+                     r"reduce_kernel|transpose_kernel|cot_data_kernel)\b")
 
 
 def _is_device(e) -> bool:
@@ -120,6 +133,21 @@ def trace_device_gaps(trace: dict) -> dict:
     span = (end - spans[0]["ts"]) / 1e3 if spans else 0.0
     return {"gaps": len(gaps), "idle_ms": sum(gaps), "span_ms": span,
             "largest_ms": sorted(gaps, reverse=True)[:10]}
+
+
+def trace_kernel_counts(trace: dict, pattern: str = FUSED_MLP_KERNELS,
+                        t0: float = float("-inf"),
+                        t1: float = float("inf")) -> Dict[str, int]:
+    """{name: count} of the kernels of a Chrome trace that start in [t0,
+    t1] us and whose name matches ``pattern`` (a regular expression; the
+    name is its group 1, else the whole name): launches as the device ran
+    them, a CUDA graph's included."""
+    out: Dict[str, int] = defaultdict(int)
+    for e in _spans(trace, ("kernel",)):
+        m = re.search(pattern, e["name"])
+        if m and t0 <= e["ts"] <= t1:
+            out[m.group(1) if m.groups() else e["name"]] += 1
+    return dict(out)
 
 
 def profile_steps(run_step: Callable[[], object], n_steps: int,

@@ -6,7 +6,7 @@ eagerly.
   offsets and images, equals the same steps taken one at a time bit for
   bit: sampled fp32, pool, the grid carried from step to step, the depth
   step across its warm start and scale / shift freeze, the vanilla joint
-  Adam; and ``MultiTrainStep.__call__`` on stacked batches.
+  Adam.
 * The port's windows against the JAX package's fused ones, draws off:
   ``make_multi_train_step(setup, 4)`` on the same stacked batches, the
   pool window of ``run_plnerf._make_pool_step(..., n_inner=4)`` on the
@@ -16,9 +16,13 @@ eagerly.
 * The drivers' window plan: which windows a CUDA run replays and which
   it runs eagerly is the JAX drivers' choice of their fused program
   (``n_this == n_inner``), at phase boundaries, the pool's epoch tail and
-  the grid's warm-up.
-* Adam's step counts kept where a capturable Adam keeps them survive a
-  save and load, a JAX package checkpoint and a reference ``.tar``.
+  the grid's warm-up; a variant that comes back after another was
+  captured (the occupancy advisory's fallback) is captured anew.
+* Adam's step counts kept where the optimizer keeps them (on the CPU
+  here; on the card, where Adam is capturable, in
+  ``test_torch_kernel_cuda.py``) survive a save and load, a JAX package
+  checkpoint and a reference ``.tar``; ``utils/profile`` counts the fused
+  kernels' launches in a trace.
 """
 import numpy as np
 import pytest
@@ -41,7 +45,7 @@ from plnerf_torch.cli import run_depth, run_plnerf
 from plnerf_torch.core import occgrid
 from plnerf_torch.core.config import ModelConfig, RenderConfig
 from plnerf_torch.data.synthetic import make_sphere_dataset
-from plnerf_torch.train import batching, graph, optim
+from plnerf_torch.train import batching, graph
 from plnerf_torch.train import step as tstep
 
 from fixtures import make_blender2_scene, make_blender_scene
@@ -216,34 +220,6 @@ def test_window_body_is_single_steps(name):
         assert not torch.equal(state2.depth_scales, s0)
 
 
-def test_stacked_window_is_single_steps():
-    """``MultiTrainStep.__call__`` on batches stacked [N, ...]: the state
-    after it equals N single steps' bit for bit, its metrics are their
-    mean."""
-    setup, _, fresh, batch = _flavour("sampled_fp32")
-    state1, _ = fresh()
-    g1, g2 = (torch.Generator().manual_seed(1) for _ in range(2))
-    step = tstep.make_train_step(setup)
-    acc, stacked = None, {}
-    gb = torch.Generator().manual_seed(7)
-    for k in range(N):
-        b = batch(k, gb)
-        for key, v in b.items():
-            stacked.setdefault(key, []).append(v)
-        state1, m = step(state1, b, g1)
-        acc = m if acc is None else {key: acc[key] + m[key] for key in acc}
-    state2, _ = fresh()
-    multi = tstep.make_multi_train_step(setup, N)
-    state2, m2 = multi(state2, {k: torch.stack(v) for k, v in
-                                stacked.items()}, g2)
-    _same_tree(state1.state_dict(), state2.state_dict())
-    for key in acc:
-        assert torch.equal(acc[key] / N, m2[key]), key
-    other, _ = fresh()
-    with pytest.raises(ValueError, match="first call"):
-        multi(other, {k: torch.stack(v) for k, v in stacked.items()}, g2)
-
-
 def test_feed_stages_rows_and_refuses_bad_ones():
     feed = graph.Feed(4, "cpu", 2)
     feed.fill([[1e-3, 2e-3], [3e-3, 4e-3]], step=[5, 6], img=[2, 0])
@@ -312,8 +288,12 @@ def _sphere_pool():
 @pytest.mark.parametrize("joint", [False, True])
 def test_multi_train_step_matches_jax(joint):
     """Two windows of 4 on the same stacked batches: the windows' mean
-    losses to 1e-3, the weights' updates within 5%."""
+    losses to 1e-3, the weights' updates within 5%.  The port's window
+    body runs each window; the mean of its steps' losses comes from the
+    same steps run as windows of one on a second state, which the test
+    holds bit-equal to the first."""
     jsetup, jstate, setup, state, p0 = _nvs_pair(joint)
+    state1 = _nvs_pair(joint)[3]
     jfn = jstep.make_multi_train_step(jsetup, JN)
     multi = tstep.make_multi_train_step(setup, JN)
     pool = _sphere_pool()
@@ -328,10 +308,17 @@ def test_multi_train_step_matches_jax(joint):
         jstate, jm = jfn(jstate, {"rays": jnp.asarray(rays),
                                   "target": jnp.asarray(target)},
                          jax.random.PRNGKey(w))
-        state, m = multi(state, {"rays": t(rays), "target": t(target)})
-        assert float(m["loss"]) == pytest.approx(float(jm["loss"]),
-                                                 rel=1e-3), w
-    assert state.step == int(jstate.step) == 2 * JN
+        stacked = {"rays": t(rays), "target": t(target)}
+        last = multi.window(state, JN, lambda k: {
+            key: v[k] for key, v in stacked.items()})
+        losses = [multi.window(state1, 1, lambda _: {
+            key: v[k] for key, v in stacked.items()})["loss"]
+            for k in range(JN)]
+        assert torch.equal(last["loss"], losses[-1])
+        assert float(sum(losses) / JN) == pytest.approx(float(jm["loss"]),
+                                                        rel=1e-3), w
+    assert state.step == state1.step == int(jstate.step) == 2 * JN
+    _same_tree(state.state_dict(), state1.state_dict())
     _held_updates(state, jstate, p0)
 
 
@@ -470,17 +457,19 @@ def _jax_programs(monkeypatch, module, name, key_of):
 def _held_plan(port_plan, jax_calls, n_inner):
     """The port's full windows are the JAX driver's fused calls, in order
     and by variant; its eager steps are the JAX single-step calls; each
-    variant's first full window is its eager one, the rest replays."""
+    variant's first full window is its eager one, its second a capture,
+    the rest replays."""
     full = [(key, kind) for key, n, kind in port_plan if kind != "eager"]
     assert [k for k, _ in full] == [k for k, n in jax_calls if n > 1]
     assert all(n == n_inner for key, n, kind in port_plan if kind != "eager")
     assert sum(n for _, n, kind in port_plan if kind == "eager") == sum(
         1 for _, n in jax_calls if n == 1)
-    seen = set()
+    seen = {}
     for key, kind in full:
-        assert kind == ("replay" if key in seen else "first"), (key, kind)
-        seen.add(key)
-    assert any(kind == "replay" for _, kind in full)
+        n = seen[key] = seen.get(key, 0) + 1
+        assert kind == ("first", "capture", "replay")[min(n, 3) - 1], (
+            key, kind)
+    assert any(kind == "capture" for _, kind in full)
     assert any(kind == "eager" for _, _, kind in port_plan)
 
 
@@ -529,8 +518,97 @@ def test_depth_window_plan_matches_the_jax_driver(depth_scene, tmp_path,
     # windows 1-4, 5-6 | 7-10, 11-14, 15-17
     assert graphs.windows() == [
         (False, 4, "first"), (False, 2, "eager"), (True, 4, "first"),
-        (True, 4, "replay"), (True, 3, "eager")]
+        (True, 4, "capture"), (True, 3, "eager")]
     _held_plan(graphs.windows(), calls, 4)
+
+
+def test_a_returning_variant_is_captured_anew():
+    """Graphs that share a pool replay in the order of their captures: a
+    variant replays only while it holds the latest capture, and one that
+    comes back after another was captured is captured anew.  A window
+    planned and not run refuses another."""
+    g = graph.Graphs(torch.device("cpu"), 4)
+    for key in "aaabbba":
+        g.run(key, lambda n: {}, 4)
+    g.run("a", lambda n: {}, 2)
+    g.run("a", lambda n: {}, 4)
+    assert g.windows() == [
+        ("a", 4, "first"), ("a", 4, "capture"), ("a", 4, "replay"),
+        ("b", 4, "first"), ("b", 4, "capture"), ("b", 4, "replay"),
+        ("a", 4, "capture"), ("a", 2, "eager"), ("a", 4, "replay")]
+    assert [k in graph.STAGED for _, _, k in g.windows()] == [
+        False, True, True, False, True, True, True, False, True]
+    assert g.schedule("b", 4) == "capture"
+    with pytest.raises(RuntimeError, match="planned"):
+        g.schedule("b", 4)
+    with pytest.raises(RuntimeError, match="planned"):
+        g.run("a", lambda n: {}, 4)
+
+
+def test_occ_fallback_captures_the_uniform_phase_anew(scene_dir, tmp_path,
+                                                      monkeypatch):
+    """The NVS driver at N 4, its grid's warm-up ending at 12 and the
+    degenerate-guidance guard firing after step 24 (its grace cut to 8,
+    its threshold to 0): the uniform phase, captured during the warm-up,
+    comes back after the guided phase's capture and is captured anew;
+    the run trains on to its end."""
+    monkeypatch.setattr(run_plnerf, "OCC_ADVISORY_GRACE", 8)
+    monkeypatch.setattr(run_plnerf, "OCC_DEGENERATE_RAY_FRAC", 0.0)
+    _Recorded.made = []
+    monkeypatch.setattr(graph, "Graphs", _Recorded)
+    state = run_plnerf.main(
+        ["--task", "train"] + TINY + CPU
+        + _where(scene_dir, str(tmp_path / "ck"), "f")
+        + ["--mode", "linear", "--constant_init", "0", "--precrop_iters",
+           "0", "--steps_per_dispatch", "4", "--num_iterations", "30",
+           "--i_print", "4", "--i_weights", "100", "--occ_warmup", "12"]
+        + OCC)
+    (graphs,) = _Recorded.made
+    uniform, guided = (False, False, False), (False, True, False)
+    assert graphs.windows() == [
+        (uniform, 4, "first"), (uniform, 4, "capture"),
+        (uniform, 4, "replay"), (guided, 4, "first"),
+        (guided, 4, "capture"), (guided, 4, "replay"),
+        (uniform, 4, "capture"), (uniform, 2, "eager")]
+    assert state.step == 30
+
+
+def test_trace_kernel_counts_reads_the_fused_launches():
+    """The fused kernels by their names as the card's traces show them
+    (one ``bf16_kernel`` or one ``fp32_kernel`` per product for a forward
+    call, one ``weight_kernel`` and ``reduce_kernel`` per backward call),
+    inside the span asked for; other kernels of like names and host
+    events do not count."""
+    from plnerf_torch.utils import profile as uprofile
+
+    def k(name, ts, cat="kernel"):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": 1.0}
+
+    ns = "(anonymous namespace)::"
+    trace = {"traceEvents": [
+        k(ns + "fp32_kernel((anonymous namespace)::FOp, long long)", 10),
+        k(ns + "fp32_kernel((anonymous namespace)::FOp, long long)", 11),
+        k(ns + "bf16_kernel((anonymous namespace)::Plan, ...)", 20),
+        k("void " + ns + "weight_kernel<float>((anonymous namespace)"
+          "::Jobs, long long, long long, float*)", 30),
+        k("void " + ns + "weight_kernel<__nv_bfloat16>(...)", 40),
+        k(ns + "reduce_kernel(float const*, long long, long long, float*)",
+          41),
+        k(ns + "sgemm_data_kernel((anonymous namespace)::FOp, long long)",
+          42),
+        k("void " + ns + "cot_data_kernel<float>(float const*, ...)", 43),
+        k("void at::native::reduce_kernel<512, 1>(...)", 44),
+        k("void at::native::weight_norm_kernel<float>(...)", 45),
+        k(ns + "bf16_kernel((anonymous namespace)::Plan, ...)", 90),
+        k(ns + "bf16_kernel((anonymous namespace)::Plan, ...)", 50,
+          "cpu_op")]}
+    assert uprofile.trace_kernel_counts(trace) == {
+        "fp32_kernel": 2, "bf16_kernel": 2, "weight_kernel": 2,
+        "reduce_kernel": 1, "sgemm_data_kernel": 1, "cot_data_kernel": 1}
+    assert uprofile.trace_kernel_counts(trace, t0=15, t1=41) == {
+        "bf16_kernel": 1, "weight_kernel": 2, "reduce_kernel": 1}
+    assert uprofile.trace_kernel_counts(trace, r"weight_norm") == {
+        "void at::native::weight_norm_kernel<float>(...)": 1}
 
 
 def test_data_parallel_windows_are_eager():
@@ -543,28 +621,19 @@ def test_data_parallel_windows_are_eager():
 
 
 # ---------------------------------------------------------------------------
-# (d) Adam's step counts where a capturable Adam keeps them
+# (d) Adam's step counts where the optimizer keeps them
 # ---------------------------------------------------------------------------
 
-def _capturable(state):
-    """``state`` with each optimizer swapped for a capturable one over the
-    same tensors (the CUDA optimizer of ``train/optim.py``; on the CPU it
-    can load and save, not step)."""
-    for name in ("opt_fine", "opt_coarse", "opt_ss", "opt_latent"):
-        o = getattr(state, name)
-        if o is not None:
-            params = [p for group in o.param_groups for p in group["params"]]
-            setattr(state, name, optim.ScheduledAdam(
-                params, o.schedule, o.grad_clip_value, capturable=True))
-    return state
-
-
-def _steps_on_device(state, count):
+def _steps_where_kept(state, count):
+    """Each optimizer's update count and Adam's float32 step per
+    parameter at ``count``, the step where Adam keeps it (the CPU here:
+    a CPU Adam is not capturable, its rate a float)."""
     for o in state.optimizers():
         assert o.count == count and isinstance(o.param_groups[0]["lr"],
-                                               torch.Tensor)
+                                               float)
         assert o.state and all(
-            s["step"].dtype == torch.float32 and s["step"].device == p.device
+            s["step"].dtype == torch.float32
+            and s["step"].device.type == "cpu"
             and float(s["step"]) == count for p, s in o.state.items())
 
 
@@ -575,8 +644,8 @@ def test_device_steps_survive_save_and_load(tmp_path):
                                 torch.Generator().manual_seed(1), 2)
     path = ckio.save_checkpoint(str(tmp_path), state.step,
                                 state.state_dict())
-    back = ckio.restore_checkpoint(path, _capturable(fresh()[0]), "cpu")
-    _steps_on_device(back, 2)
+    back = ckio.restore_checkpoint(path, fresh()[0], "cpu")
+    _steps_where_kept(back, 2)
     _same_tree(back.state_dict(), state.state_dict())
     again = ckio.save_checkpoint(str(tmp_path / "again"), back.step,
                                  back.state_dict())
@@ -586,8 +655,8 @@ def test_device_steps_survive_save_and_load(tmp_path):
 
 def test_device_steps_from_jax_and_reference_checkpoints(tmp_path):
     """A JAX package checkpoint (3 updates' worth of Adam state) and a
-    reference ``.tar`` load into capturable optimizers as into the CPU
-    ones, their steps on the parameters' device."""
+    reference ``.tar`` load their steps and counts where the optimizers
+    keep them."""
     jsetup, setup = _depth_setups(dict(freeze_ss=100), dict(), cam=True)
     js, _ = _both_states(jsetup, setup, count=3)
     path = jio.save_checkpoint(str(tmp_path / "jax"), 3, js)
@@ -596,32 +665,23 @@ def test_device_steps_from_jax_and_reference_checkpoints(tmp_path):
         return tstep.init_state(torch.Generator().manual_seed(0), setup,
                                 "cpu", n_images=4)
 
-    plain = ckio.restore_checkpoint(path, fresh(), "cpu")
-    dev = ckio.restore_checkpoint(path, _capturable(fresh()), "cpu")
-    _steps_on_device(dev, 3)
-    _same_tree(dev.state_dict(), plain.state_dict())
+    _steps_where_kept(ckio.restore_checkpoint(path, fresh(), "cpu"), 3)
 
     _, _, nsetup, nstate, (pc, pf) = _nvs_pair()
     adam = (jax.tree.map(np.zeros_like, pf),
             jax.tree.map(np.ones_like, pf), 17)
     tar = str(tmp_path / "ref.tar")
     jconvert.save_reference_checkpoint(tar, 40, pc, pf, fine_adam=adam)
-
-    def nfresh():
-        return tstep.init_state(torch.Generator().manual_seed(0), nsetup,
-                                "cpu")
-
-    plain = ckio.restore_checkpoint(tar, nfresh(), "cpu")
-    dev = ckio.restore_checkpoint(tar, _capturable(nfresh()), "cpu")
-    assert dev.step == 40 and dev.opt_fine.count == 17
-    _same_tree(dev.state_dict(), plain.state_dict())
-    for s in dev.opt_fine.state.values():
+    back = ckio.restore_checkpoint(tar, tstep.init_state(
+        torch.Generator().manual_seed(0), nsetup, "cpu"), "cpu")
+    assert back.step == 40 and back.opt_fine.count == 17
+    for s in back.opt_fine.state.values():
         assert s["step"].dtype == torch.float32 and float(s["step"]) == 17
 
     # optax's moments set directly (the depth tests' path)
-    opt = _capturable(fresh()).opt_ss
+    opt = fresh().opt_ss
     convert_jax.load_adam_state(opt, [np.zeros((4, 1))] * 2,
                                 [np.ones((4, 1))] * 2, 5)
     assert opt.count == 5 and all(
         float(s["step"]) == 5 and s["step"].dtype == torch.float32
-        for s in opt.state.values())
+        and s["step"].device.type == "cpu" for s in opt.state.values())

@@ -568,13 +568,24 @@ GRAPH_FLAVOURS = {"sampled": dict(), "pool": dict(pool=True),
                   "depth": dict(depth=True)}
 
 
-def _graph_run(dev, flavour, capture, windows=3, debug_after=None):
-    """``windows`` windows of GRAPH_N steps of ``flavour`` through
-    ``graph.Graphs`` (``capture`` False: every window eager), the batches
-    made on the card from the staged feed as the drivers make them.
-    Returns (state, grid, metrics, graphs); the windows from
-    ``debug_after`` on run (and stage) under ``set_sync_debug_mode
-    ("error")``."""
+def _graph_run(dev, flavour, capture, keys="vvv", debug_after=None,
+               trace_from=None):
+    """One window of GRAPH_N steps of ``flavour`` per item of ``keys``
+    (its variant: ``v``, or ``w``, the same step without the raw noise)
+    through ``graph.Graphs`` (``capture`` False: every window eager), the
+    batches made on the card from the staged feed as the drivers make
+    them, or from the host's values in an eager window.  Returns (state,
+    grid, metrics, graphs, counts): the windows from ``debug_after`` on
+    run (and stage) under ``set_sync_debug_mode("error")``, those from
+    ``trace_from`` on under ``torch.profiler``, whose trace's fused
+    kernels ``counts`` counts (``utils/profile.trace_kernel_counts``)."""
+    import dataclasses
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
     from plnerf_torch.cli.run_depth import depth_batch
     from plnerf_torch.core import occgrid
     from plnerf_torch.core.config import RenderConfig
@@ -583,6 +594,7 @@ def _graph_run(dev, flavour, capture, windows=3, debug_after=None):
     from plnerf_torch.train.step import (TrainSetup, init_state,
                                          make_multi_train_step,
                                          stage_window, window_counters)
+    from plnerf_torch.utils import profile as uprofile
 
     kw = GRAPH_FLAVOURS[flavour]
     depth = kw.get("depth", False)
@@ -621,78 +633,173 @@ def _graph_run(dev, flavour, capture, windows=3, debug_after=None):
     grid = occgrid.init_grid([-1.5] * 3, [1.5] * 3, occ, dev) \
         if occ else None
     g = torch.Generator(device=dev).manual_seed(1)
-    multi = make_multi_train_step(setup, GRAPH_N, depth=depth)
+    multis = {"v": make_multi_train_step(setup, GRAPH_N, depth=depth),
+              "w": make_multi_train_step(dataclasses.replace(
+                  setup, rcfg=dataclasses.replace(rcfg, raw_noise_std=0.0)),
+                  GRAPH_N, depth=depth)}
     feed = graph.Feed(GRAPH_N, dev, len(state.optimizers()))
     graphs = graph.Graphs(dev, GRAPH_N, window_counters(state), [g],
                           capture=capture)
+    offsets = imgs = None
 
     def batch_of(k):
         if depth:
-            return depth_batch(images, poses, intr, depths, mask,
-                               feed.row("img")[k], 64, 2.0, 6.0, True, g)
+            return depth_batch(images, poses, intr, depths, mask, imgs[k],
+                               64, 2.0, 6.0, True, g)
         if kw.get("pool"):
-            rays, target = batching.pool_batch(pool, feed.row("offset")[k],
-                                               64, 2.0, 6.0, True)
+            rays, target = batching.pool_batch(pool, offsets[k], 64, 2.0,
+                                               6.0, True)
         else:
             rays, target, _ = batching.sample_one_image_batch(
                 images, poses, K, i_train, g, 64, 2.0, 6.0, True)
         return {"rays": rays, "target": target}
 
-    def body(n):
-        return multi.window(state, n, batch_of, g, feed, grid)
-
-    m = None
-    for w in range(windows):
+    m, prof = None, None
+    for w, key in enumerate(keys):
+        if w == trace_from:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
         if w == debug_after:
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
         try:
             s0 = state.step
-            stage_window(feed, state, GRAPH_N,
-                         offset=[64 * (s0 + k) for k in range(GRAPH_N)],
-                         img=[(3 * (s0 + k)) % 4 for k in range(GRAPH_N)])
-            m = graphs.run("v", body, GRAPH_N)
+            offsets = [64 * (s0 + k) for k in range(GRAPH_N)]
+            imgs = [(3 * (s0 + k)) % 4 for k in range(GRAPH_N)]
+            staged = graphs.schedule(key, GRAPH_N) in graph.STAGED
+            if staged:
+                stage_window(feed, state, GRAPH_N, offset=offsets, img=imgs)
+                offsets, imgs = feed.row("offset"), feed.row("img")
+            multi = multis[key]
+            m = graphs.run(key, lambda n: multi.window(
+                state, n, batch_of, g, feed if staged else None, grid),
+                GRAPH_N)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    return state, grid, m, graphs
+    counts = None
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                counts = uprofile.trace_kernel_counts(json.load(f))
+    return state, grid, m, graphs, counts
+
+
+def _same(x, y, where):
+    if isinstance(x, torch.Tensor):
+        assert torch.equal(x, y), where
+    elif isinstance(x, dict):
+        assert set(x) == set(y), where
+        for k in x:
+            _same(x[k], y[k], f"{where}/{k}")
+    else:
+        assert x == y, where
 
 
 @pytest.mark.parametrize("flavour", list(GRAPH_FLAVOURS))
 def test_cuda_replayed_window_is_eager_steps(cuda_device, flavour):
-    """Three windows of 4: the first eager on the capture stream, the
+    """Four windows of 4: the first eager on the capture stream, the
     second captured and replayed, the third replayed (staged and run
-    under ``set_sync_debug_mode("error")``), against the same windows run
-    eagerly: the state, the grid and the last metrics bit for bit, and
-    the launch counters at 2 forward and 2 backward launches a step."""
+    under ``set_sync_debug_mode("error")``), the fourth replayed under
+    the profiler; against the same windows run eagerly: the state, the
+    grid and the last metrics bit for bit.  The wrappers count the first
+    window's launches only (a capture and a replay launch nothing from
+    Python), 2 + 2 a step eagerly; the traced replay ran the fused
+    kernels of the traced eager window, one backward (``weight_kernel``)
+    per network a step."""
     fused_mlp.launches = fused_mlp.bwd_launches = 0
-    a, ga, ma, graphs = _graph_run(cuda_device, flavour, True,
-                                   debug_after=2)
-    steps = 3 * GRAPH_N
-    assert (fused_mlp.launches, fused_mlp.bwd_launches) == (2 * steps,
-                                                            2 * steps)
-    assert [k for _, _, k in graphs.windows()] == ["first", "replay",
-                                                   "replay"]
-    assert (graphs.captures, graphs.replays) == (1, 2)
-    assert graphs.programs["v"].delta[-2:] == [2 * GRAPH_N, 2 * GRAPH_N]
-    b, gb, mb, _ = _graph_run(cuda_device, flavour, False)
-    assert a.step == b.step == steps
-    sa, sb = a.state_dict(), b.state_dict()
-
-    def same(x, y, where):
-        if isinstance(x, torch.Tensor):
-            assert torch.equal(x, y), where
-        elif isinstance(x, dict):
-            assert set(x) == set(y), where
-            for k in x:
-                same(x[k], y[k], f"{where}/{k}")
-        else:
-            assert x == y, where
-
-    same(sa, sb, "state")
+    a, ga, ma, graphs, counts = _graph_run(
+        cuda_device, flavour, True, keys="vvvv", debug_after=2,
+        trace_from=3)
+    assert (fused_mlp.launches, fused_mlp.bwd_launches) == (2 * GRAPH_N,
+                                                            2 * GRAPH_N)
+    assert [k for _, _, k in graphs.windows()] == ["first", "capture",
+                                                   "replay", "replay"]
+    assert (graphs.captures, graphs.replays) == (1, 3)
+    fused_mlp.launches = fused_mlp.bwd_launches = 0
+    b, gb, mb, _, eager_counts = _graph_run(cuda_device, flavour, False,
+                                            keys="vvvv", trace_from=3)
+    assert (fused_mlp.launches, fused_mlp.bwd_launches) == (
+        2 * 4 * GRAPH_N, 2 * 4 * GRAPH_N)
+    assert counts == eager_counts and counts["weight_kernel"] == 2 * GRAPH_N
+    assert a.step == b.step == 4 * GRAPH_N
+    _same(a.state_dict(), b.state_dict(), "state")
     if ga is not None:
-        same(ga, gb, "grid")
-    same(ma, mb, "metrics")
+        _same(ga, gb, "grid")
+    _same(ma, mb, "metrics")
+
+
+def test_cuda_returning_variant_is_captured_anew(cuda_device):
+    """Two variants sharing the graphs' pool, the first coming back after
+    the second was captured (the occupancy advisory's fallback): it is
+    captured anew, and the run is bit-equal to the same windows run
+    eagerly."""
+    keys = "vvvwwwvv"
+    a, _, ma, graphs, _ = _graph_run(cuda_device, "sampled", True, keys)
+    assert [k for _, _, k in graphs.windows()] == [
+        "first", "capture", "replay", "first", "capture", "replay",
+        "capture", "replay"]
+    assert (graphs.captures, graphs.replays) == (3, 6)
+    b, _, mb, _, _ = _graph_run(cuda_device, "sampled", False, keys)
+    _same(a.state_dict(), b.state_dict(), "state")
+    _same(ma, mb, "metrics")
+
+
+def test_cuda_device_steps_survive_save_and_load(cuda_device, tmp_path):
+    """The card's Adam is capturable: its steps live on the card and its
+    rate is a device tensor.  A checkpoint, a reference ``.tar`` and
+    optax's moments load the steps there; a checkpoint saved again is the
+    same file."""
+    import numpy as np
+
+    from plnerf_torch.checkpoint import convert_jax, convert_torch
+    from plnerf_torch.checkpoint import io as ckio
+
+    def on_card(state, count):
+        for o in state.optimizers():
+            assert o.count == count and isinstance(
+                o.param_groups[0]["lr"], torch.Tensor)
+            assert o.state and all(
+                s["step"].dtype == torch.float32 and s["step"].is_cuda
+                and float(s["step"]) == count for s in o.state.values())
+
+    a, _, _, _, _ = _graph_run(cuda_device, "depth", False, keys="v")
+    on_card(a, GRAPH_N)
+    path = ckio.save_checkpoint(str(tmp_path), a.step, a.state_dict())
+    fresh, _, _, _, _ = _graph_run(cuda_device, "depth", False, keys="")
+    back = ckio.restore_checkpoint(path, fresh, cuda_device)
+    on_card(back, GRAPH_N)
+    _same(back.state_dict(), a.state_dict(), "state")
+    again = ckio.save_checkpoint(str(tmp_path / "again"), back.step,
+                                 back.state_dict())
+    _same(torch.load(again, weights_only=True),
+          torch.load(path, weights_only=True), "file")
+
+    n, _, _, _, _ = _graph_run(cuda_device, "sampled", False, keys="v")
+    sd = n.state_dict()
+    tar = str(tmp_path / "ref.tar")
+    kind = convert_torch.save_reference_checkpoint(
+        tar, n.step, sd["params_coarse"], sd["params_fine"],
+        fine_adam=convert_torch.adam_moments(sd["opt_fine"],
+                                             [sd["params_fine"]]))
+    assert kind == "real Adam moments"
+    nfresh, _, _, _, _ = _graph_run(cuda_device, "sampled", False, keys="")
+    back = ckio.restore_checkpoint(tar, nfresh, cuda_device)
+    assert back.step == GRAPH_N and back.opt_fine.count == GRAPH_N
+    assert all(float(s["step"]) == GRAPH_N and s["step"].is_cuda
+               for s in back.opt_fine.state.values())
+
+    opt = fresh.opt_ss
+    convert_jax.load_adam_state(opt, [np.zeros((4, 1))] * 2,
+                                [np.ones((4, 1))] * 2, 5)
+    assert opt.count == 5 and all(
+        float(s["step"]) == 5 and s["step"].is_cuda
+        for s in opt.state.values())
 
 
 def test_cuda_capture_of_a_host_read_raises():
