@@ -40,8 +40,10 @@ Phases, one line each, then the result line:
            (2e-2), per-ray views, every call made twice and held to
            bit-identical results; then kernel, plain-version and
            autograd-through-``apply_mlp`` (cuBLAS) times at the fine pass,
-           beside the bound, and each pass's device time (data, weight,
-           reduce) from a short torch.profiler window.
+           beside the bound, the share of it and the byte floor of the
+           workspace's traffic, each pass's device time (data, weight,
+           reduce) from a short torch.profiler window, and the data and
+           weight kernels' registers and spills.
 5. slice   ``ServingRenderer.from_params`` at full width (two 8x256 MLPs,
            128 + 64 samples, linear, white background, fused MLP on) with
            seeded random weights: three 32,768-ray requests (test config,
@@ -72,8 +74,9 @@ Phases, one line each, then the result line:
            to 30 / 60), then 20 bf16 steps.  The kernels' launch counters
            are set to 0 before and read after; every step must launch each
            kernel twice (coarse, fine) and the loss must fall.  Then three
-           more fp32 steps under torch.profiler: device time by kernel and
-           the backward's share of it.
+           more fp32 steps and three bf16 steps under torch.profiler:
+           device time by kernel and the backward's share of it (bf16:
+           the data and weight passes beside PR 11's 6.57 / 1.62 ms).
 7a. interop the train phase's final state written as a reference ``.tar``
            (``checkpoint.convert_torch.save_reference_checkpoint``, the
            fine Adam's moments in the reference's parameter order), read
@@ -255,7 +258,9 @@ Phases, one line each, then the result line:
            the card inside it raises, staging included), then one traced
            (the host's waits per step by op chain, expected 0; device ms,
            busy share, and the fused kernels the card ran, 2 + 2 a step,
-           a replay's included).  Then the
+           a replay's included, with their device ms per step: the bf16
+           flavours' backward data and weight passes beside PR 11's 6.57 /
+           1.62).  Then the
            driver's recipes at N = 8 against N = 1 for 120 steps with
            precrop / constant quadrature at 30 / 60: fp32 and bf16 on the
            driver phases' sphere, fp32 with batching on a 100x100 sphere
@@ -287,6 +292,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -298,6 +304,9 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+# the bf16 step's backward data and weight passes, device ms per step,
+# before their wgmma redesign (PERF.md section 5, PR 11's profile)
+PR11_BF16_BWD_MS = {"data": 6.57, "weight": 1.62}
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 R_CHUNK = 32768
 N_COARSE, N_FINE = 128, 64
@@ -499,7 +508,8 @@ def phase_env():
     fwd, bwd = fused_mlp._library(), fused_mlp._bwd_library()
     smem = {"fused_mlp_fwd": {dt: fwd.plnerf_fused_mlp_fwd_smem(64, 256, 32, b)
                               for dt, b in (("float32", 0), ("bfloat16", 1))},
-            "fused_mlp_bwd": {dt: bwd.plnerf_fused_mlp_bwd_smem(64, 256, 32, b)
+            "fused_mlp_bwd": {dt: bwd.plnerf_fused_mlp_bwd_smem(8, 64, 256, 32,
+                                                                b)
                               for dt, b in (("float32", 0), ("bfloat16", 1))}}
     log("env", card=card_line(), torch=torch.__version__,
         cuda=torch.version.cuda, kernels_built=names, build_s=build_s,
@@ -1186,6 +1196,35 @@ def bwd_bound(p, x, v, g, n: int, cfg) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def bwd_byte_floor(p, x, v, g, n: int) -> float:
+    """ms the backward's own workspace traffic takes at the card's memory
+    rate: its workspace (the bf16 acts and dacts images or the fp32
+    transposed weights and activations, and the partial grads) written
+    once and read once, beside x, v, g and the weights read once and dx,
+    dv and the grads written once."""
+    from plnerf_torch.kernels import fused_mlp
+
+    lib = fused_mlp._bwd_library()
+    bf16 = int(p.dtype == torch.bfloat16)
+    ws = lib.plnerf_fused_mlp_bwd_workspace(
+        n, p.n_layers, p.skip_mask, p.in_p, p.w_p, p.v_p, p.h_p, p.head, bf16)
+    wbuf, bbuf = p.flat()
+    n_grad = wbuf.numel() + bbuf.numel()
+    nbytes = 2 * ws + sum(t.numel() * t.element_size()
+                          for t in (x, v, g, wbuf, bbuf))
+    nbytes += n * (p.in_p + p.v_p) * 4 + n_grad * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _kernel_name(demangled: str) -> str:
+    """A backward kernel's short name from its demangled signature, the
+    bf16 and fp32 weight kernels told apart by their job type."""
+    m = re.search(r"::(\w+)[<(]", demangled)
+    name = m.group(1) if m else demangled
+    job = re.search(r"::(W?Jobs)\b", demangled)
+    return f"{name}({job.group(1)})" if job else name
+
+
 def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
     """||got - ref|| / ||ref|| (fp64 sums)."""
     d = float((got.double() - ref.double()).norm())
@@ -1250,7 +1289,7 @@ def phase_bwd_kernel(dev):
     """Returns (max abs error over every comparison, times by schedule)."""
     from plnerf_torch.core.config import ModelConfig
     from plnerf_torch.core.mlp import apply_mlp
-    from plnerf_torch.kernels import fused_mlp
+    from plnerf_torch.kernels import build, fused_mlp
 
     full = ModelConfig()
     dtypes = (torch.float32, torch.bfloat16)
@@ -1292,6 +1331,8 @@ def phase_bwd_kernel(dev):
                 lambda: fused_mlp.backward_cuda(p, x, v, v_div, g), dev)
             entry["bound_ms"], entry["bound_by"] = bwd_bound(p, x, v, g, n,
                                                              full)
+            entry["share_of_bound"] = entry["bound_ms"] / entry["kernel_ms"]
+            entry["byte_floor_ms"] = bwd_byte_floor(p, x, v, g, n)
             entry["plain_ms"] = cuda_ms(
                 lambda: fused_mlp.backward_plain(p, x, v, v_div, g), 3)
             if library_ms is None:
@@ -1314,11 +1355,22 @@ def phase_bwd_kernel(dev):
             times[f"{'folded' if fold else 'split'}_{str(dtype)[6:]}"] = entry
             del m, pe, ve, p, x, v, g
             torch.cuda.empty_cache()
+    ptxas = build.ptxas_info(fused_mlp.BWD_KERNEL) or {}
     log("bwd_kernel_time", points=n, rays=N_RAND, samples=S,
         card=card_line(), flops_per_point={
             "split": bwd_flops_per_point(full, fused_mlp.SPLIT),
             "folded": bwd_flops_per_point(full, fused_mlp.FOLDED)},
-        times=times)
+        times=times, parent_ms={"split_bfloat16": 5.91,
+                                "folded_bfloat16": 5.36},
+        registers={_kernel_name(k): {
+            f: v[f] for f in ("registers", "spill_stores", "spill_loads",
+                              "stack") if f in v}
+            for k, v in ptxas.items() if "data_kernel" in k
+            or "weight_kernel" in k},
+        note="pass_ms: device ms per call by pass; share_of_bound: "
+             "bound_ms / kernel_ms; byte_floor_ms: the workspace written "
+             "and read once at 3.35 TB/s (bwd_byte_floor); parent_ms: the "
+             "bf16 times before the wgmma redesign (PERF.md, PR 17)")
     return max(errs.values()), times
 
 
@@ -1412,9 +1464,16 @@ def phase_train(dev, keep=None):
                                         2.0, 6.0, True)[:2]
         for _ in range(3)], dev)
 
-    bwd_ms = sum(profile["ms_per_step"][k] for k in (
-        "fused_mlp_bwd_data", "fused_mlp_bwd_weight", "fused_mlp_bwd_reduce"))
-    profile["bwd_share_of_device"] = bwd_ms / profile["device_ms_per_step"]
+    profile_bf16 = _profile_steps(steps["bf16"], state, [
+        batching.sample_one_image_batch(images, poses, K, i_train, g, N_RAND,
+                                        2.0, 6.0, True)[:2]
+        for _ in range(3)], dev)
+
+    for prof in (profile, profile_bf16):
+        bwd_ms = sum(prof["ms_per_step"][k] for k in (
+            "fused_mlp_bwd_data", "fused_mlp_bwd_weight",
+            "fused_mlp_bwd_reduce"))
+        prof["bwd_share_of_device"] = bwd_ms / prof["device_ms_per_step"]
     fp32 = rec[:TRAIN_STEPS]
     first = statistics.mean(r["loss"] for r in fp32[:10])
     last = statistics.mean(r["loss"] for r in fp32[-10:])
@@ -1445,6 +1504,11 @@ def phase_train(dev, keep=None):
         loss_first10_fp32=first, loss_last10_fp32=last,
         loss_last_bf16=rec[-1]["loss"], psnr_last_fp32=fp32[-1]["psnr"],
         **summary, profile_3_fp32_steps=profile,
+        profile_3_bf16_steps=profile_bf16,
+        bf16_backward_ms_per_step={
+            "data": profile_bf16["ms_per_step"]["fused_mlp_bwd_data"],
+            "weight": profile_bf16["ms_per_step"]["fused_mlp_bwd_weight"],
+            "pr11": PR11_BF16_BWD_MS},
         losses=[round(r["loss"], 6) for r in rec])
     if keep is not None:
         keep["state"] = state
@@ -3903,6 +3967,21 @@ def _busy(trace: dict, t0: float, t1: float) -> dict:
     return {"device_ms": dev_ms, "span_ms": span, "busy": dev_ms / span}
 
 
+def _kernel_ms(trace: dict, t0: float, steps: int) -> dict:
+    """Device ms per step of each fused-MLP kernel (by short name) that
+    starts at or after t0 us in a Chrome trace."""
+    from plnerf_torch.utils.profile import FUSED_MLP_KERNELS
+
+    out = {}
+    for e in trace["traceEvents"]:
+        if e.get("ph") != "X" or e.get("cat") != "kernel" or e["ts"] < t0:
+            continue
+        m = re.search(FUSED_MLP_KERNELS, e["name"])
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + e["dur"] / 1e3 / steps
+    return out
+
+
 def step_census(dev, debug_mode=None,
                 flavours=CENSUS_FLAVOURS + GRAPH_CENSUS,
                 out_dir=None) -> dict:
@@ -3972,7 +4051,9 @@ def step_census(dev, debug_mode=None,
                      "host_ms_per_step": win["dur"] / 1e3 / CENSUS_WINDOW,
                      "device_ms_per_step": busy["device_ms"] / CENSUS_WINDOW,
                      "busy": busy["busy"], "launches": counted,
-                     "traced_kernels": kernels}
+                     "traced_kernels": kernels,
+                     "kernel_ms_per_step": _kernel_ms(trace, t0,
+                                                      CENSUS_WINDOW)}
         # the eager window: the wrappers count 2 + 2 launches a step; the
         # replay, which they do not see, runs the same fused kernels
         eager = out.get(name[len("graph_"):]) if name.startswith(
@@ -4185,8 +4266,10 @@ def phase_dispatch(dev, work):
                         "device_ms_per_step": v["device_ms_per_step"],
                         "busy": v["busy"], "windows": v.get("windows"),
                         "launches": v["launches"],
-                        "traced_kernels": v["traced_kernels"]}
+                        "traced_kernels": v["traced_kernels"],
+                        "kernel_ms_per_step": v["kernel_ms_per_step"]}
                     for k, v in census.items()},
+            bf16_backward_ms_per_step_pr11=PR11_BF16_BWD_MS,
             recipes=recipes_ms,
             syncs_per_step_pr5=PR5_SYNCS_PER_STEP,
             traces=traces, ms_per_step=ms, launches=launches,
@@ -4221,7 +4304,11 @@ def phase_dispatch(dev, work):
                  "13-40, only replayed windows at N > 1), and "
                  "from the profiled window host and device ms per step and "
                  "the busy share; census graph_*: one window as one CUDA "
-                 "graph, staged and replayed under the same checks")
+                 "graph, staged and replayed under the same checks; "
+                 "kernel_ms_per_step: the fused kernels' device ms per "
+                 "step in the census window (data_kernel / weight_kernel: "
+                 "the backward's data and weight passes), beside PR 11's "
+                 "profiled bf16 step (bf16_backward_ms_per_step_pr11)")
         return fwd, bwd
     finally:
         shutil.rmtree(root, ignore_errors=True)

@@ -1,19 +1,27 @@
 // wgmma machinery for Hopper (sm_90a) shared by the bf16 fused-MLP forward
-// (fused_mlp_fwd.cu, `bf16_kernel`) and the shape and mosaic probes
-// (dot_probe.cu, `shape_kernel`, `mosaic_kernel`).
+// (fused_mlp_fwd.cu, `bf16_kernel`), the bf16 fused-MLP backward
+// (fused_mlp_bwd.cu, `data_kernel`, the bf16 `weight_kernel`) and the
+// shape and mosaic probes (dot_probe.cu, `shape_kernel`, `mosaic_kernel`).
 //
 // Every wgmma operand lives in shared memory in one layout: tiles of
 // 32-column chunks, each row 64 bytes (32 bf16 values) in the 64-byte
 // swizzle (16-byte group g of row r stored at g ^ ((r >> 1) & 3)),
-// K-major, 8-row groups 512 bytes apart, so one descriptor form
-// (`sw64_desc`) serves activations and weights (weights as W^T images,
-// packed ahead of time).  A k16 step within a 32-column chunk is +32
-// bytes on the start address.  Weights stream through an mbarrier-guarded
-// ring of shared-memory stages filled by 1-D cp.async.bulk copies
-// (`bulk_copy`, `mbar_*`); a wgmma reads them after `mbar_wait` on the
-// stage's full barrier, and its warps release the stage with
-// `mbar_arrive` on the empty barrier once `wgmma_wait` says their reads
-// are done.  Accumulators are fp32 registers, N / 2 a thread for a
+// 8-row groups 512 bytes apart.  Read K-major (`sw64_desc`: a row is one
+// m or n, its 32 values consecutive k) it serves activations and weights
+// (weights as W^T images, packed ahead of time); a k16 step within a
+// 32-column chunk is +32 bytes on the start address.  Read MN-major
+// (`sw64_mn_desc`, the wgmma's transpose bits set: a row is one k, its 32
+// values consecutive m or n) the same tile is the transposed operand, so
+// a point-major tile of activations is A^T or B of a product summed over
+// the points with no transposing copy; a k16 step is 16 rows, +1024
+// bytes.  Weights stream through an mbarrier-guarded ring of
+// shared-memory stages filled by 1-D cp.async.bulk copies (`bulk_copy`,
+// `mbar_*`); a wgmma reads them after `mbar_wait` on the stage's full
+// barrier, and its warps release the stage with `mbar_arrive` on the
+// empty barrier once `wgmma_wait` says their reads are done.  Tiles leave
+// shared memory for device memory by 1-D bulk stores (`bulk_store`,
+// completion per issuing thread: `bulk_wait_read` before the tile is
+// written again).  Accumulators are fp32 registers, N / 2 a thread for a
 // 64 x N tile: warp w of the warpgroup holds rows 16 w + lane / 4 (+ 8),
 // columns 8 j + 2 (lane % 4) (+ 1) in registers 4 j .. 4 j + 3.
 #pragma once
@@ -39,6 +47,16 @@ __device__ __forceinline__ uint32_t sw64(int row, int col) {
 // atom 512-byte aligned (+32 bytes for the second k16 step of a slab).
 __device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+// The same tile read MN-major (transposed operand, trans bit 1): rows are
+// k, 8-row k groups 512 bytes apart (stride byte offset), the 32-column
+// chunks (m or n atoms of 32) `chunk` bytes apart (leading byte offset).
+__device__ __forceinline__ uint64_t sw64_mn_desc(uint32_t addr,
+                                                 uint32_t chunk) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((chunk >> 4) & 0x3FFF) << 16) |
          ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
 }
 
@@ -92,6 +110,30 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
       : "memory");
 }
 
+// bytes shared -> global by the copy engine, in this thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk stores have read their sources (at most N groups
+// still reading)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// this thread's bulk stores are complete in device memory
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -134,8 +176,10 @@ __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v));
 }
 
-// d[64 x N] += A[64 x 16] @ B[16 x N]: A and B from shared memory (K-major
-// descriptors), fp32 accumulators d, N / 2 a thread
+// d[64 x N] += A[64 x 16] @ B[16 x N]: A and B from shared memory, both
+// K-major (TR = 0) or both MN-major (TR = 1), fp32 accumulators d, N / 2
+// a thread
+template <int TR>
 __device__ __forceinline__ void wgmma_n32(float* d, uint64_t da,
                                           uint64_t db) {
   asm volatile(
@@ -143,14 +187,15 @@ __device__ __forceinline__ void wgmma_n32(float* d, uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
       "%14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      "}, %16, %17, p, 1, 1, %19, %19;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TR));
 }
 
+template <int TR>
 __device__ __forceinline__ void wgmma_n64(float* d, uint64_t da,
                                           uint64_t db) {
   asm volatile(
@@ -159,7 +204,7 @@ __device__ __forceinline__ void wgmma_n64(float* d, uint64_t da,
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
       "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
       "%26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -167,9 +212,10 @@ __device__ __forceinline__ void wgmma_n64(float* d, uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TR));
 }
 
+template <int TR>
 __device__ __forceinline__ void wgmma_n96(float* d, uint64_t da,
                                           uint64_t db) {
   asm volatile(
@@ -179,7 +225,7 @@ __device__ __forceinline__ void wgmma_n96(float* d, uint64_t da,
       "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
       "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
       "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      "}, %48, %49, p, 1, 1, %51, %51;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -190,9 +236,10 @@ __device__ __forceinline__ void wgmma_n96(float* d, uint64_t da,
         "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
         "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TR));
 }
 
+template <int TR>
 __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da,
                                           uint64_t db) {
   asm volatile(
@@ -204,7 +251,7 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da,
       "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
       "%62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -218,9 +265,10 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TR));
 }
 
+template <int TR>
 __device__ __forceinline__ void wgmma_n160(float* d, uint64_t da,
                                           uint64_t db) {
   asm volatile(
@@ -233,7 +281,7 @@ __device__ __forceinline__ void wgmma_n160(float* d, uint64_t da,
       "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
       "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
       "%74, %75, %76, %77, %78, %79"
-      "}, %80, %81, p, 1, 1, 0, 0;\n}\n"
+      "}, %80, %81, p, 1, 1, %83, %83;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -250,9 +298,10 @@ __device__ __forceinline__ void wgmma_n160(float* d, uint64_t da,
         "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
         "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
         "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TR));
 }
 
+template <int TR>
 __device__ __forceinline__ void wgmma_n192(float* d, uint64_t da,
                                           uint64_t db) {
   asm volatile(
@@ -266,7 +315,7 @@ __device__ __forceinline__ void wgmma_n192(float* d, uint64_t da,
       "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
       "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
       "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      "}, %96, %97, p, 1, 1, %99, %99;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -287,9 +336,10 @@ __device__ __forceinline__ void wgmma_n192(float* d, uint64_t da,
         "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
         "+f"(d[95])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TR));
 }
 
+template <int TR>
 __device__ __forceinline__ void wgmma_n224(float* d, uint64_t da,
                                           uint64_t db) {
   asm volatile(
@@ -305,7 +355,7 @@ __device__ __forceinline__ void wgmma_n224(float* d, uint64_t da,
       "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
       "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
       "%108, %109, %110, %111"
-      "}, %112, %113, p, 1, 1, 0, 0;\n}\n"
+      "}, %112, %113, p, 1, 1, %115, %115;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -329,9 +379,10 @@ __device__ __forceinline__ void wgmma_n224(float* d, uint64_t da,
         "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
         "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TR));
 }
 
+template <int TR>
 __device__ __forceinline__ void wgmma_n256(float* d, uint64_t da,
                                           uint64_t db) {
   asm volatile(
@@ -348,7 +399,7 @@ __device__ __forceinline__ void wgmma_n256(float* d, uint64_t da,
       "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
       "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
       "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -376,20 +427,22 @@ __device__ __forceinline__ void wgmma_n256(float* d, uint64_t da,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TR));
 }
 
-template <int NP>
+// d[64 x NP] += A[64 x 16] @ B[16 x NP]; TR = 1: both operands MN-major
+// (`sw64_mn_desc`), else both K-major (`sw64_desc`)
+template <int NP, int TR = 0>
 __device__ __forceinline__ void wgmma_k16(float* d, uint64_t da,
                                           uint64_t db) {
-  if constexpr (NP == 256) wgmma_n256(d, da, db);
-  else if constexpr (NP == 224) wgmma_n224(d, da, db);
-  else if constexpr (NP == 192) wgmma_n192(d, da, db);
-  else if constexpr (NP == 160) wgmma_n160(d, da, db);
-  else if constexpr (NP == 128) wgmma_n128(d, da, db);
-  else if constexpr (NP == 96) wgmma_n96(d, da, db);
-  else if constexpr (NP == 64) wgmma_n64(d, da, db);
-  else wgmma_n32(d, da, db);
+  if constexpr (NP == 256) wgmma_n256<TR>(d, da, db);
+  else if constexpr (NP == 224) wgmma_n224<TR>(d, da, db);
+  else if constexpr (NP == 192) wgmma_n192<TR>(d, da, db);
+  else if constexpr (NP == 160) wgmma_n160<TR>(d, da, db);
+  else if constexpr (NP == 128) wgmma_n128<TR>(d, da, db);
+  else if constexpr (NP == 96) wgmma_n96<TR>(d, da, db);
+  else if constexpr (NP == 64) wgmma_n64<TR>(d, da, db);
+  else wgmma_n32<TR>(d, da, db);
 }
 
 }  // namespace

@@ -18,13 +18,15 @@ N-merged, alpha in the column right after the feature block.  The folded
 schedule (``fold_heads``) uses the exact fold ``Wfv = Wf @ Wv1[:W]``,
 ``bfv = bf @ Wv1[:W] + bv`` computed in fp32 before any cast, N-merged
 with the alpha column; its view block spans the same N.  The bf16
-forward kernel (tensor cores, ``wgmma``) reads the blocks as one stream
-of shared-memory slab images in the order it consumes them
-(``wgmma_stream``, applied by ``PackedMLP.flat``); the fp32 forward and
-the backward read every block row-major (the backward transposes them
-itself); the plain versions read the same blocks as ``[K, N]``
-matrices.  The fp32 forward walks the points in chunks of at most
-``FWD_CHUNK`` (``fwd_chunks``), which bounds its activation workspace.
+kernels (tensor cores, ``wgmma``) read the blocks as one stream of
+shared-memory slab images in the order they consume them: the forward
+``wgmma_stream`` (applied by ``PackedMLP.flat``), the backward's data
+pass ``bwd_stream`` (images of W for the recompute, of W^T for the data
+grads); the fp32 forward and backward read every block row-major (the
+fp32 backward transposes them itself); the plain versions read the same
+blocks as ``[K, N]`` matrices.  The fp32 forward walks the points in
+chunks of at most ``FWD_CHUNK`` (``fwd_chunks``), which bounds its
+activation workspace.
 
 Topology rules kept from the JAX wrapper: softplus10 is applied outside
 the kernel, a final-layer skip goes to the unfused ``apply_mlp``, any
@@ -113,12 +115,16 @@ def _passes(n: int, kept: int) -> List[Tuple[int, int]]:
 _STREAM_INDEX: dict = {}
 
 
-def _stream_index(p: "PackedMLP", device: torch.device) -> torch.Tensor:
-    """Positions in the row-major block buffer of the ``wgmma_stream``'s
-    elements, per layout and device (built once, from element ids, on the
-    host; copied to a card from pinned memory without waiting on it)."""
-    key = (p.head, p.n_layers, p.skip_mask, p.in_p, p.w_p, p.v_p, p.h_p,
-           str(device))
+def _stream_index(p: "PackedMLP", device: torch.device,
+                  stream=None) -> torch.Tensor:
+    """Positions in the row-major block buffer of the elements of
+    ``stream(p)`` (``wgmma_stream`` unless given: the forward's; the
+    backward's is ``bwd_stream``), per stream, layout and device (built
+    once, from element ids, on the host; copied to a card from pinned
+    memory without waiting on it)."""
+    stream = stream or wgmma_stream
+    key = (stream.__name__, p.head, p.n_layers, p.skip_mask, p.in_p, p.w_p,
+           p.v_p, p.h_p, str(device))
     if key not in _STREAM_INDEX:
         ids, off = [], 0
         for shape in _block_shapes(p)[0]:
@@ -126,7 +132,7 @@ def _stream_index(p: "PackedMLP", device: torch.device) -> torch.Tensor:
             ids.append(torch.arange(off, off + n,
                                     dtype=torch.float64).reshape(shape))
             off += n
-        idx = wgmma_stream(dataclasses.replace(p, weights=ids)).long()
+        idx = stream(dataclasses.replace(p, weights=ids)).long()
         if torch.device(device).type == "cuda":
             idx = idx.pin_memory()
         _STREAM_INDEX[key] = idx.to(device, non_blocking=True)
@@ -213,6 +219,56 @@ def wgmma_stream(p: "PackedMLP") -> torch.Tensor:
                 w = p.weights[b]
                 for k0 in range(0, w.shape[0], SLAB_K):
                     out.append(wgmma_image(w[k0:k0 + SLAB_K, c0:c0 + width]))
+    return torch.cat(out)
+
+
+def _bwd_products(p: "PackedMLP"
+                  ) -> List[Tuple[List[Tuple[int, str, int, int]], int]]:
+    """(terms, NP) of every product of the bf16 backward's data pass, in
+    the order csrc/fused_mlp_bwd.cu ``build_dplan`` runs them, each one
+    column pass of NP columns.  A term ``(block, mode, k0, K)`` streams K
+    / 32 slabs of weight block ``block``: mode ``"f"`` (recompute, A @ W)
+    the rows [k0, k0 + K) and columns [0, NP) of W, mode ``"d"`` (data
+    grad, dA @ W^T) the rows [0, NP) and columns [k0, k0 + K) of W,
+    transposed."""
+    walk, hb = _layer_blocks(p)
+    w, h, i, v = p.w_p, p.h_p, p.in_p, p.v_p
+    prods = [(([] if bx is None else [(bx, "f", 0, i)])
+              + [(bh, "f", 0, i if k == 0 else w)], w)
+             for k, (bx, bh) in enumerate(walk)]
+    if p.head == SPLIT:
+        waf, wvf, wvv, wr = range(hb, hb + 4)
+        prods += [([(waf, "f", 0, w)], w),                      # feature
+                  ([(wvf, "f", 0, w), (wvv, "f", 0, v)], h),    # z_hv
+                  ([(wr, "d", 0, ALIGN)], h),                   # da_v
+                  ([(wvv, "d", 0, h)], v),                      # dv
+                  ([(wvf, "d", 0, h)], w),                      # dfeat
+                  ([(waf, "d", 0, w), (waf, "d", w, ALIGN)], w)]
+    else:
+        wfa, wvv, wr = range(hb, hb + 3)
+        prods += [([(wfa, "f", 0, w), (wvv, "f", 0, v)], h),    # z_hv
+                  ([(wr, "d", 0, ALIGN)], h),                   # da_v
+                  ([(wvv, "d", 0, h), (wvv, "d", h, ALIGN)], v),  # dv
+                  ([(wfa, "d", 0, h), (wfa, "d", h, ALIGN)], w)]
+    for k in range(p.n_layers - 1, -1, -1):                     # dx, da
+        bx, bh = walk[k]
+        if bx is not None:
+            prods.append(([(bx, "d", 0, w)], i))
+        prods.append(([(bh, "d", 0, w)], w if k > 0 else i))
+    return prods
+
+
+def bwd_stream(p: "PackedMLP") -> torch.Tensor:
+    """Every weight slab the bf16 backward's data pass reads, in the order
+    it reads them (``_bwd_products``): per product, term and 32-row
+    k-slab, the ``wgmma_image`` of the slab's [32, NP] operand."""
+    out = []
+    for terms, n in _bwd_products(p):
+        for b, mode, k0, k in terms:
+            w = p.weights[b]
+            for s in range(k0, k0 + k, SLAB_K):
+                out.append(wgmma_image(w[s:s + SLAB_K, :n] if mode == "f"
+                                       else w[:n, s:s + SLAB_K].t()))
     return torch.cat(out)
 
 
@@ -670,11 +726,13 @@ def _bwd_library() -> ctypes.CDLL:
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         U = ctypes.c_uint
-        fn.argtypes = [P, P, L, P, P, P, P, P, P, P, L, I, U, I, I, I, I, I,
-                       I, P]
+        fn.argtypes = [P, P, L, P, P, P, L, P, P, P, P, P, L, I, U, I, I, I,
+                       I, I, I, P]
         fn.restype = ctypes.c_int
-        lib.plnerf_fused_mlp_bwd_smem.argtypes = [I, I, I, I]
+        lib.plnerf_fused_mlp_bwd_smem.argtypes = [I, I, I, I, I]
         lib.plnerf_fused_mlp_bwd_smem.restype = L
+        lib.plnerf_fused_mlp_bwd_stream_len.argtypes = [I, U, I, I, I, I, I]
+        lib.plnerf_fused_mlp_bwd_stream_len.restype = L
         lib.plnerf_fused_mlp_bwd_workspace.argtypes = [L, I, U, I, I, I, I,
                                                        I, I]
         lib.plnerf_fused_mlp_bwd_workspace.restype = L
@@ -689,7 +747,8 @@ def backward_cuda(p: PackedMLP, x: torch.Tensor, v: torch.Tensor,
                   v_div: int, g: torch.Tensor):
     """Launch the backward kernel on the current stream; returns what
     ``backward_plain`` returns, the weight and bias grads as views of one
-    fp32 buffer."""
+    fp32 buffer.  bf16 also gathers the data pass's weight stream
+    (``bwd_stream``, one cached index)."""
     global bwd_launches
     dev = x.device
     if dev.type != "cuda":
@@ -720,24 +779,36 @@ def backward_cuda(p: PackedMLP, x: torch.Tensor, v: torch.Tensor,
     if n > 0:
         lib = _bwd_library()
         bf16 = int(p.dtype == torch.bfloat16)
+        if bf16 and max(p.w_p, p.in_p, p.v_p) > MAX_PASS:
+            raise ValueError(f"bf16 backward takes layer widths up to "
+                             f"{MAX_PASS} (netwidth too large)")
         layout = (p.n_layers, p.skip_mask, p.in_p, p.w_p, p.v_p, p.h_p,
                   p.head)
         if lib.plnerf_fused_mlp_bwd_n_grad(*layout) != grads.numel():
             raise ValueError("packed layout disagrees with the kernel's")
-        smem = lib.plnerf_fused_mlp_bwd_smem(p.in_p, p.w_p, p.v_p, bf16)
+        smem = lib.plnerf_fused_mlp_bwd_smem(p.n_layers, p.in_p, p.w_p,
+                                             p.v_p, bf16)
         limit = torch.cuda.get_device_properties(
             dev).shared_memory_per_block_optin
         if smem > limit:
             raise ValueError(f"fused MLP backward tile needs {smem} B of "
                              f"shared memory, the device allows {limit} B")
+        wstream = None
+        if bf16:
+            wstream = wbuf[_stream_index(p, dev, bwd_stream)]
+            if wstream.numel() != lib.plnerf_fused_mlp_bwd_stream_len(
+                    *layout):
+                raise ValueError("backward weight stream disagrees with "
+                                 "the kernel's walk")
         ws = torch.empty(lib.plnerf_fused_mlp_bwd_workspace(n, *layout, bf16),
                          dtype=torch.uint8, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.plnerf_fused_mlp_bwd(
             x.data_ptr(), v.data_ptr(), v_div, g.data_ptr(), wbuf.data_ptr(),
-            bbuf.data_ptr(), grads.data_ptr(),
-            dx.data_ptr(), dv.data_ptr(), ws.data_ptr(), n, *layout, bf16,
-            stream)
+            None if wstream is None else wstream.data_ptr(),
+            0 if wstream is None else wstream.numel(), bbuf.data_ptr(),
+            grads.data_ptr(), dx.data_ptr(), dv.data_ptr(), ws.data_ptr(), n,
+            *layout, bf16, stream)
         if rc != 0:
             msg = lib.plnerf_cuda_error_string(rc).decode()
             raise RuntimeError(f"fused_mlp_bwd launch failed: {msg} ({rc})")

@@ -288,6 +288,134 @@ def test_cuda_backward_refuses_plain_topology(cuda_device):
                                 torch.zeros(5, 4, device=cuda_device))
 
 
+def _hold_bwd(got, ref, tol):
+    for name, a, b in zip(("dW", "db"), got[:2], ref[:2]):
+        for i, (ga, gb) in enumerate(zip(a, b)):
+            assert torch.isfinite(ga).all()
+            _assert_rel_l2(ga, gb, tol, f"{name}[{i}]")
+    _assert_rel_l2(got[2], ref[2], tol, "dx")
+    _assert_rel_l2(got[3], ref[3], tol, "dv")
+
+
+def _ring(p, dev):
+    """(stages, wraps) of the bf16 data pass's weight ring: the stages
+    that fit beside its tiles (csrc/fused_mlp_bwd.cu ``data_stages``) and
+    the times its slabs (``_bwd_products``) refill it whole."""
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    fixed = 1024 + 256 * (p.w_p + p.in_p + p.v_p) + (p.n_layers + 1) * 4096
+    stages = min(8, (optin - fixed) // (16384 + 16))
+    slabs = sum(sum(k for *_, k in terms) // 32
+                for terms, _ in fused_mlp._bwd_products(p))
+    return stages, slabs // stages
+
+
+# (netdepth, netwidth, folded): 41 slabs through 8 stages, 167 and 152
+# through 6 on the H100
+RING_CASES = [(3, 128, False), (8, 256, False), (8, 256, True)]
+
+
+@pytest.mark.parametrize("depth,width,fold", RING_CASES,
+                         ids=["3x128_split", "8x256_split", "8x256_folded"])
+def test_cuda_backward_bf16_ring_wraps_odd(cuda_device, depth, width, fold):
+    """Layouts whose weight ring wraps an odd number of times (the
+    mbarriers' parity flips on every wrap) against the plain version."""
+    cfg = ModelConfig(netdepth=depth, netwidth=width)
+    m, pe, ve, cot = _inputs(cfg, fold, torch.bfloat16, cuda_device, 9, 31)
+    with torch.no_grad():
+        p, x, v, v_div = fused_mlp.prepare(m, pe, ve, cfg, torch.bfloat16,
+                                           fold)
+        assert _ring(p, cuda_device)[1] % 2 == 1
+        got = fused_mlp.backward_cuda(p, x, v, v_div, cot)
+        torch.cuda.synchronize()
+        ref = fused_mlp.backward_plain(p, x, v, v_div, cot)
+    _hold_bwd(got, ref, 2e-2)
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["split", "folded"])
+def test_cuda_backward_bf16_deepest_layout(cuda_device, fold):
+    """The deepest layout the kernel takes (16 layers of 256, three skip
+    inputs): 17 mask slots leave room for a 4-stage ring only, so the
+    second warpgroup's start behind the first is cut to what the ring
+    holds (a lag the ring cannot hold deadlocks)."""
+    cfg = ModelConfig(netdepth=16, netwidth=256, skips=(4, 8, 12))
+    m, pe, ve, cot = _inputs(cfg, fold, torch.bfloat16, cuda_device, 5, 53)
+    with torch.no_grad():
+        p, x, v, v_div = fused_mlp.prepare(m, pe, ve, cfg, torch.bfloat16,
+                                           fold)
+        assert _ring(p, cuda_device)[0] == 4
+        got = fused_mlp.backward_cuda(p, x, v, v_div, cot)
+        torch.cuda.synchronize()
+        ref = fused_mlp.backward_plain(p, x, v, v_div, cot)
+    _hold_bwd(got, ref, 2e-2)
+
+
+# n across the weight pass's chunks of row blocks: at most 5,632 points a
+# chunk holds 256 (the smallest), so 1,281 puts one point in a sixth
+# chunk; at 5,633 the chunks hold 320 points and the last one 193
+@pytest.mark.parametrize("n", [1281, 5633])
+@pytest.mark.parametrize("fold", [False, True], ids=["split", "folded"])
+def test_cuda_backward_bf16_across_weight_chunks(cuda_device, fold, n):
+    cfg = ModelConfig()
+    m, pe, ve, cot = _inputs(cfg, fold, torch.bfloat16, cuda_device, n, 1)
+    with torch.no_grad():
+        p, x, v, v_div = fused_mlp.prepare(m, pe, ve, cfg, torch.bfloat16,
+                                           fold)
+        got = fused_mlp.backward_cuda(p, x, v, v_div, cot)
+        torch.cuda.synchronize()
+        ref = fused_mlp.backward_plain(p, x, v, v_div, cot)
+    _hold_bwd(got, ref, 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("fold", [False, True], ids=["split", "folded"])
+def test_cuda_backward_graph_replay_is_eager(cuda_device, fold, dtype):
+    """The backward captured in a CUDA graph and replayed on new values of
+    the same buffers: bit-equal to the eager call on those values; the
+    capture and the replay count no launch."""
+    cfg = ModelConfig()
+    m, pe, ve, cot = _inputs(cfg, fold, dtype, cuda_device, 13, 71)
+    with torch.no_grad():
+        p, x, v, v_div = fused_mlp.prepare(m, pe, ve, cfg, dtype, fold)
+        fused_mlp.backward_cuda(p, x, v, v_div, cot)   # build, index, pool
+        torch.cuda.synchronize()
+        before = fused_mlp.bwd_launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fused_mlp.backward_cuda(p, x, v, v_div, cot)
+        cot.copy_(torch.randn(cot.shape, device=cuda_device,
+                              generator=torch.Generator(
+                                  device=cuda_device).manual_seed(11)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert fused_mlp.bwd_launches == before
+        ref = fused_mlp.backward_cuda(p, x, v, v_div, cot)
+    for a, b in zip(out[0] + out[1] + [out[2], out[3]],
+                    ref[0] + ref[1] + [ref[2], ref[3]]):
+        assert torch.equal(a, b)
+
+
+def test_cuda_backward_refuses_a_stream_of_the_wrong_length(cuda_device,
+                                                            monkeypatch):
+    """A bf16 weight stream that does not match the kernel's walk is
+    refused before any launch."""
+    cfg = ModelConfig(netdepth=3, netwidth=64)
+    m, pe, ve, cot = _inputs(cfg, False, torch.bfloat16, cuda_device, 3, 5)
+    with torch.no_grad():
+        p, x, v, v_div = fused_mlp.prepare(m, pe, ve, cfg, torch.bfloat16)
+
+    full_stream = fused_mlp.bwd_stream
+
+    def short_stream(q):
+        return full_stream(q)[:-64 * 32]
+
+    monkeypatch.setattr(fused_mlp, "bwd_stream", short_stream)
+    before = fused_mlp.bwd_launches
+    with torch.no_grad(), pytest.raises(ValueError, match="walk"):
+        fused_mlp.backward_cuda(p, x, v, v_div, cot)
+    assert fused_mlp.bwd_launches == before
+
+
 @pytest.mark.parametrize("fold", [False, True])
 def test_cuda_autograd_matches_cpu(cuda_device, fold):
     """Grads through ``fused_mlp.apply`` (the autograd function) on the
