@@ -436,6 +436,17 @@ DP_MESH = ["--mesh_res", "128", "--adaptive_iso", "--mesh_threshold", "10",
            "--min_component_faces", "100", "--bbox_min", "-1.5", "-1.5",
            "-1.5", "--bbox_max", "1.5", "1.5", "1.5"]
 DP_TIMEOUT_S = 300
+# and the recipe in bf16 at --steps_per_dispatch 8 for 40 steps, all in the
+# precrop's phase: five full windows (the first eager, the second captured,
+# every window from it on replayed with its all-reduce inside), a val
+# render and a checkpoint at 40, the --profile window 9-16 a replay
+DP_N, DP_N_STEPS = 8, 40
+DP_N_TRAIN = DRIVER_TRAIN + [
+    "--mlp_dtype", "bfloat16", "--steps_per_dispatch", str(DP_N),
+    "--i_print", str(DP_N), "--i_weights", str(DP_N_STEPS), "--i_img",
+    str(DP_N_STEPS), "--num_iterations", str(DP_N_STEPS), "--profile",
+    str(DP_N)]
+DP_N_PLAN = ["first", "capture"] + ["replay"] * (DP_N_STEPS // DP_N - 2)
 DRIVER, MESH = "plnerf_torch.cli.run_plnerf", "plnerf_torch.cli.extract_mesh"
 PROBE_REPLACES = {"shape": "tools/dot_decompose.py:89",     # make_shape_kernel
                   "mixed": "tools/dot_decompose.py:161",    # make_mixed_kernel
@@ -1728,6 +1739,7 @@ def _driver_runs(entry=None):
         GRAPH_RUNS[name]["eager_steps"] = sum(
             n for g in made for _, n, kind in g.windows()
             if kind not in graph.STAGED)
+        GRAPH_RUNS[name]["windows"] = _window_kinds(made)
         return out
 
     def expect(name, fwd, bwd):
@@ -1737,6 +1749,12 @@ def _driver_runs(entry=None):
                                  f"expected {fwd} / {bwd}")
 
     return run, expect, launches, runs
+
+
+def _window_kinds(made) -> list:
+    """The kind of every window the ``graph.Graphs`` of ``made`` ran, in
+    order ("first", "capture", "replay" or "eager")."""
+    return [kind for g in made for _, _, kind in g.windows()]
 
 
 class _Recording:
@@ -3431,7 +3449,8 @@ def dp_worker(argv) -> int:
     """``chip_smoke.py --dp_worker OUT MODULE ARGS...``, a process of a
     ``torchrun`` launch: runs ``python -m MODULE ARGS`` as that launch
     would run it, the kernels' launch counters set to 0 just before and
-    read just after into ``OUT.rank{RANK}.json`` with its seconds."""
+    read just after into ``OUT.rank{RANK}.json`` with its seconds, the
+    kind of each window its ``graph.Graphs`` ran and their replays."""
     import runpy
 
     import torch.distributed as dist
@@ -3439,7 +3458,16 @@ def dp_worker(argv) -> int:
     out, module, *args = argv
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from plnerf_torch.kernels import fused_mlp
+    from plnerf_torch.train import graph
 
+    made = []
+
+    class Seen(graph.Graphs):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    graph.Graphs = Seen
     sys.argv = [module] + args
     fused_mlp.launches = fused_mlp.bwd_launches = 0     # path starts
     t = time.perf_counter()
@@ -3447,7 +3475,9 @@ def dp_worker(argv) -> int:
     torch.cuda.synchronize()
     rec = {"fused_mlp_fwd": fused_mlp.launches,          # path ends
            "fused_mlp_bwd": fused_mlp.bwd_launches,
-           "s": time.perf_counter() - t}
+           "s": time.perf_counter() - t,
+           "windows": _window_kinds(made),
+           "replays": sum(g.replays for g in made)}
     with open(f"{out}.rank{os.environ['RANK']}.json", "w") as f:
         json.dump(rec, f)
     if dist.is_initialized():
@@ -3591,9 +3621,24 @@ def phase_dp(dev, work):
             raise AssertionError(f"torchrun (1 rank) against the plain "
                                  f"runs: {checks}")
 
+        # --steps_per_dispatch 8: the windows replayed with their
+        # all-reduce inside, in this process and under torchrun
+        def train_n(exp, extra=()):
+            return (["--config", config, "--task", "train"] + where(exp)
+                    + DP_N_TRAIN + list(extra))
+
+        run("train_n8", train_n("plain8"))
+        dp8 = _torchrun(1, DRIVER, train_n("dp8"),
+                        os.path.join(root, "dp8_train"))
+        n8 = _dp_windows(os.path.join(ckpt, "plain8"),
+                         os.path.join(ckpt, "dp8"), GRAPH_RUNS["train_n8"],
+                         launches["train_n8"], dp8["ranks"])
+
+        launched = {**dp1, "train_n8": dp8}
+
         w2 = "not run: 1 card"
         if torch.cuda.device_count() >= 2:
-            w2 = _dp_two_ranks(commands, ckpt, root)
+            w2 = _dp_two_ranks(commands, ckpt, root, train_n)
 
         serving = _dp_serving(dev, os.path.join(work["serving"],
                                                 "float32_baked"))
@@ -3611,28 +3656,104 @@ def phase_dp(dev, work):
                                    for n, d in dp1.items()}},
             launches={"plain": launches, "torchrun": {
                 n: {k: v for k, v in d["ranks"][0].items() if k != "s"}
-                for n, d in dp1.items()}},
+                for n, d in launched.items()}},
+            n8=dict(n8, torchrun_wall_s=dp8["wall_s"],
+                    plain_run_s=runs["train_n8"]),
             w2=w2, serving=serving,
             phase_s=time.perf_counter() - t_phase,
             note="ms_per_step: the mean of the i_print windows but the "
                  "first of each process (20 and 40; metrics.jsonl's "
                  "steps_per_sec); torchrun_wall "
                  "includes the launcher, the process start and the "
-                 "process group's rendezvous")
+                 "process group's rendezvous; n8: the recipe in bf16 at "
+                 "--steps_per_dispatch 8, 40 steps in this process and "
+                 "under torchrun (1 rank, NCCL), bit-equal; windows: each "
+                 "window's kind (first eager, then captured with its "
+                 "all-reduce and replayed); replayed_ms_per_step: the "
+                 "print records of steps 17-40, replayed windows only; "
+                 "trace: the --profile window 9-16, a replay, its host "
+                 "waits, fused kernels and NCCL kernels on the card")
         fwd = sum(v["fused_mlp_fwd"] for v in launches.values()) + sum(
-            d["ranks"][0]["fused_mlp_fwd"] for d in dp1.values())
+            d["ranks"][0]["fused_mlp_fwd"] for d in launched.values())
         bwd = sum(v["fused_mlp_bwd"] for v in launches.values()) + sum(
-            d["ranks"][0]["fused_mlp_bwd"] for d in dp1.values())
+            d["ranks"][0]["fused_mlp_bwd"] for d in launched.values())
         return fwd, bwd
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def _dp_two_ranks(commands, ckpt: str, root: str) -> dict:
+def _dp_windows(plain: str, dp: str, plain_graphs: dict,
+                plain_launches: dict, ranks: dict) -> dict:
+    """The N = 8 run in this process (experiment ``plain``) against the
+    same run under torchrun (``dp``, its ``ranks``' records): checkpoints,
+    logged losses and the val render bit-equal, the wrappers' launches
+    equal, every full window but the first replayed in both (rank 0's
+    plan read from the launched process), and in each run's traced
+    replayed window no host wait and 2 + 2 fused kernels a step counted
+    on the card (bf16: one forward kernel per call); raises otherwise."""
+    name = f"{DP_N_STEPS:06d}.ckpt"
+    traces = {w: _profile_window(os.path.join(d, "profile",
+                                              f"trace_{DP_N + 1:06d}.json"),
+                                 DP_N)
+              for w, d in (("plain", plain), ("torchrun", dp))}
+    fused = {k: 2 * DP_N for k in ("bf16_kernel", "data_kernel",
+                                   "weight_kernel", "reduce_kernel")}
+    r0 = ranks[0]
+    checks = {
+        "state": _state_diff(*(torch.load(os.path.join(d, name),
+                                          map_location="cpu",
+                                          weights_only=True)
+                               for d in (plain, dp)))["tensors"],
+        "logged": [k for k, v in _logged(plain).items()
+                   if _logged(dp).get(k) != v],
+        "files": [f for f in _files_equal(plain, dp)
+                  if f not in ("args.json", "metrics.jsonl")
+                  and not f.endswith(".ckpt")
+                  and not f.startswith("profile/")],
+        "launches": {k: (v, r0[k]) for k, v in plain_launches.items()
+                     if r0[k] != v},
+        "windows": {w: p for w, p in (("plain", plain_graphs["windows"]),
+                                      *((f"rank{r}", d["windows"])
+                                        for r, d in ranks.items()))
+                    if p != DP_N_PLAN},
+        "traces": {w: t for w, t in traces.items()
+                   if t["windows"] != 1 or t["syncs"]["per_step"]
+                   or t["kernels"] != fused}}
+    if any(checks.values()):
+        raise AssertionError(f"--steps_per_dispatch {DP_N} under torchrun "
+                             f"against the plain run: {checks}")
+    return {"windows": DP_N_PLAN,
+            "replays": {"plain": plain_graphs["replays"],
+                        "torchrun": {r: d["replays"]
+                                     for r, d in ranks.items()}},
+            "captures_plain": plain_graphs["captures"],
+            "capture_s_plain": plain_graphs["capture_s"],
+            "replayed_ms_per_step": {
+                w: _steady_ms(d, 2 * DP_N)
+                for w, d in (("plain", plain), ("torchrun", dp))},
+            "trace": {w: {k: t[k] for k in (
+                "kernels", "nccl_kernels", "syncs", "busy",
+                "host_ms_per_step", "device_ms_per_step")}
+                for w, t in traces.items()},
+            "launches": {"plain": plain_launches,
+                         "torchrun_rank0": {k: r0[k] for k in
+                                            plain_launches}},
+            "bit_equal": True}
+
+
+def _params(path: str) -> torch.Tensor:
+    """The networks of a checkpoint, flat."""
+    s = torch.load(path, map_location="cpu", weights_only=True)
+    return torch.cat([t.reshape(-1) for _, t in sorted(_leaves(
+        {k: s[k] for k in ("params_coarse", "params_fine")}))])
+
+
+def _dp_two_ranks(commands, ckpt: str, root: str, train_n) -> dict:
     """World size 2 against world size 1, both under torchrun with perturb
     off: logged losses 1e-6 relative, the final parameters 1e-5 relative
-    L2; the test maps and the grid of world size 1's checkpoint bit-equal
-    (raises otherwise)."""
+    L2; the test maps and the grid of world size 1's checkpoint bit-equal;
+    and the N = 8 run (``train_n``) the same way, every full window but
+    the first replayed on each rank (raises otherwise)."""
     out = {}
     for w in (1, 2):
         ft = (None if w == 1 else os.path.join(
@@ -3641,29 +3762,41 @@ def _dp_two_ranks(commands, ckpt: str, root: str) -> dict:
                                            ft):
             out[w, name] = _torchrun(w, module, argv,
                                      os.path.join(root, f"pp{w}_{name}"))
+        out[w, "train_n8"] = _torchrun(
+            w, DRIVER, train_n(f"pn{w}", ["--perturb", "0"]),
+            os.path.join(root, f"pn{w}_train"))
     exp = {w: os.path.join(ckpt, f"pp{w}") for w in (1, 2)}
-    losses = [{k: r["train/loss"] for k, r in _records(
-        exp[w], "train/loss").items()} for w in (1, 2)]
-    loss_rel = max(abs(losses[1][k] - v) / abs(v)
+    exp_n = {w: os.path.join(ckpt, f"pn{w}") for w in (1, 2)}
+
+    def loss_rel(exps):
+        losses = [{k: r["train/loss"] for k, r in _records(
+            exps[w], "train/loss").items()} for w in (1, 2)]
+        return max(abs(losses[1][k] - v) / abs(v)
                    for k, v in losses[0].items())
-    states = [torch.load(os.path.join(exp[w], f"{DP_RESUME_STEPS:06d}.ckpt"),
-                         map_location="cpu", weights_only=True)
-              for w in (1, 2)]
-    a, b = (torch.cat([t.reshape(-1) for _, t in sorted(_leaves(
-        {k: s[k] for k in ("params_coarse", "params_fine")}))])
-        for s in states)
-    params_rel = rel_l2(b, a)
+
+    params_rel = rel_l2(*(_params(os.path.join(
+        exp[w], f"{DP_RESUME_STEPS:06d}.ckpt")) for w in (2, 1)))
+    params_rel_n = rel_l2(*(_params(os.path.join(
+        exp_n[w], f"{DP_N_STEPS:06d}.ckpt")) for w in (2, 1)))
     test = [d for d in os.listdir(exp[1]) if d.startswith("test_images_")]
     files = _files_equal(os.path.join(exp[1], test[0]),
                          os.path.join(exp[2], test[0]))
     mesh = _files_equal(os.path.join(root, "mesh_pp1"),
                         os.path.join(root, "mesh_pp2"))
-    rec = {"loss_max_rel": loss_rel, "params_rel_l2": params_rel,
+    plans = {f"w{w}.rank{r}": d["windows"] for w in (1, 2)
+             for r, d in out[w, "train_n8"]["ranks"].items()}
+    rec = {"loss_max_rel": loss_rel(exp), "params_rel_l2": params_rel,
            "test_files_differing": files, "mesh_files_differing": mesh,
+           "n8": {"loss_max_rel": loss_rel(exp_n),
+                  "params_rel_l2": params_rel_n, "windows": plans,
+                  "replayed_ms_per_step": {
+                      w: _steady_ms(exp_n[w], 2 * DP_N) for w in (1, 2)}},
            "launches_w2": {n: out[2, n]["ranks"] for n in
-                           ("train", "resume", "test", "mesh")},
+                           ("train", "resume", "test", "mesh", "train_n8")},
            "ms_per_step": {w: _window_ms(exp[w]) for w in (1, 2)}}
-    if loss_rel > 1e-6 or params_rel > 1e-5 or files or mesh:
+    if (rec["loss_max_rel"] > 1e-6 or params_rel > 1e-5 or files or mesh
+            or rec["n8"]["loss_max_rel"] > 1e-6 or params_rel_n > 1e-5
+            or any(p != DP_N_PLAN for p in plans.values())):
         raise AssertionError(f"world size 2 against 1: {rec}")
     return rec
 
@@ -3998,10 +4131,10 @@ def step_census(dev, debug_mode=None,
     (``utils/profile.trace_kernel_counts``: a replay's the same as the
     eager window's)."""
     from torch.autograd.profiler import record_function
-    from torch.profiler import ProfilerActivity, profile
 
     from plnerf_torch.kernels import fused_mlp
-    from plnerf_torch.utils.profile import trace_kernel_counts
+    from plnerf_torch.utils.profile import (end_trace, start_trace,
+                                            trace_kernel_counts)
 
     out = {}
     tmp = out_dir or tempfile.mkdtemp(prefix="plnerf_census_")
@@ -4028,16 +4161,18 @@ def step_census(dev, debug_mode=None,
                 torch.cuda.set_sync_debug_mode(0)
             torch.cuda.synchronize()
         counted = (fused_mlp.launches, fused_mlp.bwd_launches)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            with record_function("dispatch_window"):
-                for _ in range(calls):
-                    run()
-            torch.cuda.synchronize()
-        counted = (fused_mlp.launches - counted[0],
-                   fused_mlp.bwd_launches - counted[1])
+        # the session holds this window only: its kernels are counted
+        # whole, not from the span's host start (utils/profile's
+        # TRACE_MARGIN_S says why)
+        prof = start_trace(dev)
+        with record_function("dispatch_window"):
+            for _ in range(calls):
+                run()
+        end_trace(prof, dev)
         path = os.path.join(tmp, f"census_{name}.json")
         prof.export_chrome_trace(path)
+        counted = (fused_mlp.launches - counted[0],
+                   fused_mlp.bwd_launches - counted[1])
         with open(path) as f:
             trace = json.load(f)
         win = next(e for e in trace["traceEvents"]
@@ -4045,14 +4180,18 @@ def step_census(dev, debug_mode=None,
                    and e.get("ph") == "X"
                    and e.get("cat") == "user_annotation")
         t0, t1 = win["ts"], win["ts"] + win["dur"]
-        busy = _busy(trace, t0, float("inf"))
-        kernels = trace_kernel_counts(trace, t0=t0)
+        # device records stamped early still count, from the first
+        first = min((e["ts"] for e in trace["traceEvents"]
+                     if e.get("cat") in ("kernel", "gpu_memcpy",
+                                         "gpu_memset")), default=t0)
+        busy = _busy(trace, min(t0, first), float("inf"))
+        kernels = trace_kernel_counts(trace)
         out[name] = {"syncs": _trace_syncs(trace, CENSUS_WINDOW, [(t0, t1)]),
                      "host_ms_per_step": win["dur"] / 1e3 / CENSUS_WINDOW,
                      "device_ms_per_step": busy["device_ms"] / CENSUS_WINDOW,
                      "busy": busy["busy"], "launches": counted,
                      "traced_kernels": kernels,
-                     "kernel_ms_per_step": _kernel_ms(trace, t0,
+                     "kernel_ms_per_step": _kernel_ms(trace, min(t0, first),
                                                       CENSUS_WINDOW)}
         # the eager window: the wrappers count 2 + 2 launches a step; the
         # replay, which they do not see, runs the same fused kernels
@@ -4073,6 +4212,33 @@ def step_census(dev, debug_mode=None,
                 raise AssertionError(f"census {name}: windows {plan}")
             out[name]["windows"] = plan
     return out
+
+
+def _profile_window(path: str, steps: int) -> dict:
+    """A driver's ``--profile`` trace of ``steps`` steps: its
+    ``dispatch_window`` spans, the fused kernels the card ran
+    (``utils/profile.trace_kernel_counts``), the host's waits inside the
+    spans per step, the device's busy share from the first launch, device
+    and host ms per step, its gaps and its NCCL kernels."""
+    from plnerf_torch.utils.profile import (trace_device_gaps,
+                                            trace_kernel_counts)
+
+    with open(path) as f:
+        tr = json.load(f)
+    first_launch = min((e["ts"] for e in tr["traceEvents"]
+                        if e.get("cat") == "cuda_runtime"
+                        and "Launch" in e.get("name", "")), default=0.0)
+    spans = _window_spans(tr)
+    busy = _busy(tr, first_launch, float("inf"))
+    return {"steps": steps, "windows": len(spans),
+            "kernels": trace_kernel_counts(tr),
+            "syncs": _trace_syncs(tr, steps, spans), "busy": busy["busy"],
+            "device_ms_per_step": busy["device_ms"] / steps,
+            "host_ms_per_step": sum(b - a for a, b in spans) / 1e3 / steps,
+            "gaps": trace_device_gaps(tr),
+            "nccl_kernels": sum(1 for e in tr["traceEvents"]
+                                if e.get("cat") == "kernel"
+                                and "nccl" in e.get("name", "").lower())}
 
 
 def _steady_ms(exp: str, after: int, until: float = float("inf")) -> float:
@@ -4123,8 +4289,6 @@ def phase_dispatch(dev, work):
     from plnerf_torch.cli import run_depth
     from plnerf_torch.data.synthetic import (write_blender2_depth_scene,
                                              write_sphere_scene)
-    from plnerf_torch.utils.profile import (trace_device_gaps,
-                                            trace_kernel_counts)
 
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="plnerf_dispatch_")
@@ -4184,32 +4348,16 @@ def phase_dispatch(dev, work):
                                               *DISPATCH_REPLAYED)
                 if extra[:1] == ["--profile"]:
                     first = 1 + (DISPATCH_N if n > 1 else 3)
-                    path = os.path.join(ckpt, exp, "profile",
-                                        f"trace_{first:06d}.json")
-                    with open(path) as f:
-                        tr = json.load(f)
-                    first_launch = min(
-                        (e["ts"] for e in tr["traceEvents"]
-                         if e.get("cat") == "cuda_runtime"
-                         and "Launch" in e.get("name", "")), default=0.0)
-                    spans = _window_spans(tr)
-                    busy = _busy(tr, first_launch, float("inf"))
-                    traces[exp] = {
-                        "steps": DISPATCH_PROFILE, "windows": len(spans),
-                        "kernels": trace_kernel_counts(tr),
-                        "syncs": _trace_syncs(tr, DISPATCH_PROFILE, spans),
-                        "busy": busy["busy"],
-                        "device_ms_per_step":
-                            busy["device_ms"] / DISPATCH_PROFILE,
-                        "host_ms_per_step": sum(b - a for a, b in spans)
-                            / 1e3 / DISPATCH_PROFILE,
-                        "gaps": trace_device_gaps(tr)}
+                    traces[exp] = _profile_window(os.path.join(
+                        ckpt, exp, "profile", f"trace_{first:06d}.json"),
+                        DISPATCH_PROFILE)
                     # at N = 8 the traced window (9-16) is a replay: the
                     # card ran in it the fused kernels of the N = 1 run's
                     # eager steps 4-11 (the same phases), whose wrappers
                     # counted 2 + 2 a step
                     kern = traces[exp]["kernels"]
-                    if (len(spans) != (1 if n > 1 else DISPATCH_PROFILE)
+                    if (traces[exp]["windows"]
+                            != (1 if n > 1 else DISPATCH_PROFILE)
                             or traces[exp]["syncs"]["per_step"]
                             or kern.get("weight_kernel")
                             != 2 * DISPATCH_PROFILE

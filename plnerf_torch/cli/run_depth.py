@@ -41,10 +41,11 @@ whenever the device is CUDA, as in ``run_plnerf``.  ``test`` /
 ``test_opt`` score LPIPS as ``run_plnerf`` does (``--lpips_weights``).
 ``--steps_per_dispatch N`` trains in windows of N steps in which the host
 reads nothing back from the device, as ``run_plnerf`` does: on CUDA a
-full window is one replay of a CUDA graph per grid phase (eager under
-``torchrun``), the image of each step staged from the host sequence and
-the scale / shift freeze and the warm start read from the staged step
-count on the device (an eager window takes them from the host); a
+full window is one replay of a CUDA graph per grid phase (under
+``torchrun`` with its collectives inside), the image of each step
+staged from the host sequence and the scale / shift freeze and the warm
+start read from the staged step count on the device (an eager window
+takes them from the host); a
 window is cut only at the end of the grid's warm-up (the JAX driver's
 cut, run_depth.py:350-353), and the cadences fire at a window's last
 step.
@@ -339,10 +340,9 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
     g = make_generator(args.random_seed, device)
     rng = np.random.default_rng(args.random_seed)
     # a full window is one CUDA graph per phase (run_plnerf's
-    # --steps_per_dispatch), eager under data parallelism
+    # --steps_per_dispatch), its collectives inside under data parallelism
     feed = graph.Feed(n_inner, device, len(state.optimizers()))
-    graphs = graph.Graphs(device, n_inner, window_counters(state), [g],
-                          capture=mesh is None)
+    graphs = graph.Graphs(device, n_inner, window_counters(state), [g])
     t0 = time.time()
     steps_since_print = 0
     occ_warned = False

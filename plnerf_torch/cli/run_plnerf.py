@@ -83,8 +83,10 @@ Differences from the JAX driver:
   needs).  A variant that comes back after another was captured (the
   uniform phase, when the occupancy advisory drops the grid) is captured
   anew.  A shorter window runs the same body eagerly, as every window
-  does on the CPU, where N changes nothing but the cadences, and under
-  ``torchrun`` (the all-reduce is not captured).  No step of a window
+  does on the CPU, where N changes nothing but the cadences.  Under
+  ``torchrun`` each rank captures and replays the same windows, the
+  all-reduce inside them, as the JAX driver's sharded window holds its
+  psum.  No step of a window
   reads anything back from the device: a window that captures or replays
   reads the host's per-step values (the rates, the step count, the pool
   offsets) from device buffers staged before it, an eager one takes them
@@ -447,10 +449,9 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
     steps = {(ci, oc): make_step(ci, oc) for ci in (True, False)
              for oc in ((False, True) if occ_cfg is not None else (False,))}
     # a full window is one CUDA graph per (phase, precrop), sharing one
-    # memory pool; under data parallelism every window runs eagerly
+    # memory pool; under data parallelism with its collectives inside
     feed = graph.Feed(n_inner, device, len(state.optimizers()))
-    graphs = graph.Graphs(device, n_inner, window_counters(state), [g],
-                          capture=mesh is None)
+    graphs = graph.Graphs(device, n_inner, window_counters(state), [g])
 
     ev_chunk = training_eval_chunk(args, 0)   # no_batching: no pool
     if use_batching:

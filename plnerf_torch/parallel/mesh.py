@@ -24,6 +24,14 @@ idiom: one process per device under ``torchrun``, a
 A ``Mesh`` of one rank is a valid world (``torchrun --nproc_per_node
 1``): every collective then leaves its input as it is, so the run is
 bit-equal to the same run without a process group.
+
+The three collectives a train step calls (``all_reduce_mean``,
+``all_reduce_sum`` and its backward, ``all_reduce_max_``) read no value
+on the host and run in place on tensors of fixed shapes, so a CUDA graph
+of a window of steps (``train/graph.py``) captures them: NCCL enqueues
+each on the capturing stream.  ``make_mesh`` hands NCCL the process's
+device, which makes its communicator when the group is made, before any
+capture.
 """
 from __future__ import annotations
 
@@ -197,15 +205,32 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]
     return out
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """The ranks' sum of a tensor, whose backward is the ranks' sum of the
+    cotangents (``torch.distributed.nn.functional.all_reduce``, which
+    torch deprecates)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 def all_reduce_sum(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """Differentiable sum over the ranks: its backward sums the ranks'
     cotangents, so every rank's share of a loss computed from the sum
     reaches its own rows."""
     if mesh is None:
         return t
-    from torch.distributed.nn.functional import all_reduce
-
-    return all_reduce(t, group=mesh.group or dist.group.WORLD)
+    return _SumOverRanks.apply(t, mesh.group)
 
 
 def all_reduce_max_(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:

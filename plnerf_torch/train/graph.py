@@ -9,9 +9,22 @@ variant's first full window runs eagerly on the capture stream: it builds
 the kernels, makes Adam's state and the libraries' handles for that
 stream.  Its second is captured and then replayed, and every later one
 is replayed.  A window of fewer steps runs the same body eagerly, as
-does every window on the CPU and under data parallelism (the all-reduce
-is not captured).  A capture that fails raises: nothing drops back to
-eager steps.
+does every window on the CPU.  A capture that fails raises: nothing drops
+back to eager steps.
+
+Under data parallelism (``parallel/mesh.py``, NCCL) the window's
+collectives are captured with it: the gradients' and metrics' all-reduce,
+the space-carving loss's differentiable sum and the grid's max.  A
+collective enqueues its work on the capturing stream and returns without
+the host waiting, so the graph holds its kernel, and a replay runs it
+with no call from the host (NCCL 2.9.6 or later).  The variant's first
+window, run eagerly on the capture stream, also runs its collectives
+there once before the capture.  Every rank must capture and replay the
+same windows in the same order, or one rank replays a collective that
+another never joins: the plan depends only on the window's length and
+its variant, which every rank derives from the same arguments and host
+counters (the occupancy advisory reads all-reduced metrics).  The gloo
+group of a CPU run runs every window eagerly, as one device does there.
 
 What a replay reads is static: the parameters, Adam's moments and its
 device-side step counts, the rate tensors, the generator's state
@@ -116,9 +129,10 @@ class Graphs:
     outside any profiler span) and run (``run``).  ``counters``: (object,
     attribute) pairs of host integers a window advances (the state's step,
     the optimizers' counts).  ``generators``: those the steps draw from.
-    ``capture`` False (the CPU, or data parallelism) runs every window
-    eagerly.  ``captures``, ``replays`` and ``capture_s`` (the captures'
-    host seconds) count what ran."""
+    ``capture`` False plans and runs every window eagerly, the reference
+    a replay is held to; the drivers always capture, under a mesh too.
+    ``captures``, ``replays`` and ``capture_s`` (the captures' host
+    seconds) count what ran."""
 
     def __init__(self, device: torch.device, n_inner: int,
                  counters: Sequence[Tuple[object, str]] = (),

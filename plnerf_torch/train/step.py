@@ -607,6 +607,7 @@ def make_multi_train_step(setup: TrainSetup, n_inner: int,
     ``make_depth_train_step`` (the grid folded by ``apply_occ_update``
     after each step).  Its body is bit-equal to ``n_inner`` single steps,
     the draws included: the rates and the step count come from the
-    host's schedules, staged per window.  ``mesh``: windows run eagerly
-    (the all-reduce is not captured)."""
+    host's schedules, staged per window.  ``mesh``: each step's
+    collectives run inside the window, and a graph captures them with it
+    (NCCL); every rank runs the same windows."""
     return MultiTrainStep(setup, n_inner, mesh, depth)

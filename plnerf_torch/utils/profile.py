@@ -13,8 +13,8 @@ rest and the device's busy share of the wall time.  ``trace_host_syncs``
 and ``trace_device_gaps`` read the Chrome trace such a run exports: where
 the host waits on the device, and how long the device idles between its
 kernels; ``trace_kernel_counts`` counts its kernels by name.
-``start_trace`` / ``stop_trace`` bracket a window of a training
-loop (the drivers' ``--profile N``).
+``start_trace`` / ``stop_trace`` (or ``end_trace``) bracket a window of
+a training loop (the drivers' ``--profile N``).
 """
 from __future__ import annotations
 
@@ -91,6 +91,16 @@ def group_ms(durations: Dict[str, float],
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 GAP_MS = 0.2       # shorter device gaps are launch latency, not host work
+# The profiler keeps only the device records whose stamps fall inside its
+# session, and a session's kernel stamps run early against the host's
+# clock (on an H100 with torch 2.11 a replayed window lost its first ~370
+# kernel records in every session that began just before it, and in one
+# of 80 sessions, stamped ~3.4 ms early, its first fused kernels too;
+# its copies were stamped on time).  So a session opens, and closes,
+# with this much host time in which the device runs nothing, and a
+# window's kernels are counted over the whole session (which holds
+# nothing else), never cut at a host time.
+TRACE_MARGIN_S = 0.05
 
 
 def _spans(trace: dict, cats) -> List[dict]:
@@ -135,17 +145,18 @@ def trace_device_gaps(trace: dict) -> dict:
             "largest_ms": sorted(gaps, reverse=True)[:10]}
 
 
-def trace_kernel_counts(trace: dict, pattern: str = FUSED_MLP_KERNELS,
-                        t0: float = float("-inf"),
-                        t1: float = float("inf")) -> Dict[str, int]:
-    """{name: count} of the kernels of a Chrome trace that start in [t0,
-    t1] us and whose name matches ``pattern`` (a regular expression; the
-    name is its group 1, else the whole name): launches as the device ran
-    them, a CUDA graph's included."""
+def trace_kernel_counts(trace: dict, pattern: str = FUSED_MLP_KERNELS
+                        ) -> Dict[str, int]:
+    """{name: count} of the kernels of a Chrome trace whose name matches
+    ``pattern`` (a regular expression; the name is its group 1, else the
+    whole name): launches as the device ran them, a CUDA graph's
+    included.  The device's stamps can run off the host's clock
+    (``TRACE_MARGIN_S``), so a window is counted as a whole session that
+    holds only it (``start_trace``), never cut at a host time."""
     out: Dict[str, int] = defaultdict(int)
     for e in _spans(trace, ("kernel",)):
         m = re.search(pattern, e["name"])
-        if m and t0 <= e["ts"] <= t1:
+        if m:
             out[m.group(1) if m.groups() else e["name"]] += 1
     return dict(out)
 
@@ -164,13 +175,16 @@ def profile_steps(run_step: Callable[[], object], n_steps: int,
     cuda = device.type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     sync = torch.cuda.synchronize if cuda else (lambda: None)
+    margin = TRACE_MARGIN_S if cuda else 0.0
     sync()
     with profile(activities=acts) as prof:
+        time.sleep(margin)
         t0 = time.perf_counter()
         for _ in range(n_steps):
             run_step()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(margin)
     if trace_path:
         prof.export_chrome_trace(trace_path)
     events = prof.key_averages()
@@ -195,25 +209,38 @@ def profile_steps(run_step: Callable[[], object], n_steps: int,
 
 def start_trace(device: torch.device):
     """A running ``torch.profiler`` session (CPU and, on CUDA, the
-    device's kernels) for ``stop_trace``."""
+    device's kernels) for ``stop_trace``.  On CUDA it begins once the
+    device has run what was queued before, and ``TRACE_MARGIN_S`` before
+    anything is launched: the trace holds only what follows."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     prof = profile(activities=acts)
     prof.start()
+    if cuda:
+        time.sleep(TRACE_MARGIN_S)
     return prof
+
+
+def end_trace(prof, device: torch.device) -> None:
+    """End ``prof`` once the device has run its queued work and
+    ``TRACE_MARGIN_S`` has passed."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        time.sleep(TRACE_MARGIN_S)
+    prof.stop()
 
 
 def stop_trace(prof, trace_path: str, device: torch.device, steps: int,
                top: int = 10) -> dict:
-    """End ``prof`` (after the device's queued work), write its Chrome
-    trace to ``trace_path`` and return the window's top device and host
-    ops in ms per step and its device gaps (``trace_device_gaps``; none
-    on the CPU)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    prof.stop()
+    """End ``prof`` (``end_trace``), write its Chrome trace to
+    ``trace_path`` and return the window's top device and host ops in ms
+    per step and its device gaps (``trace_device_gaps``; none on the
+    CPU)."""
+    end_trace(prof, device)
     os.makedirs(os.path.dirname(trace_path) or ".", exist_ok=True)
     prof.export_chrome_trace(trace_path)
     events = prof.key_averages()

@@ -694,25 +694,32 @@ GRAPH_N = 4
 GRAPH_FLAVOURS = {"sampled": dict(), "pool": dict(pool=True),
                   "occ": dict(occ=True, mlp_dtype="bfloat16"),
                   "depth": dict(depth=True)}
+# the flavours captured under a data-parallel mesh: the NVS step in bf16,
+# the grid's (its observations max-reduced) and the depth step with the
+# joint space-carving term (its ray means summed over the ranks, forward
+# and backward)
+MESH_FLAVOURS = {"nvs_bf16": dict(mlp_dtype="bfloat16"),
+                 "occ_bf16": GRAPH_FLAVOURS["occ"],
+                 "depth_joint": dict(depth=True, joint=True)}
 
 
 def _graph_run(dev, flavour, capture, keys="vvv", debug_after=None,
-               trace_from=None):
+               trace_from=None, mesh=None):
     """One window of GRAPH_N steps of ``flavour`` per item of ``keys``
     (its variant: ``v``, or ``w``, the same step without the raw noise)
     through ``graph.Graphs`` (``capture`` False: every window eager), the
     batches made on the card from the staged feed as the drivers make
-    them, or from the host's values in an eager window.  Returns (state,
-    grid, metrics, graphs, counts): the windows from ``debug_after`` on
-    run (and stage) under ``set_sync_debug_mode("error")``, those from
-    ``trace_from`` on under ``torch.profiler``, whose trace's fused
-    kernels ``counts`` counts (``utils/profile.trace_kernel_counts``)."""
+    them, or from the host's values in an eager window; ``mesh``: the
+    steps of this rank's share of the batch, their collectives inside
+    the windows.  Returns (state, grid, metrics, graphs, counts): the
+    windows from ``debug_after`` on run (and stage) under
+    ``set_sync_debug_mode("error")``, those from ``trace_from`` on under
+    ``torch.profiler``, whose trace's fused kernels ``counts`` counts
+    (``utils/profile.trace_kernel_counts``)."""
     import dataclasses
     import json
     import os
     import tempfile
-
-    from torch.profiler import ProfilerActivity, profile
 
     from plnerf_torch.cli.run_depth import depth_batch
     from plnerf_torch.core import occgrid
@@ -724,8 +731,8 @@ def _graph_run(dev, flavour, capture, keys="vvv", debug_after=None,
                                          stage_window, window_counters)
     from plnerf_torch.utils import profile as uprofile
 
-    kw = GRAPH_FLAVOURS[flavour]
-    depth = kw.get("depth", False)
+    kw = {**GRAPH_FLAVOURS, **MESH_FLAVOURS}[flavour]
+    depth, joint = kw.get("depth", False), kw.get("joint", False)
     mcfg = ModelConfig(netdepth=4, netwidth=64, skips=(2,), multires=6,
                        multires_views=2, pi_bands=depth,
                        input_ch_cam=3 if depth else 0)
@@ -735,15 +742,16 @@ def _graph_run(dev, flavour, capture, keys="vvv", debug_after=None,
                         perturb=True, raw_noise_std=0.0 if depth else 1.0,
                         mlp_dtype=kw.get("mlp_dtype", "float32"),
                         use_fused_mlp=True, fused_fold_heads=True, occ=occ,
-                        compute_pred_hyp=depth, trim_first_weight=depth)
+                        compute_pred_hyp=depth, trim_first_weight=depth,
+                        is_joint=joint)
     # depth: the warm start ends at step 2 and the freeze at step 5, both
     # inside a window
     setup = TrainSetup(mcfg=mcfg, rcfg=rcfg, lrate=5e-3, lrate_decay=1,
                        joint_optimizer=depth,
                        grad_clip_value=0.1 if depth else None,
                        space_carving_weight=0.007 if depth else 0.0,
-                       warm_start_nerf=2, freeze_ss=6, scaleshift_lr=1e-3,
-                       opt_ch_cam=depth)
+                       is_joint=joint, warm_start_nerf=2, freeze_ss=6,
+                       scaleshift_lr=1e-3, opt_ch_cam=depth)
     images, poses, _, K = make_sphere_dataset(4, 32, 32)
     images = torch.as_tensor(images, device=dev)
     poses = torch.as_tensor(poses[:, :3, :4], device=dev)
@@ -761,10 +769,10 @@ def _graph_run(dev, flavour, capture, keys="vvv", debug_after=None,
     grid = occgrid.init_grid([-1.5] * 3, [1.5] * 3, occ, dev) \
         if occ else None
     g = torch.Generator(device=dev).manual_seed(1)
-    multis = {"v": make_multi_train_step(setup, GRAPH_N, depth=depth),
+    multis = {"v": make_multi_train_step(setup, GRAPH_N, mesh, depth),
               "w": make_multi_train_step(dataclasses.replace(
                   setup, rcfg=dataclasses.replace(rcfg, raw_noise_std=0.0)),
-                  GRAPH_N, depth=depth)}
+                  GRAPH_N, mesh, depth)}
     feed = graph.Feed(GRAPH_N, dev, len(state.optimizers()))
     graphs = graph.Graphs(dev, GRAPH_N, window_counters(state), [g],
                           capture=capture)
@@ -785,10 +793,7 @@ def _graph_run(dev, flavour, capture, keys="vvv", debug_after=None,
     m, prof = None, None
     for w, key in enumerate(keys):
         if w == trace_from:
-            torch.cuda.synchronize()
-            prof = profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA])
-            prof.__enter__()
+            prof = uprofile.start_trace(dev)
         if w == debug_after:
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
@@ -809,9 +814,9 @@ def _graph_run(dev, flavour, capture, keys="vvv", debug_after=None,
     torch.cuda.synchronize()
     counts = None
     if prof is not None:
-        prof.__exit__(None, None, None)
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "trace.json")
+            uprofile.end_trace(prof, dev)
             prof.export_chrome_trace(path)
             with open(path) as f:
                 counts = uprofile.trace_kernel_counts(json.load(f))
@@ -825,6 +830,10 @@ def _same(x, y, where):
         assert set(x) == set(y), where
         for k in x:
             _same(x[k], y[k], f"{where}/{k}")
+    elif isinstance(x, (tuple, list)):
+        assert len(x) == len(y), where
+        for i, (a, b) in enumerate(zip(x, y)):
+            _same(a, b, f"{where}/{i}")
     else:
         assert x == y, where
 
@@ -860,6 +869,93 @@ def test_cuda_replayed_window_is_eager_steps(cuda_device, flavour):
     if ga is not None:
         _same(ga, gb, "grid")
     _same(ma, mb, "metrics")
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device, tmp_path):
+    """A data-parallel mesh of one rank in this process: an NCCL group of
+    world size 1 (a ``file://`` rendezvous), destroyed after the test."""
+    import torch.distributed as dist
+
+    from plnerf_torch.parallel import mesh as pmesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        yield pmesh.make_mesh("cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("flavour", list(MESH_FLAVOURS))
+def test_cuda_data_parallel_window_is_captured(nccl_mesh, flavour):
+    """Under an NCCL mesh of one rank, four windows of 4 through
+    ``graph.Graphs`` as the drivers run them under ``torchrun``: the first
+    eager, the second captured with its collectives and replayed, the
+    third and fourth replayed, the third under
+    ``set_sync_debug_mode("error")``.  The state, the grid and the last
+    metrics equal bit for bit the same windows run eagerly under the mesh
+    and the same windows replayed without one."""
+    dev = nccl_mesh.device
+    a, ga, ma, graphs, _ = _graph_run(dev, flavour, True, keys="vvvv",
+                                      debug_after=2, mesh=nccl_mesh)
+    assert [k for _, _, k in graphs.windows()] == ["first", "capture",
+                                                   "replay", "replay"]
+    assert (graphs.captures, graphs.replays) == (1, 3)
+    b, gb, mb, _, _ = _graph_run(dev, flavour, False, keys="vvvv",
+                                 mesh=nccl_mesh)
+    c, gc, mc, _, _ = _graph_run(dev, flavour, True, keys="vvvv")
+    for other, grid, m in ((b, gb, mb), (c, gc, mc)):
+        assert a.step == other.step == 4 * GRAPH_N
+        _same(a.state_dict(), other.state_dict(), "state")
+        if ga is not None:
+            _same(ga, grid, "grid")
+        _same(ma, m, "metrics")
+
+
+def _two_rank_windows(rank, rdv, out, flavour):
+    import torch.distributed as dist
+
+    from plnerf_torch.parallel import mesh as pmesh
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=rdv, rank=rank, world_size=2,
+                            device_id=dev)
+    try:
+        mesh = pmesh.make_mesh("cuda")
+        a, ga, ma, graphs, _ = _graph_run(dev, flavour, True, keys="vvvv",
+                                          debug_after=2, mesh=mesh)
+        b, gb, mb, _, _ = _graph_run(dev, flavour, False, keys="vvvv",
+                                     mesh=mesh)
+        res = {"replayed": (a.state_dict(), ga, ma),
+               "eager": (b.state_dict(), gb, mb),
+               "plan": graphs.windows()}
+        torch.save(res, f"{out}.{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("flavour", list(MESH_FLAVOURS))
+def test_cuda_two_rank_windows_are_captured(cuda_device, tmp_path, flavour):
+    """Two ranks on two cards (skipped on fewer): each rank's replayed
+    windows, their all-reduces inside, bit-equal to its eager ones, and
+    both ranks holding the same state."""
+    import torch.multiprocessing as mp
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: one rank per card")
+    out = str(tmp_path / "w2")
+    mp.spawn(_two_rank_windows, args=(f"file://{tmp_path}/rdv", out,
+                                      flavour), nprocs=2)
+    ranks = [torch.load(f"{out}.{r}.pt", map_location="cpu",
+                        weights_only=False) for r in (0, 1)]
+    for res in ranks:
+        assert [k for _, _, k in res["plan"]] == ["first", "capture",
+                                                  "replay", "replay"]
+        _same(res["replayed"], res["eager"], "replayed vs eager")
+    _same(ranks[0]["replayed"], ranks[1]["replayed"], "rank 0 vs 1")
 
 
 def test_cuda_returning_variant_is_captured_anew(cuda_device):

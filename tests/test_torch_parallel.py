@@ -20,8 +20,17 @@ checkpoint bit for bit (chunk ``i`` keeps its seed on any rank); the
 grid's densities after the steps 1e-5 relative, as the JAX package's
 sharded occ test holds them.  One rank with a mesh is the run
 without one, bit for bit.  The models are those of the JAX package's
-``tests/test_train_smoke.py`` sharded-step tests.  The serving artifact
-across devices (one process) and the module's refusals close the file."""
+``tests/test_train_smoke.py`` sharded-step tests.
+
+Every rank also runs windows of 4 steps (NVS, occ, joint depth) through
+``MultiTrainStep.window`` and ``graph.Graphs`` as the drivers run them
+(on the card each full window but the first is a CUDA graph with its
+collectives inside; here every one runs eagerly): bit-equal to the same
+steps one at a time under the same mesh, two ranks to one device within
+the tolerances above, and planned as one device plans them.  Two ranks'
+pool window is held against the JAX package's sharded fused window on
+two virtual devices.  The serving artifact across devices (one process)
+and the module's refusals close the file."""
 import json
 import os
 
@@ -159,11 +168,174 @@ def grid(mesh):
         chunk=500, use_kernel=True, mesh=mesh))}
 
 
+# windows of WINDOW_N steps through graph.Graphs as the drivers run them
+# (the plan recorded; the CPU runs every window eagerly): a first, a
+# capture, a replay and a short one
+WINDOW_N, WINDOW_SIZES = 4, (4, 4, 4, 2)
+WINDOW_STEPS = sum(WINDOW_SIZES)
+
+
+def _window_setup(flavour):
+    """(setup, depth) of a window flavour: the NVS step with draws and
+    density noise, the grid's step, the joint depth step."""
+    if flavour == "depth":
+        rcfg = RenderConfig(**dict(RKW, compute_pred_hyp=True, is_joint=True))
+        return tstep.TrainSetup(
+            mcfg=MCFG, rcfg=rcfg, lrate=5e-3, joint_optimizer=True,
+            grad_clip_value=0.1, space_carving_weight=0.007, is_joint=True,
+            scaleshift_lr=1e-3, warm_start_nerf=2, freeze_ss=9,
+            start_decay_lrate=10, end_decay_lrate=20), True
+    occ_cfg = (og.OccGridConfig(resolution=16, candidates=32, warmup=0)
+               if flavour == "occ" else None)
+    rcfg = RenderConfig(**dict(RKW, perturb=True, raw_noise_std=1.0,
+                               occ=occ_cfg))
+    return tstep.TrainSetup(mcfg=MCFG, rcfg=rcfg, lrate=5e-3,
+                            lrate_decay=1), False
+
+
+def _window_batches(depth):
+    """Every step's global batch, stacked: step ``s`` is row ``s``."""
+    bs = [_batch(s) for s in range(WINDOW_STEPS)]
+    out = {k: torch.stack([b[k] for b in bs]) for k in ("rays", "target")}
+    if depth:
+        rng = np.random.default_rng(300)
+        out["target_h"] = torch.from_numpy(rng.uniform(
+            3.0, 5.0, (WINDOW_STEPS, 3, N_RAND, 1)).astype(np.float32))
+        out["sc_mask"] = torch.from_numpy(
+            (rng.random((WINDOW_STEPS, N_RAND)) > 0.2).astype(np.float32))
+    return out
+
+
+def _step_batch(batches, s, img):
+    """Step ``s``'s batch (an int, or a staged 0-d tensor the host never
+    reads) with its image ``img`` for the depth step."""
+    idx = s.reshape(1) if isinstance(s, torch.Tensor) else torch.tensor([s])
+    b = {k: v.index_select(0, idx)[0] for k, v in batches.items()}
+    if "target_h" in b:
+        b["img_idx"] = img
+    return b
+
+
+def window(mesh, flavour):
+    """WINDOW_SIZES windows of ``flavour`` through ``MultiTrainStep.window``
+    and ``graph.Graphs``, each staged as the drivers stage a window they
+    capture or replay; then the same steps one at a time through the
+    public step functions under the same mesh."""
+    from plnerf_torch.train import graph
+
+    setup, depth = _window_setup(flavour)
+    batches = _window_batches(depth)
+    imgs = [s % 2 for s in range(WINDOW_STEPS)]
+    occ_cfg = setup.rcfg.occ
+
+    def fresh():
+        state = tstep.init_state(torch.Generator().manual_seed(0), setup,
+                                 "cpu", n_images=2 if depth else 0)
+        return state, (None if occ_cfg is None else
+                       og.init_grid([-1.5] * 3, [1.5] * 3, occ_cfg, "cpu"))
+
+    state, grid = fresh()
+    g = torch.Generator().manual_seed(3)
+    multi = tstep.make_multi_train_step(setup, WINDOW_N, mesh, depth)
+    feed = graph.Feed(WINDOW_N, "cpu", len(state.optimizers()))
+    graphs = graph.Graphs(torch.device("cpu"), WINDOW_N,
+                          tstep.window_counters(state), [g])
+    losses, s0 = [], 0
+    for n in WINDOW_SIZES:
+        idx, im = list(range(s0, s0 + n)), imgs[s0:s0 + n]
+        staged = graphs.schedule(flavour, n) in graph.STAGED
+        if staged:
+            tstep.stage_window(feed, state, n, offset=idx, img=im)
+            idx, im = feed.row("offset"), feed.row("img")
+
+        def body(m, idx=idx, im=im, staged=staged):
+            return multi.window(state, m, lambda k: _step_batch(
+                batches, idx[k], im[k]), g, feed if staged else None, grid)
+
+        losses.append(graphs.run(flavour, body, n)["loss"])
+        s0 += n
+
+    single, sgrid = fresh()
+    sg = torch.Generator().manual_seed(3)
+    step = (tstep.make_depth_train_step(setup, mesh) if depth else
+            tstep.make_occ_train_step(setup, mesh) if occ_cfg is not None
+            else tstep.make_train_step(setup, mesh))
+    single_losses = []
+    for s in range(WINDOW_STEPS):
+        b = _step_batch(batches, s, imgs[s])
+        if occ_cfg is not None:
+            single, sgrid, m = step(single, sgrid, b, sg)
+        else:
+            single, m = step(single, b, sg)
+        single_losses.append(m["loss"])
+    ends = np.cumsum(WINDOW_SIZES) - 1
+    out = {"loss": torch.stack(losses), "params": _flat(state),
+           "single_loss": torch.stack([single_losses[e] for e in ends]),
+           "single_params": _flat(single), "plan": graphs.windows(),
+           "steps": (state.step, single.step)}
+    if grid is not None:
+        out.update(density=grid["density"], occ=grid["occ"],
+                   single_density=sgrid["density"], single_occ=sgrid["occ"])
+    return out
+
+
 SCENARIOS = {"nvs": lambda m: nvs(m, False),
              "nvs_perturb_noise": lambda m: nvs(m, True),
              "depth": lambda m: depth(m, False),
              "depth_joint": lambda m: depth(m, True),
-             "occ": occ, "render": render, "grid": grid}
+             "occ": occ, "render": render, "grid": grid,
+             "window_nvs": lambda m: window(m, "nvs"),
+             "window_occ": lambda m: window(m, "occ"),
+             "window_depth": lambda m: window(m, "depth")}
+WINDOW_FLAVOURS = ["window_nvs", "window_occ", "window_depth"]
+
+# test_torch_graph_window.test_pool_window_matches_jax's pool window: two
+# windows of POOL_N at these offsets of its pool, draws off
+POOL_N, POOL_R = 4, 32
+POOL_OFFSETS = (5, 5 + POOL_N * POOL_R)
+
+
+def pool_window(mesh, init: str):
+    """The driver's pool window from the saved init (``_pool_init``):
+    each window's last loss and the final networks."""
+    from plnerf_torch.train import batching, graph
+
+    d = torch.load(init, weights_only=False)
+    setup = d["setup"]
+    state = tstep.init_state(torch.Generator().manual_seed(0), setup, "cpu")
+    state.params_coarse.load_state_dict(d["params_coarse"])
+    state.params_fine.load_state_dict(d["params_fine"])
+    pool = torch.as_tensor(d["pool"])
+    multi = tstep.make_multi_train_step(setup, POOL_N, mesh)
+    feed = graph.Feed(POOL_N, "cpu", len(state.optimizers()))
+    graphs = graph.Graphs(torch.device("cpu"), POOL_N,
+                          tstep.window_counters(state))
+    losses = []
+    for i_batch in POOL_OFFSETS:
+        offs = [i_batch + k * POOL_R for k in range(POOL_N)]
+        staged = graphs.schedule("pool", POOL_N) in graph.STAGED
+        if staged:
+            tstep.stage_window(feed, state, POOL_N, offset=offs)
+            offs = feed.row("offset")
+
+        def body(n, offs=offs, staged=staged):
+            def batch_of(k):
+                rays, target = batching.pool_batch(pool, offs[k], POOL_R,
+                                                   2.0, 6.0, True)
+                return {"rays": rays, "target": target}
+
+            return multi.window(state, n, batch_of, None,
+                                feed if staged else None)
+
+        losses.append(graphs.run("pool", body, POOL_N)["loss"])
+    return {"loss": torch.stack(losses),
+            "params": torch.cat([p.detach().reshape(-1) for p in
+                                 state.params_coarse.parameters()]
+                                + [p.detach().reshape(-1) for p in
+                                   state.params_fine.parameters()]),
+            "networks": {"coarse": state.params_coarse.state_dict(),
+                         "fine": state.params_fine.state_dict()},
+            "steps": state.step}
 
 
 def _run_all(mesh):
@@ -201,7 +373,7 @@ def _driver(root, data_dir, ft_path=None):
     return {"params": _flat(state), "metrics": mm.as_dict(), "ply": ply}
 
 
-def _worker(rank, world, rdv, out, data_dir, ft_path):
+def _worker(rank, world, rdv, out, data_dir, ft_path, pool_init):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=rdv, rank=rank,
                             world_size=world)
@@ -211,9 +383,23 @@ def _worker(rank, world, rdv, out, data_dir, ft_path):
         os.environ["WORLD_SIZE"] = str(world)   # as torchrun sets it
         res["driver"] = _driver(os.path.join(out, f"w{world}"), data_dir,
                                 ft_path)
+        res["pool_window"] = pool_window(mesh, pool_init)
         torch.save(res, os.path.join(out, f"w{world}.{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def _pool_init(path):
+    """The port's side of ``test_torch_graph_window._nvs_pair`` (its
+    setup, its networks loaded from the JAX package's numpy init) and the
+    sphere pool, saved for the ranks."""
+    from test_torch_graph_window import _nvs_pair, _sphere_pool
+
+    _, _, setup, state, _ = _nvs_pair()
+    torch.save({"setup": setup,
+                "params_coarse": state.params_coarse.state_dict(),
+                "params_fine": state.params_fine.state_dict(),
+                "pool": _sphere_pool()}, path)
 
 
 @pytest.fixture(scope="module")
@@ -225,13 +411,16 @@ def runs(tmp_path_factory):
     data_dir = os.path.join(d, "data")
     write_sphere_scene(os.path.join(data_dir, "sphere"), 24,
                        {"train": 4, "val": 1, "test": 2})
+    pool_init = os.path.join(d, "pool_init.pt")
+    _pool_init(pool_init)
     plain = _run_all(None)
     plain["driver"] = _driver(os.path.join(d, "plain"), data_dir)
+    plain["pool_window"] = pool_window(None, pool_init)
     # the ranks evaluate the checkpoint of the run without a mesh
     ft = os.path.join(d, "plain", "ck", "e", "000006.ckpt")
     for world in (2, 1):
         mp.spawn(_worker, args=(world, f"file://{d}/rdv{world}", d,
-                                data_dir, ft), nprocs=world)
+                                data_dir, ft, pool_init), nprocs=world)
     load = lambda n: torch.load(os.path.join(d, n), weights_only=False)
     return plain, load("w1.0.pt"), [load(f"w2.{r}.pt") for r in (0, 1)], d
 
@@ -289,6 +478,75 @@ def _flat_init():
     setup = tstep.TrainSetup(mcfg=MCFG, rcfg=RenderConfig(**RKW))
     return _flat(tstep.init_state(torch.Generator().manual_seed(0), setup,
                                   "cpu"))
+
+
+@pytest.mark.parametrize("name", WINDOW_FLAVOURS)
+def test_window_is_single_steps_under_the_mesh(runs, name):
+    """Under every mesh (none, one rank, each of two ranks) the windows
+    equal the same steps taken one at a time under that mesh, bit for
+    bit: the last loss of each window, the parameters and the grid."""
+    plain, one, (r0, r1), _ = runs
+    for res in (plain, one, r0, r1):
+        got = res[name]
+        assert got["steps"] == (WINDOW_STEPS, WINDOW_STEPS)
+        for k in [k for k in got if k.startswith("single_")]:
+            assert torch.equal(got[k[len("single_"):]], got[k]), k
+
+
+@pytest.mark.parametrize("name", WINDOW_FLAVOURS)
+def test_window_matches_one_device(runs, name):
+    """Two ranks' windows against one device's: the windows' losses 1e-6
+    relative, the parameters 1e-5 relative L2; the plan (first, capture,
+    replay, a short eager window) is one device's on one rank and on
+    each of two."""
+    plain, one, (r0, r1), _ = runs
+    got, ref = r0[name], plain[name]
+    torch.testing.assert_close(got["loss"], ref["loss"], rtol=1e-6, atol=0)
+    assert _rel_l2(got["params"], ref["params"]) < 1e-5
+    assert not torch.equal(ref["params"], _window_init(name))
+    assert [k for _, _, k in ref["plan"]] == ["first", "capture", "replay",
+                                              "eager"]
+    for res in (one, r0, r1):
+        assert res[name]["plan"] == ref["plan"]
+
+
+def _window_init(name):
+    setup, depth = _window_setup(name[len("window_"):])
+    return _flat(tstep.init_state(torch.Generator().manual_seed(0), setup,
+                                  "cpu", n_images=2 if depth else 0))
+
+
+def test_two_rank_pool_window_matches_jax(runs):
+    """The pool window of two gloo ranks against the JAX package's sharded
+    fused window, ``run_plnerf._make_pool_step(..., mesh, n_inner=4)`` on
+    two of the virtual CPU devices, from one init with draws off (as
+    ``test_torch_graph_window.test_pool_window_matches_jax`` holds one
+    device): each window's last loss to 1e-3 relative, each tensor's
+    update within 5% in L2."""
+    import jax
+    import jax.numpy as jnp
+
+    from plnerf.cli import run_plnerf as jrun
+    from plnerf.parallel import mesh as jpmesh
+    from test_torch_graph_window import _held_updates, _nvs_pair, _sphere_pool
+
+    _, _, (two, _), _ = runs
+    jsetup, jstate, _, state, p0 = _nvs_pair()
+    jmesh = jpmesh.make_mesh(jax.devices()[:2])
+    jstate = jpmesh.replicate(jstate, jmesh)
+    pool = jpmesh.replicate(jnp.asarray(_sphere_pool()), jmesh)
+    jfn = jrun._make_pool_step(jsetup, 2.0, 6.0, POOL_R, jmesh,
+                               n_inner=POOL_N)
+    got = two["pool_window"]
+    for w, i_batch in enumerate(POOL_OFFSETS):
+        jstate, jm = jfn(jstate, pool, jnp.int32(i_batch),
+                         jax.random.PRNGKey(w))
+        assert float(got["loss"][w]) == pytest.approx(float(jm["loss"]),
+                                                      rel=1e-3), w
+    assert got["steps"] == int(jstate.step) == 2 * POOL_N
+    state.params_coarse.load_state_dict(got["networks"]["coarse"])
+    state.params_fine.load_state_dict(got["networks"]["fine"])
+    _held_updates(state, jstate, p0)
 
 
 @pytest.mark.parametrize("name", ["render", "grid"])
