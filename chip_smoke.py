@@ -2019,7 +2019,7 @@ def _lpips_hold(dev, path: str, res: dict, row: float) -> dict:
 def _profile_trace(path: str, steps: int) -> dict:
     """The --profile window's Chrome trace: its top device kernels by ms
     per step; raises unless it holds both fused MLP kernels."""
-    from plnerf_torch.utils.profile import FUSED_MLP_GROUPS
+    from plnerf_torch.utils.profile import fused_group
 
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
@@ -2029,8 +2029,7 @@ def _profile_trace(path: str, steps: int) -> dict:
         ms[e["name"]] = ms.get(e["name"], 0.0) + e["dur"] / 1e3 / steps
     top = [[k[:80], v] for k, v in sorted(ms.items(),
                                          key=lambda kv: -kv[1])[:5]]
-    groups = {g for g, pats in FUSED_MLP_GROUPS.items()
-              for name in ms if any(p in name for p in pats)}
+    groups = {fused_group(name) for name in ms}
     if not {"fused_mlp_fwd", "fused_mlp_bwd_data"} <= groups:
         raise AssertionError(f"{path}: kernels {sorted(ms)[:8]}")
     return {"trace": os.path.basename(path), "steps": steps,
@@ -4059,10 +4058,10 @@ def _graph_flavour(dev, flavour: str, scene: tuple):
 
 
 def _window_spans(trace: dict) -> list:
-    """(start, end) us of the trace's ``dispatch_window`` spans on the
-    host (the drivers' windows; the card's copies of them are
+    """(start, end) us of the trace's ``window`` spans on the host (the
+    drivers' windows from their launch; the card's copies of them are
     ``gpu_user_annotation``)."""
-    from plnerf_torch.cli.run_plnerf import WINDOW_SPAN
+    from plnerf_torch.train.graph import WINDOW_SPAN
 
     return [(e["ts"], e["ts"] + e["dur"]) for e in trace["traceEvents"]
             if e.get("ph") == "X" and e.get("name") == WINDOW_SPAN
@@ -4216,7 +4215,7 @@ def step_census(dev, debug_mode=None,
 
 def _profile_window(path: str, steps: int) -> dict:
     """A driver's ``--profile`` trace of ``steps`` steps: its
-    ``dispatch_window`` spans, the fused kernels the card ran
+    ``window`` spans, the fused kernels the card ran
     (``utils/profile.trace_kernel_counts``), the host's waits inside the
     spans per step, the device's busy share from the first launch, device
     and host ms per step, its gaps and its NCCL kernels."""
@@ -4441,7 +4440,7 @@ def phase_dispatch(dev, work):
                  "set_sync_debug_mode('error') and then traced "
                  "(syncs: the host's waits on the card per step); traces: "
                  "the drivers' --profile windows (syncs inside their "
-                 "dispatch_window spans, busy: device time over the span "
+                 "window spans, busy: device time over the span "
                  "from the first launch); ms_per_step: the print records "
                  "past step 24 (warm-up and the profiled window excluded), "
                  "val renders off; recipes: per run its graphs' captures "

@@ -93,10 +93,11 @@ from ..train import graph
 from ..train.step import (TrainSetup, image_index, init_state,
                           make_multi_train_step, stage_window,
                           window_counters)
+from ..utils import profile as uprofile
 from ..utils.logging import MetricsLogger
 from .config import (ConfigArgumentParser, add_occ_flags, resolve_args,
                      str2bool)
-from .run_plnerf import (WINDOW_SPAN, _lpips, _occ_advisory,
+from .run_plnerf import (_lpips, _occ_advisory,
                          _resolve_kernel, eval_render_config, fires,
                          join_mesh, occ_cfg_from_args, occ_for_eval,
                          occ_train_grid, phase_boundaries, save_checkpoint,
@@ -345,6 +346,8 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
     graphs = graph.Graphs(device, n_inner, window_counters(state), [g])
     t0 = time.time()
     steps_since_print = 0
+    # the recorder's roots after this one go into the next print
+    since = uprofile.mark()
     occ_warned = False
     i0 = start + 1
     while i0 <= args.num_iterations:
@@ -375,24 +378,25 @@ def run_training(args, data, setup: TrainSetup, mcfg: ModelConfig,
                                 feed if staged else None, grid)
 
         graphs.prepare(occ_on, body, n_this)
-        with torch.profiler.record_function(WINDOW_SPAN):
-            metrics = graphs.run(occ_on, body, n_this)
+        metrics = graphs.run(occ_on, body, n_this)
         i0 = i + 1
         steps_since_print += n_this
 
         if fires(i, n_this, args.i_print):
             m = {k: float(v) for k, v in metrics.items()}   # host sync
-            m["steps_per_sec"] = steps_since_print / max(
-                time.time() - t0, 1e-9)
+            wall = max(time.time() - t0, 1e-9)
+            m["steps_per_sec"] = steps_since_print / wall
             t0 = time.time()
             steps_since_print = 0
             with torch.no_grad():
                 m["depth_scale_mean"] = float(state.depth_scales.mean())
                 m["depth_shift_mean"] = float(state.depth_shifts.mean())
             logger.scalars(i, m, prefix="train/")
+            windows, since = uprofile.records(since), uprofile.mark()
             print(f"[DEPTH TRAIN] Iter: {i} Loss: {m['loss']:.5f} "
                   f"PSNR: {m['psnr']:.2f} SC: "
-                  f"{m.get('space_carving_loss', 0.0):.5f}")
+                  f"{m.get('space_carving_loss', 0.0):.5f} "
+                  + graph.window_report(windows, wall))
             if occ_on:
                 # depth supervision usually closes the degenerate-scene
                 # gap, so this only advises

@@ -53,7 +53,11 @@ UNAVAILABLE).  ``--profile N`` traces at least N training steps with
 ``torch.profiler`` into ``<expname>/profile/`` and prints the top device
 ops: it starts at the first window that begins past the third step and
 stops at the end of the window that holds the N-th traced step.  Each
-window is a ``dispatch_window`` span of the trace (``WINDOW_SPAN``).
+window is a ``window`` span of the trace (``train/graph.WINDOW_SPAN``,
+from its launch), its staging a ``window.stage`` span.  Each ``[TRAIN]``
+line also gives, since the previous one, the host ms per step of staging
+and launching the windows, the card's idle share and the host span with
+the most of its idle time (``train/graph.window_report``).
 
 Data parallelism (``parallel/mesh.py``):
 
@@ -387,10 +391,6 @@ def _dead_coarse_advisory(m: dict, step: int, warned: bool,
     return True
 
 
-# the name of each dispatch window's span in a --profile trace
-WINDOW_SPAN = "dispatch_window"
-
-
 def phase_boundaries(*steps: int) -> list:
     """The sorted positive steps at which a new training phase starts;
     0 marks a phase the run does not have."""
@@ -498,6 +498,8 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
         occ_warm_end + 1 if occ_cfg is not None else 0)
     t0 = time.time()
     steps_since_print = 0
+    # the recorder's roots after this one go into the next [TRAIN] line
+    since = uprofile.mark()
     dead_warned = occ_warned = False
     profile_n = args.profile if main else 0
     prof = prof_first = None
@@ -537,8 +539,7 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
         if profile_n and prof_first is None and i0 > start + 3:
             # from the fourth step: the first ones build and warm up
             prof, prof_first = uprofile.start_trace(device), i0
-        with torch.profiler.record_function(WINDOW_SPAN):
-            metrics = graphs.run(key, body, n_this)
+        metrics = graphs.run(key, body, n_this)
         if use_batching and pool.shape[0] - i_batch < n_rand:
             # every full batch of the epoch is consumed before the
             # reshuffle (run_plnerf.py:1244-1248 of the reference), in
@@ -569,13 +570,15 @@ def run_training(args, bundle: DatasetBundle, setup: TrainSetup,
 
         if fires(i, n_this, args.i_print):
             m = {k: float(v) for k, v in metrics.items()}   # host sync
-            m["steps_per_sec"] = steps_since_print / max(
-                time.time() - t0, 1e-9)
+            wall = max(time.time() - t0, 1e-9)
+            m["steps_per_sec"] = steps_since_print / wall
             t0 = time.time()
             steps_since_print = 0
             logger.scalars(i, m, prefix="train/")
+            windows, since = uprofile.records(since), uprofile.mark()
             print(f"[TRAIN] Iter: {i} Loss: {m['loss']:.5f} "
-                  f"PSNR: {m['psnr']:.2f} ({m['steps_per_sec']:.1f} it/s)")
+                  f"PSNR: {m['psnr']:.2f} ({m['steps_per_sec']:.1f} it/s) "
+                  + graph.window_report(windows, wall))
             dead_warned = _dead_coarse_advisory(m, i, dead_warned,
                                                 args.mode)
             if args.debug:

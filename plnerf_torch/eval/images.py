@@ -20,11 +20,12 @@ metrics and files are made on rank 0 only.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import Callable, ContextManager, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,7 +56,8 @@ def render_chunks(params_c: NeRF, params_f: Optional[NeRF],
                   chunk: int, seed: int, keys, cam_embedding=None,
                   mcfg_fine: Optional[ModelConfig] = None,
                   keep_hyp: bool = False, occ_grid=None,
-                  mesh: Optional[pmesh.Mesh] = None
+                  mesh: Optional[pmesh.Mesh] = None,
+                  join: Callable[[], ContextManager] = contextlib.nullcontext
                   ) -> Dict[str, torch.Tensor]:
     """Render ``rays`` [n, 8|11] chunk by chunk; returns the ``keys``
     maps (and ``pred_hyp`` with ``keep_hyp``) concatenated over chunks, on
@@ -63,7 +65,9 @@ def render_chunks(params_c: NeRF, params_f: Optional[NeRF],
     when ``rcfg.occ`` is set (a model trained grid-guided is scored under
     the sample distribution it trained with).  ``mesh``: every rank
     passes the same rays, renders chunks ``rank, rank + world, ...`` and
-    returns all the maps (the module docstring)."""
+    returns all the maps (the module docstring).  ``join``: a context
+    around the join of the chunks' maps without a mesh (the serving
+    renderer's ``request.assemble`` span)."""
     if rcfg.occ is not None and occ_grid is None:
         raise ValueError("rcfg.occ is set but no occ_grid was passed: "
                          "occ-trained models must be evaluated with "
@@ -84,7 +88,9 @@ def render_chunks(params_c: NeRF, params_f: Optional[NeRF],
                 else range(mesh.rank, len(starts), mesh.size))
         outs = [one(i) for i in mine]
         if mesh is None:
-            return {k: torch.cat([o[k] for o in outs], 0) for k in outs[0]}
+            with join():
+                return {k: torch.cat([o[k] for o in outs], 0)
+                        for k in outs[0]}
         # the maps' layout, from a one-ray render where this rank has no
         # chunk
         like = outs[0] if outs else one(0, 1)

@@ -42,6 +42,7 @@ from ..core.mlp import NeRF
 from ..device import DeviceLike, make_generator, resolve_device
 from ..eval.images import render_chunks
 from ..kernels import fused_mlp  # noqa: F401  registers the forward op
+from ..utils import profile
 from .export import (FORMAT_VERSION, MANIFEST_FILE, MODULE_FILE,
                      MODULE_FUSED_FILE, WEIGHTS_FILE, output_keys,
                      ray_dim)
@@ -100,7 +101,9 @@ class ServingRenderer:
         def chunks(rays, seed, want):
             return render_chunks(srv.params_c, srv.params_f, rays, mcfg,
                                  rcfg, srv.chunk, seed, want,
-                                 mcfg_fine=mcfg_fine, occ_grid=occ_grid)
+                                 mcfg_fine=mcfg_fine, occ_grid=occ_grid,
+                                 join=lambda: profile.span(
+                                     "request.assemble", dev))
         srv._chunks = chunks
         return srv
 
@@ -174,8 +177,9 @@ class ServingRenderer:
                         rays[i * srv.chunk:(i + 1) * srv.chunk].to(d),
                         **inputs([seed + i], srv.chunk, d))
                     outs.append({k: out[k] for k in want})
-            return {k: torch.cat([o[k].to(dev) for o in outs], 0)
-                    for k in want}
+            with profile.span("request.assemble", dev):
+                return {k: torch.cat([o[k].to(dev) for o in outs], 0)
+                        for k in want}
         srv._chunks = chunks
 
         srv.fused_n_rays = manifest.get("fused_n_rays")
@@ -198,7 +202,16 @@ class ServingRenderer:
         """rays: [n, ray_dim] packed like ``core.render.make_ray_batch``;
         any n >= 1.  Returns numpy maps of length n.  A loaded artifact
         with a whole-batch module serves exactly ``fused_n_rays`` padded
-        rays in one call of it."""
+        rays in one call of it.  A ``request`` span (``utils/profile``),
+        timed on the card until the maps are on the host."""
+        with profile.span("request", self.device) as req:
+            return self._render(rays, seed, keys, req)
+
+    def _render(self, rays, seed: int, keys: Optional[Sequence[str]],
+                req: profile.Span) -> Dict[str, np.ndarray]:
+        """``render_rays`` inside the request's span ``req``: its fields
+        ``rays`` and ``padded`` (the rays added up to whole chunks), and
+        the spans ``request.pad`` and ``request.fetch``."""
         rays = torch.as_tensor(rays, dtype=torch.float32, device=self.device)
         if rays.dim() != 2 or rays.shape[1] != self.ray_dim or \
                 rays.shape[0] < 1:
@@ -207,28 +220,34 @@ class ServingRenderer:
                 f"{tuple(rays.shape)}")
         n = rays.shape[0]
         pad = (-n) % self.chunk
+        req.fields.update(rays=n, padded=pad)
         if pad:
-            rays = torch.cat([rays, rays[-1:].expand(pad, self.ray_dim)], 0)
+            with profile.span("request.pad", self.device):
+                rays = torch.cat([rays, rays[-1:].expand(pad, self.ray_dim)],
+                                 0)
         want = self.output_keys if keys is None else \
             [k for k in self.output_keys if k in set(keys)]
         if self._fused is not None and rays.shape[0] == self.fused_n_rays:
             out = self._fused(rays, seed, want)
         else:
             out = self._chunks(rays, seed, want)
-        return {k: v[:n].cpu().numpy() for k, v in out.items()}
+        with profile.span("request.fetch"):
+            return {k: v[:n].cpu().numpy() for k, v in out.items()}
 
     def render_image(self, c2w, hwf, K, near: float = 2.0, far: float = 6.0,
                      ndc: bool = False, seed: int = 0,
                      keys: Optional[Sequence[str]] = None
                      ) -> Dict[str, np.ndarray]:
         """Render one full image from camera geometry (same packing as
-        ``eval.images.render_image``)."""
-        H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
-        c2w = torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4],
-                              device=self.device)
-        rays_o, rays_d = raysmod.get_rays(H, W, np.asarray(K), c2w)
-        packed, _ = render.make_ray_batch(rays_o, rays_d, near, far,
-                                          self.use_viewdirs, ndc, H, W,
-                                          focal)
-        out = self.render_rays(packed, seed=seed, keys=keys)
+        ``eval.images.render_image``); one ``request`` span from its
+        camera's rays on, as ``render_rays``."""
+        with profile.span("request", self.device) as req:
+            H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
+            c2w = torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4],
+                                  device=self.device)
+            rays_o, rays_d = raysmod.get_rays(H, W, np.asarray(K), c2w)
+            packed, _ = render.make_ray_batch(rays_o, rays_d, near, far,
+                                              self.use_viewdirs, ndc, H, W,
+                                              focal)
+            out = self._render(packed, seed, keys, req)
         return {k: v.reshape(H, W, *v.shape[1:]) for k, v in out.items()}

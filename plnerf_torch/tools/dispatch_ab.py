@@ -17,7 +17,7 @@ run's ms per step is read from its print records past step ``--after``
 (every phase boundary behind it): the steps between two records over
 their ``steps_per_sec``.  ``--profile`` traces 8 steps of each run (the
 driver's ``--profile 8``, from the window past step 3) and adds what the
-host did in them per step: ms inside the ``dispatch_window`` spans, CUDA
+host did in them per step: ms inside the windows' spans, CUDA
 runtime launches, CPU ops, and the 30 most frequent CPU ops.  Prints one
 JSON line per run and, with ``--out``, writes them all.
 """
@@ -61,13 +61,14 @@ def ms_per_step(metrics_path: str, after: int) -> float:
 
 def host_work(trace_path: str, steps: int) -> dict:
     """Per step of a driver's ``--profile`` trace: the host's ms inside
-    its ``dispatch_window`` spans, its CUDA runtime launches and CPU ops
-    there, and the 30 most frequent CPU ops."""
+    its windows' spans (``window``; ``dispatch_window`` in a checkout
+    older than the program's span recorder), its CUDA runtime launches
+    and CPU ops there, and the 30 most frequent CPU ops."""
     with open(trace_path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X"]
     spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
-             if e.get("name") == "dispatch_window"
+             if e.get("name") in ("window", "dispatch_window")
              and e.get("cat") == "user_annotation"]
 
     def inside(e):

@@ -52,9 +52,12 @@ pool, and the metrics a replay returns are copied out of it.
 from __future__ import annotations
 
 import time
+from collections import defaultdict
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
+
+from ..utils import profile
 
 
 Metrics = Dict[str, torch.Tensor]
@@ -117,6 +120,11 @@ class _Program:
 
 # the kinds of window that read the staged ``Feed``
 STAGED = ("capture", "replay")
+# each window's span (``utils/profile``), the root of its ``window.stage``
+# (``train/step.stage_window``), ``window.capture``, ``window.launch`` and
+# ``window.outputs`` spans; in a ``torch.profiler`` trace it covers the
+# launch and the outputs
+WINDOW_SPAN = "window"
 
 
 class Graphs:
@@ -132,7 +140,12 @@ class Graphs:
     ``capture`` False plans and runs every window eagerly, the reference
     a replay is held to; the drivers always capture, under a mesh too.
     ``captures``, ``replays`` and ``capture_s`` (the captures' host
-    seconds) count what ran."""
+    seconds) count what ran.
+
+    ``schedule`` opens the window's span (``WINDOW_SPAN``, fields
+    ``kind`` and ``steps``) and ``run`` closes it; on CUDA ``run`` times
+    it on the card from just before the launch, after the staging and
+    any capture, to after the outputs' copy."""
 
     def __init__(self, device: torch.device, n_inner: int,
                  counters: Sequence[Tuple[object, str]] = (),
@@ -156,6 +169,7 @@ class Graphs:
         # not yet run: [key, n, kind, captured]
         self.last: Optional[Hashable] = None
         self._next: Optional[list] = None
+        self._span: Optional[profile.Span] = None
         self.pool = self.stream = None
         if self.capture:
             self.pool = torch.cuda.graph_pool_handle()
@@ -189,6 +203,7 @@ class Graphs:
         else:
             self.plan.append([key, n, kind, 1])
         self._next = [key, n, kind, False]
+        self._span = profile.open_span(WINDOW_SPAN, kind=kind, steps=n)
         return kind
 
     def _planned(self, key: Hashable, n: int) -> list:
@@ -207,7 +222,8 @@ class Graphs:
         replays it."""
         nxt = self._planned(key, n)
         if self.capture and nxt[2] == "capture" and not nxt[3]:
-            self._capture(self.programs[key], body, n)
+            with profile.span("window.capture"):
+                self._capture(self.programs[key], body, n)
             nxt[3] = True
 
     def run(self, key: Hashable, body: Callable[[int], Metrics],
@@ -217,14 +233,21 @@ class Graphs:
         On CUDA a "first" window runs eagerly on the capture stream, a
         "capture" or "replay" one as a replay (captured first where
         ``prepare`` has not); any other window runs eagerly."""
-        self.prepare(key, body, n)
-        kind = self._next[2]
-        self._next = None
-        if not self.capture or kind == "eager":
-            return body(n)
-        if kind == "first":
-            return self._on_stream(body, n)
-        return self._replay(self.programs[key])
+        try:
+            self.prepare(key, body, n)
+            kind = self._next[2]
+            self._next = None
+            profile.start(self._span, self.device)
+            if self.capture and kind in STAGED:
+                return self._replay(self.programs[key])
+            with profile.span("window.launch"):
+                if self.capture and kind == "first":
+                    return self._on_stream(body, n)
+                return body(n)
+        finally:
+            if self._span is not None:
+                profile.close(self._span)
+                self._span = None
 
     def _on_stream(self, body, n: int) -> Metrics:
         cur = torch.cuda.current_stream(self.device)
@@ -261,8 +284,38 @@ class Graphs:
         self.capture_s += time.perf_counter() - t0
 
     def _replay(self, prog: _Program) -> Metrics:
-        prog.graph.replay()
-        for (o, a), d in zip(self.counters, prog.delta):
-            setattr(o, a, getattr(o, a) + d)
-        self.replays += 1
-        return dict(zip(prog.keys, prog.out.clone().unbind(0)))
+        with profile.span("window.launch"):
+            prog.graph.replay()
+            for (o, a), d in zip(self.counters, prog.delta):
+                setattr(o, a, getattr(o, a) + d)
+            self.replays += 1
+        with profile.span("window.outputs"):
+            return dict(zip(prog.keys, prog.out.clone().unbind(0)))
+
+
+def window_report(roots: Sequence[profile.Span], wall_s: float) -> str:
+    """The windows among ``roots`` (``utils/profile.records``) over
+    ``wall_s`` host seconds, for the drivers' print: host ms per step
+    staging (``window.stage``) and launching (``window.launch``) them,
+    and on the card its idle share (1 - their device ms over the wall
+    time) and the host span with the most of the gaps before them."""
+    wins = [r for r in roots if r.name == WINDOW_SPAN]
+    steps = sum(r.fields.get("steps", 0) for r in wins)
+    if not steps:
+        return ""
+    own: Dict[str, float] = defaultdict(float)
+    idle: Dict[str, float] = defaultdict(float)
+    for r in wins:
+        for s in r.spans:
+            own[s.name] += s.self_ms
+        for k, v in (r.idle or {}).items():
+            idle[k] += v
+    text = (f"host ms/step stage {own['window.stage'] / steps:.4f} "
+            f"launch {own['window.launch'] / steps:.4f}")
+    if wall_s > 0 and all(r.device_ms is not None for r in wins):
+        busy = sum(r.device_ms for r in wins) / 1e3
+        text += f", idle {100.0 * (1.0 - busy / wall_s):.2f}%"
+        if idle:
+            k, v = max(idle.items(), key=lambda kv: kv[1])
+            text += f" (most before windows: {k} {v:.1f} ms)"
+    return text

@@ -57,6 +57,7 @@ from ..core.config import ModelConfig, RenderConfig
 from ..core.mlp import NeRF
 from ..device import DeviceLike, make_generator, resolve_device
 from ..parallel import mesh as pmesh
+from ..utils import profile
 from ..utils.misc import img2mse, mse2psnr
 from . import losses, optim
 from .state import TrainState
@@ -527,9 +528,10 @@ def window_counters(state: TrainState) -> list:
 def stage_window(feed, state: TrainState, n: int, **ints) -> None:
     """Fill ``feed`` (``graph.Feed``) for the next ``n`` steps of
     ``state``: each optimizer's rates, the step counts and ``ints`` (the
-    feed's other rows, one value per step)."""
-    feed.fill([o.rates(n) for o in state.optimizers()],
-              step=range(state.step, state.step + n), **ints)
+    feed's other rows, one value per step).  A ``window.stage`` span."""
+    with profile.span("window.stage"):
+        feed.fill([o.rates(n) for o in state.optimizers()],
+                  step=range(state.step, state.step + n), **ints)
 
 
 def _one_step(setup: TrainSetup, mesh, depth: bool) -> Callable:

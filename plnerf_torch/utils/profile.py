@@ -15,26 +15,29 @@ the host waits on the device, and how long the device idles between its
 kernels; ``trace_kernel_counts`` counts its kernels by name.
 ``start_trace`` / ``stop_trace`` (or ``end_trace``) bracket a window of
 a training loop (the drivers' ``--profile N``).
+
+The program's own spans, always on and timed without the profiler
+(``Recorder``, one per process: ``RECORDER``, and its methods ``span``,
+``open_span``, ``start``, ``close``, ``records``, ``mark``): a span at
+each dispatch window (``train/graph.Graphs``) and served request
+(``serving/runtime.ServingRenderer``) and at the phases inside them, and
+on the card a pair of CUDA events around each window, request, padding
+and chunk assembly, which give its device time and the card's idle time
+before it, put down to what the host was doing then.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
 import statistics
 import time
-from collections import defaultdict
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from collections import defaultdict, deque
+from typing import (Callable, Deque, Dict, Iterable, List, Optional,
+                    Sequence, Tuple)
 
 import torch
-
-# kernel-name patterns of the fused MLP's CUDA kernels
-FUSED_MLP_GROUPS: Dict[str, Tuple[str, ...]] = {
-    "fused_mlp_fwd": ("fp32_kernel", "bf16_kernel"),
-    "fused_mlp_bwd_data": ("data_kernel",),
-    "fused_mlp_bwd_weight": ("weight_kernel",),
-    "fused_mlp_bwd_reduce": ("reduce_kernel",),
-}
 
 # the fused MLP's kernels by their names in a Chrome trace (group 1 the
 # short name): a forward call launches one ``bf16_kernel``, or one
@@ -46,6 +49,27 @@ FUSED_MLP_GROUPS: Dict[str, Tuple[str, ...]] = {
 FUSED_MLP_KERNELS = (r"\(anonymous namespace\)::(fp32_kernel|bf16_kernel|"
                      r"sgemm_data_kernel|data_kernel|weight_kernel|"
                      r"reduce_kernel|transpose_kernel|cot_data_kernel)\b")
+
+# the fused MLP's kernels by group, by their short names in
+# ``FUSED_MLP_KERNELS`` (PyTorch's own ``at::native::reduce_kernel`` is
+# none of them)
+FUSED_MLP_GROUPS: Dict[str, Tuple[str, ...]] = {
+    "fused_mlp_fwd": ("fp32_kernel", "bf16_kernel"),
+    "fused_mlp_bwd_data": ("sgemm_data_kernel", "data_kernel",
+                           "cot_data_kernel"),
+    "fused_mlp_bwd_weight": ("weight_kernel",),
+    "fused_mlp_bwd_reduce": ("reduce_kernel",),
+}
+
+
+def fused_group(name: str,
+                groups: Dict[str, Sequence[str]] = FUSED_MLP_GROUPS
+                ) -> Optional[str]:
+    """The group of ``groups`` that holds the fused-MLP kernel ``name``
+    (a kernel's name in a trace), None for any other kernel."""
+    m = re.search(FUSED_MLP_KERNELS, name)
+    return None if m is None else next(
+        (g for g, short in groups.items() if m.group(1) in short), None)
 
 
 def _is_device(e) -> bool:
@@ -79,13 +103,13 @@ def top_host_ops(events: Iterable, k: int = 25) -> List[Tuple[str, float]]:
 
 
 def group_ms(durations: Dict[str, float],
-             groups: Dict[str, Sequence[str]]) -> Dict[str, float]:
-    """Device ms by group (a kernel joins the first group with a pattern in
-    its name) and ``other`` for the rest."""
+             groups: Dict[str, Sequence[str]] = FUSED_MLP_GROUPS
+             ) -> Dict[str, float]:
+    """Device ms by group of the fused MLP's kernels (``fused_group``)
+    and ``other`` for the rest."""
     ms = dict.fromkeys(list(groups) + ["other"], 0.0)
     for name, t in durations.items():
-        ms[next((g for g, pats in groups.items()
-                 if any(p in name for p in pats)), "other")] += t
+        ms[fused_group(name, groups) or "other"] += t
     return ms
 
 
@@ -279,3 +303,278 @@ def timed_ms(fn: Callable[[], object], device: torch.device,
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# the program's own spans
+# ---------------------------------------------------------------------------
+
+# roots (windows, requests) a recorder keeps, each with its spans
+RING = 4096
+# spans with both events recorded that a root's close lets wait before it
+# reads them (``records`` reads them all)
+PENDING = 256
+
+
+# () -> True while a ``torch.profiler`` session records
+profiling = torch._C._autograd._profiler_enabled
+
+
+class Span:
+    """One span: ``name``, ``id``, ``parent`` (its id; None for a root,
+    a window or a request), ``root`` (the root's id, which every span of
+    one window or request shares), host ``t0`` / ``t1`` ns
+    (``time.perf_counter_ns``), ``fields``, ``profiled`` (a
+    ``torch.profiler`` session recorded when it opened, or for a window
+    when it started, so its host times hold the profiler's cost) and
+    ``child_ns`` (the host ns its children cover).  A root's ``spans``
+    are its descendants in the order they opened.
+
+    A span started on the card (``Recorder.start``) gets, once
+    ``Recorder.records`` reads its events, ``device_ms``: its start
+    event to its end event.  A root also gets ``gap_ms``, the card's idle
+    time from the previous root's end event to its start event, and
+    ``idle`` {span name: ms}: that gap put down to the self time of the
+    host spans that overlap the host interval of the gap's length ending
+    where the start event was recorded (``t_dev``), the rest to
+    ``caller``, the code between two calls into the program."""
+
+    __slots__ = ("name", "id", "parent", "root", "t0", "t1", "fields",
+                 "profiled", "child_ns", "spans", "device_ms", "gap_ms",
+                 "idle", "t_dev", "_up", "_top", "_ev", "_prev", "_dev",
+                 "_rf", "_rec")
+
+    def __init__(self, rec: "Recorder", name: str, id: int,
+                 up: Optional["Span"], fields: dict):
+        self._rec, self.name, self.id, self.fields, self._up = (
+            rec, name, id, fields, up)
+        if up is None:
+            self._top, self.parent, self.root = self, None, id
+        else:
+            self._top, self.parent, self.root = up._top, up.id, up.root
+        self.t0 = self.t1 = self.t_dev = self.device_ms = self.gap_ms = \
+            self.idle = self._ev = self._prev = self._dev = self._rf = None
+        self.profiled = False
+        self.child_ns = 0
+        self.spans: List[Span] = []
+
+    def __enter__(self) -> "Span":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._rec.close(self)
+
+    @property
+    def ms(self) -> float:
+        return (self.t1 - self.t0) / 1e6
+
+    @property
+    def self_ms(self) -> float:
+        return (self.t1 - self.t0 - self.child_ns) / 1e6
+
+
+class Recorder:
+    """The spans of one thread, the program's: a span opened where none
+    is open is a root.  The ring holds the last ``RING`` roots with their
+    spans.
+
+    On a CUDA device a started span records a timing event on the
+    current stream at its start and one on the same stream at its close
+    (never inside a graph capture), taken from a pool; ``records`` reads
+    them, and a root's close only once more than ``PENDING`` spans wait,
+    each once ``query`` says the card passed it, so no call waits on the
+    card.  Under a running ``torch.profiler`` session a span also opens a
+    ``record_function`` of its name, on the trace's clock, and is flagged
+    ``profiled``."""
+
+    def __init__(self):
+        self.clear()
+
+    def clear(self) -> None:
+        """Forget every span."""
+        self.roots: Deque[Span] = deque(maxlen=RING)
+        self._stack: List[Span] = []
+        self._ids = itertools.count(1)
+        # spans with both events recorded, oldest first
+        self._pending: Deque[Span] = deque()
+        # free timing events, the last root timed and the current stream
+        # (its key and object), per card
+        self._events: Dict[int, list] = defaultdict(list)
+        self._last: Dict[int, Span] = {}
+        self._streams: Dict[int, tuple] = {}
+
+    def _open(self, name: str, fields: dict, annotate: bool) -> Span:
+        t0 = time.perf_counter_ns()
+        st = self._stack
+        s = Span(self, name, next(self._ids), st[-1] if st else None,
+                 fields)
+        s.t0 = t0
+        if s._up is not None:
+            s._top.spans.append(s)
+        if annotate and profiling():
+            s.profiled = True
+            s._rf = _annotation(name)
+        st.append(s)
+        return s
+
+    def open_span(self, name: str, **fields) -> Span:
+        """Open a span that another call starts (``start``) and closes
+        (``close``): the window, which ``Graphs.schedule`` opens and
+        ``Graphs.run`` starts and closes.  Whether a profiler records it
+        is asked at ``start``: the calls between may start a trace or
+        capture a graph, which waits on the card."""
+        return self._open(name, fields, annotate=False)
+
+    def span(self, name: str, device: Optional[torch.device] = None,
+             **fields) -> Span:
+        """``with span(name, **fields) as s``: a span around the block;
+        ``device``: started there on the card at once (``start``)."""
+        s = self._open(name, fields, annotate=True)
+        if device is not None:
+            try:
+                self.start(s, device)
+            except BaseException:
+                self.close(s)
+                raise
+        return s
+
+    def start(self, s: Span, device: Optional[torch.device]) -> None:
+        """Start ``s`` on the card: its start event on the current stream
+        of ``device`` (a CUDA device; nothing elsewhere or inside a
+        capture), a root's gap read from the previous root's end event
+        there.  A span of ``open_span`` shows in a profiler's trace from
+        here."""
+        if s._rf is None and not s.profiled and profiling():
+            s.profiled = True
+            s._rf = _annotation(s.name)
+        if device is None:
+            return
+        dev = device if isinstance(device, torch.device) \
+            else torch.device(device)
+        if dev.type != "cuda" or torch._C._cuda_isCurrentStreamCapturing():
+            return
+        idx = torch.cuda.current_device() if dev.index is None else dev.index
+        ev, stream = self._event(idx), self._stream(idx)
+        s._dev, s._ev = idx, [ev, None, stream]
+        if s._up is None:
+            s._prev = self._last.get(idx)
+        s.t_dev = time.perf_counter_ns()
+        ev.record(stream)
+
+    def close(self, s: Span) -> None:
+        """Close ``s``, and any span still open inside it: its end event
+        where it was started on the card."""
+        if s.t1 is not None:
+            return
+        if s._ev is not None:
+            end = s._ev[1] = self._event(s._dev)
+            end.record(s._ev.pop())
+            self._pending.append(s)
+        st = self._stack
+        if st and st[-1] is s:
+            st.pop()
+        elif s in st:
+            while st[-1] is not s:
+                self.close(st[-1])
+            st.pop()
+        if s._rf is not None:
+            s._rf.__exit__(None, None, None)
+            s._rf = None
+        if s._up is None:
+            self.roots.append(s)
+            if s._ev is not None:
+                self._last[s._dev] = s
+                if len(self._pending) > PENDING:
+                    self._resolve()
+        else:
+            s._top.profiled |= s.profiled
+        # the recorder's own work counts in the span it serves
+        t1 = s.t1 = time.perf_counter_ns()
+        if s._up is not None:
+            s._up.child_ns += t1 - s.t0
+
+    def mark(self) -> int:
+        """The latest root's id (0: none): ``records(mark())`` holds the
+        roots that close from here on."""
+        return self.roots[-1].id if self.roots else 0
+
+    def records(self, since: int = 0) -> List[Span]:
+        """The ring's roots with ids above ``since``, oldest first, their
+        events read as far as the card has run them (all of them after
+        the caller's sync) and their gaps put down to host spans."""
+        self._resolve()
+        roots, out = list(self.roots), []
+        for i, r in enumerate(roots):
+            if r.id > since:
+                out.append(r)
+                if r.idle is None and r.gap_ms is not None:
+                    r.idle = self._idle(roots, i)
+        return out
+
+    def _event(self, idx: int) -> "torch.cuda.Event":
+        free = self._events[idx]
+        return free.pop() if free else torch.cuda.Event(enable_timing=True)
+
+    def _stream(self, idx: int) -> "torch.cuda.Stream":
+        """The current stream of card ``idx`` (``torch.cuda.current_stream``
+        without building its object anew each call)."""
+        key = torch._C._cuda_getCurrentStream(idx)
+        got = self._streams.get(idx)
+        if got is None or got[0] != key:
+            got = self._streams[idx] = (key, torch.cuda.Stream(
+                stream_id=key[0], device_index=key[1], device_type=key[2]))
+        return got[1]
+
+    def _resolve(self) -> None:
+        """Read the times of the oldest pending spans whose end events the
+        card has passed and free their events, but a root's end event,
+        which the next root's gap reads."""
+        while self._pending and self._pending[0]._ev[1].query():
+            s = self._pending.popleft()
+            free = self._events[s._dev]
+            start, end = s._ev
+            s.device_ms = start.elapsed_time(end)
+            p, s._prev = s._prev, None
+            if p is not None and p._ev is not None:
+                s.gap_ms = max(p._ev[1].elapsed_time(start), 0.0)
+                free.append(p._ev[1])
+                p._ev = None
+            free.append(start)
+            if s._up is None:
+                s._ev = [None, end]
+            else:
+                free.append(end)
+                s._ev = None
+
+    @staticmethod
+    def _idle(roots: List[Span], i: int) -> Dict[str, float]:
+        """The gap of ``roots[i]`` put down to host spans (``Span``), in
+        ms, from the spans of it and of the roots before it."""
+        r = roots[i]
+        hi = r.t_dev
+        lo = hi - int(r.gap_ms * 1e6)
+        by: Dict[str, int] = defaultdict(int)
+        for j in range(i, -1, -1):
+            root = roots[j]
+            if root.t1 <= lo:
+                break
+            for s in [root] + root.spans:
+                ov = min(s.t1 if s.t1 is not None else hi, hi) - max(s.t0, lo)
+                if ov > 0:
+                    by[s.name] += ov
+                    if s._up is not None:
+                        by[s._up.name] -= ov
+        out = {k: v / 1e6 for k, v in by.items() if v > 0}
+        out["caller"] = max(hi - lo - sum(by.values()), 0) / 1e6
+        return out
+
+
+def _annotation(name: str):
+    rf = torch.autograd.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+RECORDER = Recorder()
+span, open_span, start = RECORDER.span, RECORDER.open_span, RECORDER.start
+close, records, mark = RECORDER.close, RECORDER.records, RECORDER.mark
