@@ -549,13 +549,16 @@ def _kernel_inputs(cfg, R, S, fold, dtype, dev, seed):
     return m, pe, ve, p, x, v, v_div
 
 
-def _hold(key, p, x, v, v_div, errs) -> None:
+def _hold(key, p, x, v, v_div, errs, acts=None) -> None:
     """The kernel against its plain version on the same inputs; records
     the max abs error under ``key`` and raises past the tolerance, which
-    scales with max(1, max|raw|)."""
+    scales with max(1, max|raw|).  ``acts``: the activations buffer a
+    training forward was given; the call then keeps its activations in one
+    of that shape, as training's does."""
     from plnerf_torch.kernels import fused_mlp
 
-    got = fused_mlp.forward_cuda(p, x, v, v_div)
+    got = fused_mlp.forward_cuda(
+        p, x, v, v_div, None if acts is None else torch.empty_like(acts))
     torch.cuda.synchronize()
     ref = fused_mlp.forward_plain(p, x, v, v_div)
     err = float((got - ref).abs().max())
@@ -1183,25 +1186,37 @@ def _card_vs_cpu(card: dict, cpu: dict, tol=REFERENCE_TOL) -> dict:
     return errs
 
 
-def bwd_flops_per_point(cfg, head: int) -> int:
+def bwd_flops_per_point(cfg, head: int, recompute: bool) -> int:
     """Exact FLOPs per point of the backward kernel on unpadded widths:
-    every dense layer's K x N multiply-adds three times (the recomputed
-    forward, the data grad da @ W^T, the weight grad A^T @ da), except
-    that the recompute skips the two outputs nothing reads (the rgb layer,
+    every dense layer's K x N multiply-adds twice (the data grad da @ W^T,
+    the weight grad A^T @ da) and, where the kernel recomputes the forward
+    (bf16; fp32 reads the forward's activations), a third time, less the
+    two outputs the recompute skips as nothing reads them (the rgb layer,
     W/2 x 3, and the alpha column, W x 1)."""
     W = cfg.netwidth
-    return 2 * (3 * macs_per_point(cfg, head) - 3 * (W // 2) - W)
+    macs = macs_per_point(cfg, head)
+    return 2 * (2 * macs + (macs - 3 * (W // 2) - W if recompute else 0))
+
+
+def _bwd_acts_bytes(p, n: int) -> int:
+    """Bytes of the fp32 forward's activations an fp32 backward reads (0
+    in bf16, which recomputes them)."""
+    from plnerf_torch.kernels import fused_mlp
+
+    return n * fused_mlp.acts_cols(p) * 4 if p.dtype == torch.float32 else 0
 
 
 def bwd_bound(p, x, v, g, n: int, cfg) -> tuple:
-    """(bound_ms, bound_by) of one backward call: x, v, g and the packed
-    weights read once, dx, dv and every fp32 grad written once, against
-    ``bwd_flops_per_point`` at the card's peak for the operand type."""
+    """(bound_ms, bound_by) of one backward call: x, v, g, the fp32
+    forward's activations and the packed weights read once, dx, dv and
+    every fp32 grad written once, against ``bwd_flops_per_point`` at the
+    card's peak for the operand type."""
     wbuf, bbuf = p.flat()
     n_grad = wbuf.numel() + bbuf.numel()
     nbytes = sum(t.numel() * t.element_size() for t in (x, v, g, wbuf, bbuf))
-    nbytes += n * (p.in_p + p.v_p) * 4 + n_grad * 4
-    flops = float(bwd_flops_per_point(cfg, p.head)) * n
+    nbytes += n * (p.in_p + p.v_p) * 4 + n_grad * 4 + _bwd_acts_bytes(p, n)
+    flops = float(bwd_flops_per_point(
+        cfg, p.head, p.dtype == torch.bfloat16)) * n
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[p.dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -1210,9 +1225,10 @@ def bwd_bound(p, x, v, g, n: int, cfg) -> tuple:
 def bwd_byte_floor(p, x, v, g, n: int) -> float:
     """ms the backward's own workspace traffic takes at the card's memory
     rate: its workspace (the bf16 acts and dacts images or the fp32
-    transposed weights and activations, and the partial grads) written
-    once and read once, beside x, v, g and the weights read once and dx,
-    dv and the grads written once."""
+    transposed weights and activation grads, and the partial grads)
+    written once and read once, beside x, v, g, the fp32 forward's
+    activations and the weights read once and dx, dv and the grads
+    written once."""
     from plnerf_torch.kernels import fused_mlp
 
     lib = fused_mlp._bwd_library()
@@ -1223,7 +1239,7 @@ def bwd_byte_floor(p, x, v, g, n: int) -> float:
     n_grad = wbuf.numel() + bbuf.numel()
     nbytes = 2 * ws + sum(t.numel() * t.element_size()
                           for t in (x, v, g, wbuf, bbuf))
-    nbytes += n * (p.in_p + p.v_p) * 4 + n_grad * 4
+    nbytes += n * (p.in_p + p.v_p) * 4 + n_grad * 4 + _bwd_acts_bytes(p, n)
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -1242,21 +1258,26 @@ def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
     return d / max(float(ref.double().norm()), 1e-30)
 
 
-def _bwd_hold(key, p, x, v, v_div, g, errs, rels) -> None:
+def _bwd_hold(key, p, x, v, v_div, g, errs, rels, acts=None) -> None:
     """The backward kernel, called twice, against its plain version on the
-    same inputs.  The two calls must be bit-identical, and every dW and db
-    block, dx and dv within BWD_TOLERANCE in relative L2 norm.  Not in max
-    abs error: every grad jumps where a relu mask flips, and over 10^5
-    points x 2,048 units some pre-activation always lies within rounding
-    of 0, kept by one summation order and dropped by another.  In fp32 the
-    plain version summed in float64 shows how far the plain fp32 version
-    itself sits from it (``rels[... _plain_vs_f64]``) beside the kernel
-    (``_kernel_vs_f64``).  ``errs`` records max abs errors, ``rels``
+    same inputs, in fp32 as training calls it: from the activations its
+    forward kept, ``acts`` or, where none are given, those of a
+    ``forward_cuda`` run here first.  The two calls must be bit-identical,
+    and every dW and db block, dx and dv within BWD_TOLERANCE in relative
+    L2 norm.  Not in max abs error: every grad jumps where a relu mask
+    flips, and over 10^5 points x 2,048 units some pre-activation always
+    lies within rounding of 0, kept by one summation order and dropped by
+    another.  In fp32 the plain version summed in float64 shows how far
+    the plain fp32 version itself sits from it (``rels[...
+    _plain_vs_f64]``) beside the kernel (``_kernel_vs_f64``).  ``errs`` records max abs errors, ``rels``
     relative L2 errors, worst block of each output."""
     from plnerf_torch.kernels import fused_mlp
 
-    got = fused_mlp.backward_cuda(p, x, v, v_div, g)
-    again = fused_mlp.backward_cuda(p, x, v, v_div, g)
+    if p.dtype == torch.float32 and acts is None:
+        acts = x.new_empty((x.shape[0], fused_mlp.acts_cols(p)))
+        fused_mlp.forward_cuda(p, x, v, v_div, acts)
+    got = fused_mlp.backward_cuda(p, x, v, v_div, g, acts)
+    again = fused_mlp.backward_cuda(p, x, v, v_div, g, acts)
     torch.cuda.synchronize()
     ref = fused_mlp.backward_plain(p, x, v, v_div, g)
     f64 = (fused_mlp.backward_plain(p, x, v, v_div, g, torch.float64)
@@ -1336,10 +1357,21 @@ def phase_bwd_kernel(dev):
                 full, N_RAND, S, fold, dtype, dev, seed=6)
             g = torch.randn(n, 4, device=dev, generator=torch.Generator(
                 device=dev).manual_seed(7))
+            # fp32 as training runs it: from the activations its forward
+            # kept (the standalone call, recompute_ms, runs that forward
+            # first); bf16 recomputes them on chip
+            acts = None
+            if dtype == torch.float32:
+                acts = x.new_empty((n, fused_mlp.acts_cols(p)))
+                fused_mlp.forward_cuda(p, x, v, v_div, acts)
             entry = {"kernel_ms": cuda_ms(
-                lambda: fused_mlp.backward_cuda(p, x, v, v_div, g))}
+                lambda: fused_mlp.backward_cuda(p, x, v, v_div, g, acts))}
+            if acts is not None:
+                entry["recompute_ms"] = cuda_ms(
+                    lambda: fused_mlp.backward_cuda(p, x, v, v_div, g))
             entry["pass_ms"] = _bwd_pass_ms(
-                lambda: fused_mlp.backward_cuda(p, x, v, v_div, g), dev)
+                lambda: fused_mlp.backward_cuda(p, x, v, v_div, g, acts),
+                dev)
             entry["bound_ms"], entry["bound_by"] = bwd_bound(p, x, v, g, n,
                                                              full)
             entry["share_of_bound"] = entry["bound_ms"] / entry["kernel_ms"]
@@ -1348,8 +1380,8 @@ def phase_bwd_kernel(dev):
                 lambda: fused_mlp.backward_plain(p, x, v, v_div, g), 3)
             if library_ms is None:
                 # one PyTorch call for the same function: autograd through
-                # the unfused MLP (cuBLAS), forward included as the
-                # kernel recomputes it
+                # the unfused MLP (cuBLAS), forward included (as in bf16's
+                # kernel_ms and fp32's recompute_ms)
                 params = list(m.parameters())
                 pe_ = pe.detach().requires_grad_()
                 ve_ = ve.detach().requires_grad_()
@@ -1364,13 +1396,15 @@ def phase_bwd_kernel(dev):
                 library_ms = cuda_ms(library, 3)
             entry["library_ms"] = library_ms
             times[f"{'folded' if fold else 'split'}_{str(dtype)[6:]}"] = entry
-            del m, pe, ve, p, x, v, g
+            del m, pe, ve, p, x, v, g, acts
             torch.cuda.empty_cache()
     ptxas = build.ptxas_info(fused_mlp.BWD_KERNEL) or {}
     log("bwd_kernel_time", points=n, rays=N_RAND, samples=S,
         card=card_line(), flops_per_point={
-            "split": bwd_flops_per_point(full, fused_mlp.SPLIT),
-            "folded": bwd_flops_per_point(full, fused_mlp.FOLDED)},
+            str(dtype)[6:]: {
+                "split": bwd_flops_per_point(full, fused_mlp.SPLIT, bf),
+                "folded": bwd_flops_per_point(full, fused_mlp.FOLDED, bf)}
+            for dtype, bf in zip(dtypes, (False, True))},
         times=times, parent_ms={"split_bfloat16": 5.91,
                                 "folded_bfloat16": 5.36},
         registers={_kernel_name(k): {
@@ -1378,9 +1412,12 @@ def phase_bwd_kernel(dev):
                               "stack") if f in v}
             for k, v in ptxas.items() if "data_kernel" in k
             or "weight_kernel" in k},
-        note="pass_ms: device ms per call by pass; share_of_bound: "
-             "bound_ms / kernel_ms; byte_floor_ms: the workspace written "
-             "and read once at 3.35 TB/s (bwd_byte_floor); parent_ms: the "
+        note="kernel_ms, pass_ms: fp32 from the forward's activations, "
+             "as training calls it; recompute_ms: the fp32 call without "
+             "them, which runs the forward first; pass_ms: device ms per "
+             "call by pass; share_of_bound: bound_ms / kernel_ms; "
+             "byte_floor_ms: the workspace written and read once at 3.35 "
+             "TB/s (bwd_byte_floor); parent_ms: the "
              "bf16 times before the wgmma redesign (PERF.md, PR 17)")
     return max(errs.values()), times
 
@@ -1454,6 +1491,7 @@ def phase_train(dev, keep=None):
                    "const" if i < CONSTANT_STEPS else "lin")
         precrop = i < PRECROP_STEPS
         f0, b0 = fused_mlp.launches, fused_mlp.bwd_launches
+        s0 = fused_mlp.bwd_saved
         t0 = time.perf_counter()
         rays, target, _ = batching.sample_one_image_batch(
             images, poses, K, i_train, g, N_RAND, 2.0, 6.0, True,
@@ -1465,6 +1503,12 @@ def phase_train(dev, keep=None):
         if launches != (2, 2):
             raise AssertionError(f"step {i}: {launches} forward / backward "
                                  "launches, expected 2 / 2 (coarse, fine)")
+        # fp32 backwards read the activations their forward kept; bf16's
+        # recompute on chip
+        saved = fused_mlp.bwd_saved - s0
+        if saved != (0 if variant == "bf16" else 2):
+            raise AssertionError(f"step {i} ({variant}): {saved} backward "
+                                 "calls read saved activations")
         if not np.isfinite(loss):
             raise AssertionError(f"step {i}: loss {loss}")
         rec.append({"variant": variant + ("_precrop" if precrop else ""),
@@ -2326,9 +2370,11 @@ def _depth_kernel_holds(dev, args, data, state) -> dict:
     eval_rays = make_ray_batch(ro, rd, data.near, data.far, True)[0][
         :R_CHUNK]
     calls = []
-    # the path's forward goes through fused_mlp.forward (the op), its
-    # backward through backward_cuda: both record (p, x, v, v_div, ...)
-    fwd, bwd = fused_mlp.forward, fused_mlp.backward_cuda
+    # the path's forward goes through forward_cuda in fp32 training (with
+    # its activations buffer), else through fused_mlp.forward (the op), its
+    # backward through backward_cuda: each records (p, x, v, v_div, ...)
+    fwd, fwd_cuda = fused_mlp.forward, fused_mlp.forward_cuda
+    bwd = fused_mlp.backward_cuda
 
     def record(kind, fn):
         def wrapped(*a):
@@ -2342,17 +2388,20 @@ def _depth_kernel_holds(dev, args, data, state) -> dict:
             setup.rcfg, mlp_dtype=dtype))
         calls.clear()
         fused_mlp.forward = record("fwd_train", fwd)
+        fused_mlp.forward_cuda = record("fwd_train", fwd_cuda)
         fused_mlp.backward_cuda = record("bwd_train", bwd)
         try:
             tstep.depth_grads(s, state, batch,
                               torch.Generator(device=dev).manual_seed(14))
+            fused_mlp.forward_cuda = fwd_cuda
             fused_mlp.forward = record("fwd_eval", fwd)
             EI.render_chunks(state.params_coarse, state.params_fine,
                              eval_rays, mcfg, EI.test_render_config(
                                  s.rcfg, perturb=False), R_CHUNK, 0,
                              ("rgb_map",))
         finally:
-            fused_mlp.forward, fused_mlp.backward_cuda = fwd, bwd
+            fused_mlp.forward, fused_mlp.forward_cuda = fwd, fwd_cuda
+            fused_mlp.backward_cuda = bwd
         for o in (state.opt_fine, state.opt_ss, state.opt_latent):
             o.zero_grad(set_to_none=True)
         kinds = [k for k, _ in calls]
@@ -2367,13 +2416,22 @@ def _depth_kernel_holds(dev, args, data, state) -> dict:
                                          f"{tuple(x.shape)}, v "
                                          f"{tuple(v.shape)}")
                 key = f"{kind}{i}_{x.shape[0]}_{dtype}"
+                # the activations buffer the call was given: fp32 training
+                # keeps the forward's for the backward
+                at = 4 if kind.startswith("fwd") else 5
+                acts = a[at] if len(a) > at else None
+                if (acts is not None) != (dtype == "float32" and
+                                          kind != "fwd_eval"):
+                    raise AssertionError(f"depth path {dtype}: {kind} call "
+                                         f"{i} given activations: "
+                                         f"{acts is not None}")
                 if kind.startswith("fwd"):
-                    _hold(key, p, x, v, v_div, errs)
+                    _hold(key, p, x, v, v_div, errs, acts)
                     continue
                 cot = torch.randn(a[4].shape, device=dev,
                                   generator=torch.Generator(
                                       device=dev).manual_seed(15))
-                _bwd_hold(key, p, x, v, v_div, cot, bwd_errs, rels)
+                _bwd_hold(key, p, x, v, v_div, cot, bwd_errs, rels, acts)
         del calls[:]
         torch.cuda.empty_cache()
     return {"fwd_max_abs_err": errs, "bwd_max_abs_err": bwd_errs,

@@ -9,10 +9,18 @@
 // [N, v_p] (fp32, dv per point) and the fp32 grads of every packed weight
 // block and bias, in the packed order, into one buffer.
 //
-// Bound: operations.  The backward does 3.56 MFLOP per point split, 3.17
-// folded (recompute, data grads, weight grads: chip_smoke.py
-// bwd_flops_per_point) against ~1 KB per point of x, v, g, dx and dv; at
-// one fine pass of a 1024-ray step (196,608 points) that is 10.4 / 9.3 ms
+// Only bf16 recomputes the forward (its forward keeps its activations on
+// chip and stores none).  fp32 is given the forward's activations `acts`
+// [N, Ca] (acts_layout.cuh): in training the fp32 forward writes them
+// (fused_mlp_fwd.cu, FusedMLPFunction), and a standalone call
+// (fused_mlp.py backward_cuda) runs that forward first.  The fp32
+// workspace holds no acts.
+//
+// Bound: operations.  The fp32 backward does 2.37 MFLOP per point split,
+// 2.11 folded (the data and weight grads, twice the forward's 1.19 /
+// 1.06), bf16 3.56 / 3.17 with its recompute (chip_smoke.py
+// bwd_flops_per_point), against ~1 KB per point of x, v, g, dx and dv; at
+// one fine pass of a 1024-ray step (196,608 points) that is 7.0 / 6.2 ms
 // at the H100's 67 TFLOP/s in fp32 and 0.71 / 0.63 ms at 989 in bf16.
 // Both dtypes keep their intermediates in a workspace in device memory
 // (below); in bf16 that traffic, ~11 KB per point written and read once,
@@ -40,15 +48,14 @@
 // 0. transpose_kernel writes every weight block transposed ([N, K] at
 //    its offset) into the workspace (`wt`), cot_data_kernel d_rgb and the
 //    d_alpha block of the cotangent.
-// 1. The data pass recomputes the forward (every relu output to `acts`),
-//    then backpropagates through the heads and the layers (every pre-relu
-//    grad to `dacts`); dx and dv are written per point.  Each data grad
-//    da @ W^T reads the transposed blocks (`wt`), so it is the same
-//    [K, N] row-major product as the recompute.  One launch of
-//    sgemm_data_kernel per product, in order: recompute (bias and relu,
-//    to acts), heads, data grads (relu mask read from acts as 16-byte
-//    rows, to dacts), dx (the first skip layer's x block writes it, later
-//    x blocks and layer 0 add to it in that fixed order), dv.  The core
+// 1. The data pass backpropagates through the heads and the layers from
+//    the forward's activations (every pre-relu grad to `dacts`); dx and
+//    dv are written per point.  Each data grad da @ W^T reads the
+//    transposed blocks (`wt`), so it is the same [K, N] row-major product
+//    as the forward's.  One launch of sgemm_data_kernel per product, in
+//    order: heads, data grads (relu mask read from acts as 16-byte rows,
+//    to dacts), dx (the first skip layer's x block writes it, later x
+//    blocks and layer 0 add to it in that fixed order), dv.  The core
 //    (sgemm_core.cuh, shared with the forward's fp32 path): a CTA tile of
 //    128 points x 128 columns, 256 threads with an 8 x 8 outer product
 //    each, k-slabs of 16 through a 3-stage ring of 16-byte cp.async copies
@@ -116,10 +123,8 @@
 // transpose_kernel 32, cot_data_kernel 12, reduce_kernel 28.
 //
 // Workspace (one buffer, size from plnerf_fused_mlp_bwd_workspace):
-// fp32
+// fp32 (acts, the forward's, are given: acts_layout.cuh)
 //   wt    [n_w]: the weight blocks transposed
-//   acts  [N, Ca]: relu_0 .. relu_{L-1} (w_p each), then split: feature
-//         (w_p), z_hv (h_p); folded: z_hv (h_p)
 //   dacts [N, Cd]: da_0 .. da_{L-1} (w_p each), then split: [dfeat |
 //         d_alpha] (w_p + 32), da_v (h_p), d_rgb (32); folded: [da_v |
 //         d_alpha] (h_p + 32), d_rgb (32)
@@ -133,6 +138,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "acts_layout.cuh"
 #include "sgemm_core.cuh"
 #include "wgmma_core.cuh"
 
@@ -211,12 +217,12 @@ int build_layout(Layout* y, int L, unsigned skip_mask, int in_p, int w_p,
     bias(h_p + ALIGN); bias(ALIGN);
   }
   y->n_grad = off;
+  const bool split = head == SPLIT;  // the acts: acts_layout.cuh
+  for (int i = 0; i < L; ++i) y->act[i] = (int)acts_col(i, w_p);
+  y->feat = (int)acts_col(L, w_p);
+  y->zhv = (int)acts_col(acts_kept(L, split) - 1, w_p);
+  y->Ca = (int)acts_width(L, split, w_p, h_p);
   int c = 0;
-  for (int i = 0; i < L; ++i) { y->act[i] = c; c += w_p; }
-  y->feat = c; if (head == SPLIT) c += w_p;
-  y->zhv = c; c += h_p;
-  y->Ca = c;
-  c = 0;
   for (int i = 0; i < L; ++i) { y->da[i] = c; c += w_p; }
   y->dcat = c; c += (head == SPLIT ? w_p : h_p) + ALIGN;
   y->dalpha = y->dcat + (head == SPLIT ? w_p : h_p);
@@ -1173,7 +1179,7 @@ Jobs make_jobs(const Layout& y, long long n, const float* x,
 }
 
 struct Workspace {
-  long long wt, acts, dacts, partial, total;  // byte offsets, total bytes
+  long long wt, dacts, partial, total;  // byte offsets, total bytes
   long long n_chunks;
 };
 
@@ -1183,8 +1189,7 @@ Workspace workspace(const Layout& y, long long n) {
   const Jobs js = make_jobs(y, n, nullptr, nullptr, 1, nullptr, nullptr);
   w.n_chunks = (n + js.chunk - 1) / js.chunk;
   w.wt = 0;
-  w.acts = align256(y.n_w * 4);
-  w.dacts = w.acts + align256(n * y.Ca * 4);
+  w.dacts = align256(y.n_w * 4);
   w.partial = w.dacts + align256(n * y.Cd * 4);
   w.total = w.partial + align256(w.n_chunks * y.n_grad * 4);
   return w;
@@ -1224,14 +1229,14 @@ int launch_prologue(const Layout& y, const float* w, float* wt,
   return (int)cudaGetLastError();
 }
 
-// fp32: the data pass as one launch of sgemm_data_kernel per product
+// fp32: the data pass as one launch of sgemm_data_kernel per product,
+// from the forward's activations A [n, Ca]
 int launch_f32(const float* x, const float* v, long long v_div,
-               const float* g, const float* w, const float* b, float* grads,
+               const float* g, const float* w, const float* A, float* grads,
                float* dx, float* dv, unsigned char* ws, long long n,
                const Layout& y, cudaStream_t stream) {
   const Workspace wl = workspace(y, n);
   float* wt = reinterpret_cast<float*>(ws + wl.wt);
-  float* acts = reinterpret_cast<float*>(ws + wl.acts);
   float* dacts = reinterpret_cast<float*>(ws + wl.dacts);
   float* partial = reinterpret_cast<float*>(ws + wl.partial);
   int rc = launch_prologue(y, w, wt, g, dacts, n, stream);
@@ -1240,14 +1245,11 @@ int launch_f32(const float* x, const float* v, long long v_div,
       sgemm_data_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       F_SMEM);
   if (e != cudaSuccess) return (int)e;
-  const float* bias = b - y.n_w;  // indexed by boff
   const int in_p = y.in_p, w_p = y.w_p, v_p = y.v_p, h_p = y.h_p;
   const long long Ca = y.Ca, Cd = y.Cd;
-  auto Wb = [&](int j) { return FTerm{nullptr, 0, 1, 0, w + y.woff[j],
-                                      y.wn[j]}; };
   auto WTb = [&](int j) { return FTerm{nullptr, 0, 1, 0, wt + y.woff[j],
                                        y.wk[j]}; };
-  // t: the B operand (Wb / WTb) with A rows a (lda, a_div) of width K
+  // t: the B operand (WTb) with A rows a (lda, a_div) of width K
   auto with = [](FTerm t, const float* a, long long lda, int K,
                  long long a_div = 1) {
     t.a = a; t.lda = lda; t.K = K; t.a_div = a_div;
@@ -1264,41 +1266,12 @@ int launch_f32(const float* x, const float* v, long long v_div,
     sgemm_data_kernel<<<grid, THREADS, F_SMEM, stream>>>(o, n);
     return (int)cudaGetLastError();
   };
-  const float* A = acts;
   float* D = dacts;
-
-  // forward recompute
-  for (int i = 0; i < y.L; ++i) {
-    FOp o = op(w_p, acts + y.act[i], Ca);
-    o.bias = bias + y.boff[i];
-    o.relu_cols = w_p;
-    const int bx = y.blk_x[i], bh = y.blk_h[i];
-    const float* h = i == 0 ? x : A + y.act[i - 1];
-    const long long hld = i == 0 ? in_p : Ca;
-    if (bx >= 0) {
-      o.t[0] = with(Wb(bx), x, in_p, in_p);
-      o.t[1] = with(Wb(bh), h, hld, w_p);
-      o.nterms = 2;
-    } else {
-      o.t[0] = with(Wb(bh), h, hld, i == 0 ? in_p : w_p);
-    }
-    if ((rc = run(o))) return rc;
-  }
   const int hb = y.hb, L = y.L;
   const float* last = A + y.act[L - 1];
+
   if (y.head == SPLIT) {
-    FOp o = op(w_p, acts + y.feat, Ca);  // feature
-    o.bias = bias + y.boff[L];
-    o.t[0] = with(Wb(hb), last, Ca, w_p);
-    if ((rc = run(o))) return rc;
-    o = op(h_p, acts + y.zhv, Ca);  // z_hv
-    o.bias = bias + y.boff[L + 1];
-    o.relu_cols = h_p;
-    o.t[0] = with(Wb(hb + 1), A + y.feat, Ca, w_p);
-    o.t[1] = with(Wb(hb + 2), v, v_p, v_p, v_div);
-    o.nterms = 2;
-    if ((rc = run(o))) return rc;
-    o = op(h_p, D + y.dav, Cd);  // da_v
+    FOp o = op(h_p, D + y.dav, Cd);  // da_v
     o.mask = A + y.zhv;
     o.mask_ld = Ca;
     o.t[0] = with(WTb(hb + 3), D + y.drgb, Cd, ALIGN);
@@ -1315,14 +1288,7 @@ int launch_f32(const float* x, const float* v, long long v_div,
     o.t[0] = with(WTb(hb), D + y.dcat, Cd, w_p + ALIGN);
     if ((rc = run(o))) return rc;
   } else {
-    FOp o = op(h_p, acts + y.zhv, Ca);  // z_hv
-    o.bias = bias + y.boff[L];
-    o.relu_cols = h_p;
-    o.t[0] = with(Wb(hb), last, Ca, w_p);
-    o.t[1] = with(Wb(hb + 1), v, v_p, v_p, v_div);
-    o.nterms = 2;
-    if ((rc = run(o))) return rc;
-    o = op(h_p, D + y.dcat, Cd);  // da_v
+    FOp o = op(h_p, D + y.dcat, Cd);  // da_v
     o.mask = A + y.zhv;
     o.mask_ld = Ca;
     o.t[0] = with(WTb(hb + 2), D + y.drgb, Cd, ALIGN);
@@ -1357,7 +1323,7 @@ int launch_f32(const float* x, const float* v, long long v_div,
     o.t[0] = with(WTb(bh), da, Cd, w_p);
     if ((rc = run(o))) return rc;
   }
-  return weight_and_reduce(y, n, x, v, v_div, acts, dacts, partial,
+  return weight_and_reduce(y, n, x, v, v_div, A, dacts, partial,
                            wl.n_chunks, grads, stream);
 }
 
@@ -1509,6 +1475,17 @@ long long plnerf_fused_mlp_bwd_workspace(long long n, int n_layers,
   return use_bf16 ? bworkspace(y, n).total : workspace(y, n).total;
 }
 
+// Ca: columns of the fp32 forward's activations that the data pass reads
+// (acts_layout.cuh), 0 for a layout the kernel does not take.
+long long plnerf_fused_mlp_bwd_acts_cols(int n_layers, unsigned skip_mask,
+                                         int in_p, int w_p, int v_p, int h_p,
+                                         int head) {
+  Layout y;
+  if (!build_layout(&y, n_layers, skip_mask, in_p, w_p, v_p, h_p, head))
+    return 0;
+  return y.Ca;
+}
+
 // Number of fp32 grads written (packed weights, then packed biases).
 long long plnerf_fused_mlp_bwd_n_grad(int n_layers, unsigned skip_mask,
                                       int in_p, int w_p, int v_p, int h_p,
@@ -1535,19 +1512,22 @@ long long plnerf_fused_mlp_bwd_stream_len(int n_layers, unsigned skip_mask,
 // Launches the passes on `stream`; returns cudaGetLastError() of the
 // first that fails (0 on success).  w: packed weights, every block [K, N]
 // row-major (fp32); wstream: bf16, the data pass's weight stream of
-// stream_len elements; b: packed biases; g: [n, 4] fp32.
+// stream_len elements; b: packed biases (bf16 only); g: [n, 4] fp32; acts
+// (fp32 only, and needed there): the forward's activations [n, Ca]
+// (acts_layout.cuh).
 int plnerf_fused_mlp_bwd(const void* x, const void* v, long long v_div,
                          const void* g, const void* w, const void* wstream,
-                         long long stream_len, const void* b, void* grads,
-                         void* dx, void* dv, void* workspace_buf, long long n,
-                         int n_layers, unsigned skip_mask, int in_p, int w_p,
-                         int v_p, int h_p, int head, int use_bf16,
-                         void* stream) {
+                         long long stream_len, const void* b,
+                         const void* acts, void* grads, void* dx, void* dv,
+                         void* workspace_buf, long long n, int n_layers,
+                         unsigned skip_mask, int in_p, int w_p, int v_p,
+                         int h_p, int head, int use_bf16, void* stream) {
   if (n <= 0) return 0;
   Layout y;
   if (in_p % ALIGN || w_p % ALIGN || v_p % ALIGN || h_p % ALIGN ||
       h_p > w_p || v_div < 1 || (n + FBM - 1) / FBM > 0x7fffffffLL ||
-      (use_bf16 && (w_p > MAX_NP || in_p > MAX_NP || v_p > MAX_NP)) ||
+      (use_bf16 && (w_p > MAX_NP || in_p > MAX_NP || v_p > MAX_NP || acts)) ||
+      (!use_bf16 && !acts) ||
       !build_layout(&y, n_layers, skip_mask, in_p, w_p, v_p, h_p, head))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1564,7 +1544,8 @@ int plnerf_fused_mlp_bwd(const void* x, const void* v, long long v_div,
                        stream_len, bf, gr, dxf, dvf, ws, n, y, s);
   return launch_f32(static_cast<const float*>(x),
                     static_cast<const float*>(v), v_div, gf,
-                    static_cast<const float*>(w), bf, gr, dxf, dvf, ws, n, y,
+                    static_cast<const float*>(w),
+                    static_cast<const float*>(acts), gr, dxf, dvf, ws, n, y,
                     s);
 }
 

@@ -19,15 +19,22 @@
 //   tiles, 8 x 8 per thread, a 3-stage 16-byte cp.async ring of both
 //   operands, 2 CTAs per SM), in layer order, bias and relu in its
 //   epilogue: layer 0; layers 1 .. L-1 (the skip layer as two terms); the
-//   head products.  Activations cross device memory between launches in
-//   two fp32 buffers [points, w_p] (the workspace).  The wrapper
+//   head products.  Activations cross device memory between launches.
+//   Without gradients they ping-pong through two fp32 buffers [points,
+//   w_p] (the workspace).  In training (FusedMLPFunction) the caller gives
+//   `acts` [points, Ca] instead (acts_layout.cuh): each product's kept
+//   columns go to its own columns (relu_0 .. relu_{L-1}, then split:
+//   feature, z_hv; folded: z_hv), the next product reads them there at a
+//   row stride of Ca, and the backward (fused_mlp_bwd.cu) reads them
+//   instead of recomputing the forward.  The same bytes reach device
+//   memory either way.  The wrapper
 //   (plnerf_torch/kernels/fused_mlp.py forward_cuda) walks the points in
 //   chunks of at most FWD_CHUNK = 2^21 points, a whole number of view rows
 //   (samples per ray), so the workspace stays at 2 x 2^21 x w_p x 4 B (4 GB
-//   at w_p = 256) whatever the request; each chunk is still 16,384 point
-//   tiles, many waves of 264 CTA slots.  The feature|alpha head writes the
-//   features to a buffer and alpha to raw[:, 3] from the same epilogue;
-//   rgb goes to raw[:, :3].
+//   at w_p = 256) whatever the request (each chunk writes its own rows of
+//   acts); each chunk is still 16,384 point tiles, many waves of 264 CTA
+//   slots.  The feature|alpha head writes the features to a buffer and
+//   alpha to raw[:, 3] from the same epilogue; rgb goes to raw[:, :3].
 // * bfloat16 (`bf16_kernel`): one CTA maps 128 points through the whole
 //   MLP, activations never leave the SM: a layer of 128 x 256 bf16
 //   activations does 128 FLOP per byte if it crosses device memory, under
@@ -92,6 +99,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "acts_layout.cuh"
 #include "sgemm_core.cuh"
 #include "wgmma_core.cuh"
 
@@ -197,15 +205,20 @@ fp32_kernel(const FOp op, long long n) {
   sgemm_tile<true>(op, n);
 }
 
-// The products of one chunk of n points; ws holds two [n, w_p] buffers.
+// The products of one chunk of n points.  Without acts, ws holds two
+// [n, w_p] buffers that the products ping-pong through; with acts [n, Ca]
+// (acts_layout.cuh) the k-th kept product writes its own columns of acts.
 int launch_f32(const Plan& pl, const float* x, const float* v,
                long long v_div, const float* w, const float* b, float* raw,
-               float* ws, long long n, int in_p, int w_p, int v_p,
-               cudaStream_t stream) {
+               float* ws, float* acts, long long Ca, long long n, int in_p,
+               int w_p, int v_p, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
       fp32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
   if (e != cudaSuccess) return (int)e;
-  float* bufs[2] = {ws, ws + n * w_p};
+  // where tiles T_B0 and T_B1 hold their last product, and its row stride
+  float* bufs[2] = {ws, ws ? ws + n * w_p : nullptr};
+  long long lds[2] = {w_p, w_p};
+  int kept = 0;
   for (int i = 0; i < pl.n; ++i) {
     const Prod& q = pl.p[i];
     FOp o{};
@@ -214,17 +227,21 @@ int launch_f32(const Plan& pl, const float* x, const float* v,
       FTerm& ft = o.t[t];
       const int s = q.src[t];
       ft.a = s == T_X ? x : s == T_V ? v : bufs[s - T_B0];
-      ft.lda = s == T_X ? in_p : s == T_V ? v_p : w_p;
+      ft.lda = s == T_X ? in_p : s == T_V ? v_p : lds[s - T_B0];
       ft.a_div = s == T_V ? v_div : 1;
       ft.K = q.K[t];
       ft.b = w + q.woff[t];
       ft.ldb = q.N;
     }
+    if (acts && q.dst != T_NONE) {
+      bufs[q.dst - T_B0] = acts + acts_col(kept++, w_p);
+      lds[q.dst - T_B0] = Ca;
+    }
     o.N = q.N;
     o.bias = b + q.boff;
     o.relu_cols = q.relu_cols;
     o.out = q.dst == T_NONE ? nullptr : bufs[q.dst - T_B0];
-    o.out_ld = w_p;
+    o.out_ld = q.dst == T_NONE ? w_p : lds[q.dst - T_B0];
     o.out_cols = q.out_cols;
     o.raw = raw;
     o.raw_col0 = q.raw_col0;
@@ -476,8 +493,8 @@ long long plnerf_fused_mlp_fwd_smem(int in_p, int w_p, int v_p,
   return use_bf16 ? smem_bf16(in_p, w_p, v_p) : (long long)F_SMEM;
 }
 
-// Workspace bytes for one call of n points: fp32, two activation
-// buffers [n, w_p]; bf16, none.
+// Workspace bytes for one call of n points without acts: fp32, two
+// activation buffers [n, w_p]; bf16, none.
 long long plnerf_fused_mlp_fwd_workspace(long long n, int w_p,
                                          int use_bf16) {
   return use_bf16 ? 0 : 2LL * n * w_p * 4;
@@ -485,15 +502,19 @@ long long plnerf_fused_mlp_fwd_workspace(long long n, int w_p,
 
 // Launches on `stream` and returns cudaGetLastError() of the first launch
 // that fails (0 on success).  v_p = 0 and v = null for the plain head.
+// acts (fp32 viewdirs only; null: none): [n, Ca] fp32 in the layout of
+// acts_layout.cuh, which keeps every activation for the backward to read;
+// ws is then not read.
 int plnerf_fused_mlp_fwd(const void* x, const void* v, long long v_div,
                          const void* w, const void* b, void* raw, void* ws,
-                         long long n, int n_layers, unsigned skip_mask,
-                         int in_p, int w_p, int v_p, int h_p, int head,
-                         int use_bf16, void* stream) {
+                         void* acts, long long n, int n_layers,
+                         unsigned skip_mask, int in_p, int w_p, int v_p,
+                         int h_p, int head, int use_bf16, void* stream) {
   if (n <= 0) return 0;
   Plan pl;
   if (in_p % ALIGN || w_p % ALIGN || v_p % ALIGN || h_p % ALIGN ||
-      (use_bf16 && w_p > MAX_PASS) || v_div < 1 ||
+      (use_bf16 && (w_p > MAX_PASS || acts)) || (acts && head == PLAIN) ||
+      v_div < 1 ||
       (head != PLAIN && v_p == 0) ||
       !build_plan(&pl, n_layers, skip_mask, in_p, w_p, v_p, h_p, head))
     return (int)cudaErrorInvalidValue;
@@ -504,7 +525,9 @@ int plnerf_fused_mlp_fwd(const void* x, const void* v, long long v_div,
                       static_cast<const float*>(v), v_div,
                       static_cast<const float*>(w),
                       static_cast<const float*>(b), static_cast<float*>(raw),
-                      static_cast<float*>(ws), n, in_p, w_p, v_p, s);
+                      static_cast<float*>(ws), static_cast<float*>(acts),
+                      acts ? acts_width(n_layers, head == SPLIT, w_p, h_p) : 0,
+                      n, in_p, w_p, v_p, s);
   }
   const long long grid = (n + HBM - 1) / HBM;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;

@@ -64,11 +64,14 @@ BWD_KERNEL = "fused_mlp_bwd"
 
 # CUDA launches made by ``forward_cuda`` and ``backward_cuda`` (chip_smoke.py
 # resets and reads them to show that a render or a train step went through
-# the kernels).  A launch recorded into a CUDA graph runs nothing and is
-# not counted; a graph's replays run no Python, and their launches are
-# counted in a device trace (``utils/profile.trace_kernel_counts``)
+# the kernels), and of those backward calls the fp32 ones given the
+# activations their forward kept (``bwd_saved``).  A
+# launch recorded into a CUDA graph runs nothing and is not counted; a
+# graph's replays run no Python, and their launches are counted in a
+# device trace (``utils/profile.trace_kernel_counts``)
 launches = 0
 bwd_launches = 0
+bwd_saved = 0
 
 
 def _rup(x: int, m: int = ALIGN) -> int:
@@ -421,8 +424,8 @@ def _library() -> ctypes.CDLL:
     fn = lib.plnerf_fused_mlp_fwd
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, L, P, P, P, P, L, I, ctypes.c_uint, I, I, I, I,
-                       I, I, P]
+        U = ctypes.c_uint
+        fn.argtypes = [P, P, L, P, P, P, P, P, L, I, U, I, I, I, I, I, I, P]
         fn.restype = ctypes.c_int
         lib.plnerf_fused_mlp_fwd_smem.argtypes = [I, I, I, I]
         lib.plnerf_fused_mlp_fwd_smem.restype = L
@@ -442,18 +445,31 @@ def _check(t: torch.Tensor, name: str, cols: int, dtype, device) -> None:
 
 
 def forward_cuda(p: PackedMLP, x: torch.Tensor, v: Optional[torch.Tensor],
-                 v_div: int = 1) -> torch.Tensor:
+                 v_div: int = 1,
+                 acts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the CUDA kernels on the current stream; raw [N, 4] fp32.
     bf16: one launch of the fused walk; fp32: the per-layer products of
-    each of ``fwd_chunks`` in turn, on one workspace."""
+    each of ``fwd_chunks`` in turn, on one workspace, or, given ``acts``
+    [N, ``acts_cols``] fp32, keeping every activation there for
+    ``backward_cuda``."""
     wbuf, bbuf = p.flat()
-    return _launch(p, wbuf, bbuf, x, v, v_div)
+    return _launch(p, wbuf, bbuf, x, v, v_div, acts)
+
+
+def acts_cols(p: PackedMLP) -> int:
+    """Columns of the activations an fp32 training forward keeps for the
+    backward (relu_0 .. relu_{L-1}, then split: feature, z_hv; folded:
+    z_hv: csrc/acts_layout.cuh)."""
+    return _bwd_library().plnerf_fused_mlp_bwd_acts_cols(
+        p.n_layers, p.skip_mask, p.in_p, p.w_p, p.v_p, p.h_p, p.head)
 
 
 def _launch(p: PackedMLP, wbuf: torch.Tensor, bbuf: torch.Tensor,
-            x: torch.Tensor, v: Optional[torch.Tensor],
-            v_div: int) -> torch.Tensor:
-    """``forward_cuda`` on the buffers of ``PackedMLP.flat``."""
+            x: torch.Tensor, v: Optional[torch.Tensor], v_div: int,
+            acts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``forward_cuda`` on the buffers of ``PackedMLP.flat``; with
+    ``acts`` (fp32, [N, ``acts_cols``]) the activations go there, for the
+    backward, in place of the ping-pong workspace."""
     global launches
     dev = x.device
     if dev.type != "cuda":
@@ -472,6 +488,13 @@ def _launch(p: PackedMLP, wbuf: torch.Tensor, bbuf: torch.Tensor,
     if wbuf.device != dev:
         raise ValueError(f"weights on {wbuf.device}, inputs on {dev}")
     raw = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    if acts is not None:
+        if p.dtype != torch.float32 or p.head == PLAIN:
+            raise ValueError("only the fp32 viewdirs forward keeps its "
+                             "activations")
+        _check(acts, "acts", acts_cols(p), torch.float32, dev)
+        if acts.shape[0] != n:
+            raise ValueError(f"acts has {acts.shape[0]} rows for {n} points")
     if n == 0:
         return raw
     lib = _library()
@@ -483,8 +506,10 @@ def _launch(p: PackedMLP, wbuf: torch.Tensor, bbuf: torch.Tensor,
         raise ValueError(f"fused MLP tile needs {smem} B of shared memory, "
                          f"the device allows {limit} B (netwidth too large)")
     chunks = [(0, n)] if bf16 else fwd_chunks(n, v_div)
-    ws = torch.empty(lib.plnerf_fused_mlp_fwd_workspace(
-        chunks[0][1], p.w_p, bf16), dtype=torch.uint8, device=dev)
+    ws = torch.empty(0 if acts is not None else
+                     lib.plnerf_fused_mlp_fwd_workspace(
+                         chunks[0][1], p.w_p, bf16),
+                     dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     esize = x.element_size()
     for r0, cn in chunks:
@@ -493,6 +518,7 @@ def _launch(p: PackedMLP, wbuf: torch.Tensor, bbuf: torch.Tensor,
             None if v is None else v.data_ptr() + (r0 // v_div) * v_p * esize,
             v_div, wbuf.data_ptr(), bbuf.data_ptr(),
             raw.data_ptr() + r0 * 16, ws.data_ptr() if ws.numel() else None,
+            None if acts is None else acts[r0].data_ptr(),
             cn, p.n_layers, p.skip_mask, p.in_p, p.w_p, v_p, p.h_p, p.head,
             bf16, stream)
         if rc != 0:
@@ -726,8 +752,8 @@ def _bwd_library() -> ctypes.CDLL:
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         U = ctypes.c_uint
-        fn.argtypes = [P, P, L, P, P, P, L, P, P, P, P, P, L, I, U, I, I, I,
-                       I, I, I, P]
+        fn.argtypes = [P, P, L, P, P, P, L, P, P, P, P, P, P, L, I, U, I, I,
+                       I, I, I, I, P]
         fn.restype = ctypes.c_int
         lib.plnerf_fused_mlp_bwd_smem.argtypes = [I, I, I, I, I]
         lib.plnerf_fused_mlp_bwd_smem.restype = L
@@ -738,18 +764,24 @@ def _bwd_library() -> ctypes.CDLL:
         lib.plnerf_fused_mlp_bwd_workspace.restype = L
         lib.plnerf_fused_mlp_bwd_n_grad.argtypes = [I, U, I, I, I, I, I]
         lib.plnerf_fused_mlp_bwd_n_grad.restype = L
+        lib.plnerf_fused_mlp_bwd_acts_cols.argtypes = [I, U, I, I, I, I, I]
+        lib.plnerf_fused_mlp_bwd_acts_cols.restype = L
         lib.plnerf_cuda_error_string.argtypes = [I]
         lib.plnerf_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def backward_cuda(p: PackedMLP, x: torch.Tensor, v: torch.Tensor,
-                  v_div: int, g: torch.Tensor):
+                  v_div: int, g: torch.Tensor,
+                  acts: Optional[torch.Tensor] = None):
     """Launch the backward kernel on the current stream; returns what
     ``backward_plain`` returns, the weight and bias grads as views of one
     fp32 buffer.  bf16 also gathers the data pass's weight stream
-    (``bwd_stream``, one cached index)."""
-    global bwd_launches
+    (``bwd_stream``, one cached index).  ``acts`` (fp32 only): the
+    activations ``forward_cuda`` kept for these inputs, which the data pass
+    reads; without them an fp32 call runs that forward first.  bf16
+    recomputes the forward on chip."""
+    global bwd_launches, bwd_saved
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"backward_cuda needs CUDA tensors, got {dev}")
@@ -766,6 +798,14 @@ def backward_cuda(p: PackedMLP, x: torch.Tensor, v: torch.Tensor,
     if v_div < 1 or v.shape[0] * v_div < n:
         raise ValueError(f"v has {v.shape[0]} rows for {n} points at "
                          f"{v_div} per row")
+    if acts is not None:
+        if p.dtype != torch.float32:
+            raise ValueError("only the fp32 backward reads the forward's "
+                             "activations")
+        _check(acts, "acts", acts_cols(p), torch.float32, dev)
+        if acts.shape[0] != n:
+            raise ValueError(f"acts has {acts.shape[0]} rows for {n} points")
+    given = acts is not None
     wbuf = torch.cat([w.reshape(-1) for w in p.weights])   # row-major
     bbuf = torch.cat([b.reshape(-1) for b in p.biases])
     if wbuf.device != dev:
@@ -800,6 +840,9 @@ def backward_cuda(p: PackedMLP, x: torch.Tensor, v: torch.Tensor,
                     *layout):
                 raise ValueError("backward weight stream disagrees with "
                                  "the kernel's walk")
+        elif not given:     # the fp32 data pass reads the forward's acts
+            acts = x.new_empty((n, acts_cols(p)))
+            forward_cuda(p, x, v, v_div, acts)
         ws = torch.empty(lib.plnerf_fused_mlp_bwd_workspace(n, *layout, bf16),
                          dtype=torch.uint8, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -807,13 +850,15 @@ def backward_cuda(p: PackedMLP, x: torch.Tensor, v: torch.Tensor,
             x.data_ptr(), v.data_ptr(), v_div, g.data_ptr(), wbuf.data_ptr(),
             None if wstream is None else wstream.data_ptr(),
             0 if wstream is None else wstream.numel(), bbuf.data_ptr(),
-            grads.data_ptr(), dx.data_ptr(), dv.data_ptr(), ws.data_ptr(), n,
-            *layout, bf16, stream)
+            None if acts is None else acts.data_ptr(), grads.data_ptr(),
+            dx.data_ptr(), dv.data_ptr(), ws.data_ptr(), n, *layout, bf16,
+            stream)
         if rc != 0:
             msg = lib.plnerf_cuda_error_string(rc).decode()
             raise RuntimeError(f"fused_mlp_bwd launch failed: {msg} ({rc})")
         if not torch.cuda.is_current_stream_capturing():
             bwd_launches += 1
+            bwd_saved += given
     dW, dB, off = [], [], 0
     for w in p.weights:
         dW.append(grads[off:off + w.numel()].view(w.shape))
@@ -884,18 +929,31 @@ class FusedMLPFunction(torch.autograd.Function):
     ``_apply_flat`` custom VJP).  ``pts``, ``views`` and ``params`` are the
     differentiable inputs that ``x``/``v`` and the packed weights were made
     from; the forward reads only the packed tensors, which ``ctx`` keeps so
-    nothing is packed twice."""
+    nothing is packed twice.
+
+    On the card, the fp32 viewdirs forward writes its activations to a
+    buffer [N, ``acts_cols``] that ``ctx`` keeps (in place of its ping-pong
+    workspace), and the backward's data pass reads them, so the forward
+    runs once: 8.7 KB a point (folded 8x256) held from the forward to the
+    backward.  bf16 recomputes the forward on chip in its backward;
+    ``torch.utils.checkpoint`` (``--remat``) reruns this forward in the
+    backward and drops what it kept."""
 
     @staticmethod
     def forward(ctx, p, x, v, v_div, model, cfg, pts, views, *params):
         ctx.p, ctx.v_div, ctx.model, ctx.cfg = p, v_div, model, cfg
-        ctx.save_for_backward(x, v, pts, views)
-        return forward(p, x, v, v_div)
+        if x.is_cuda and p.dtype == torch.float32 and p.head != PLAIN:
+            acts = x.new_empty((x.shape[0], acts_cols(p)))
+            raw = forward_cuda(p, x, v, v_div, acts)
+        else:
+            acts, raw = None, forward(p, x, v, v_div)
+        ctx.save_for_backward(x, v, pts, views, acts)
+        return raw
 
     @staticmethod
     def backward(ctx, g):
         p, v_div, model = ctx.p, ctx.v_div, ctx.model
-        x, v, pts, views = ctx.saved_tensors
+        x, v, pts, views, acts = ctx.saved_tensors
         names = [name for name, _ in model.named_parameters()]
         if p.head == PLAIN:
             # the JAX wrapper's XLA vjp for this topology: autograd through
@@ -908,8 +966,10 @@ class FusedMLPFunction(torch.autograd.Function):
                     raw, [pe] + list(model.parameters()), g)
             return (None,) * 6 + (grads[0], None) + tuple(grads[1:])
         g = g.float().contiguous()
-        bwd = backward_cuda if g.device.type == "cuda" else backward_plain
-        dW, dB, dx, dv = bwd(p, x, v, v_div, g)
+        if g.device.type == "cuda":
+            dW, dB, dx, dv = backward_cuda(p, x, v, v_div, g, acts)
+        else:
+            dW, dB, dx, dv = backward_plain(p, x, v, v_div, g)
         named = unpack_grads(p, model, dW, dB)
         dviews = dv[:, :views.shape[-1]]
         if v_div > 1:                       # fixed-order sum over samples

@@ -7,8 +7,12 @@ checkout's, on the same inputs, interleaved, on one card.
 ``--other``: a checkout whose ``plnerf_torch/kernels/csrc/fused_mlp_bwd.cu``
 is compiled with nvcc (its own headers beside it) into
 ``DIR/build/plnerf_torch/``; its C entry point is called through ctypes
-(either interface: the one taking the bf16 weight stream, which this
-checkout's ``fused_mlp.bwd_stream`` fills, or the older one without it).
+(any of three interfaces: the one taking the forward's activations, which
+this checkout's ``fused_mlp.forward_cuda`` writes once before the timed
+calls, in fp32, where it needs them; the one taking the bf16 weight
+stream, which this checkout's ``fused_mlp.bwd_stream`` fills; or the
+older one without it, both of which recompute the fp32 forward in the
+timed call).
 For each of bf16 and fp32 and the split and folded heads, the 8x256
 viewdirs MLP at ``--rays`` x ``--samples`` points (one fine pass of a
 1024-ray step by default, per-ray views), seeded: ``--rounds`` rounds of
@@ -54,18 +58,23 @@ def caller(lib: ctypes.CDLL, p, x, v, v_div, g):
     """A function of no arguments launching ``lib``'s backward once on the
     current stream; returns (grads, dx, dv)."""
     P, I, L, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
-    streamed = hasattr(lib, "plnerf_fused_mlp_bwd_stream_len")
+    takes_acts = hasattr(lib, "plnerf_fused_mlp_bwd_acts_cols")
+    streamed = takes_acts or hasattr(lib, "plnerf_fused_mlp_bwd_stream_len")
     bf16 = int(p.dtype == torch.bfloat16)
     layout = (p.n_layers, p.skip_mask, p.in_p, p.w_p, p.v_p, p.h_p, p.head)
     fn = lib.plnerf_fused_mlp_bwd
     fn.restype = I
-    if streamed:
+    if takes_acts:
+        fn.argtypes = [P, P, L, P, P, P, L, P, P, P, P, P, P, L, I, U, I, I,
+                       I, I, I, I, P]
+    elif streamed:
         fn.argtypes = [P, P, L, P, P, P, L, P, P, P, P, P, L, I, U, I, I, I,
                        I, I, I, P]
     else:
         fn.argtypes = [P, P, L, P, P, P, P, P, P, P, L, I, U, I, I, I, I, I,
                        I, P]
-    lib.plnerf_fused_mlp_bwd_workspace.argtypes = [L, I, U, I, I, I, I, I, I]
+    lib.plnerf_fused_mlp_bwd_workspace.argtypes = [L, I, U, I, I, I, I, I,
+                                                   I]
     lib.plnerf_fused_mlp_bwd_workspace.restype = L
     dev = x.device
     n = x.shape[0]
@@ -79,6 +88,10 @@ def caller(lib: ctypes.CDLL, p, x, v, v_div, g):
                      dtype=torch.uint8, device=dev)
     ws_stream = (wbuf[fused_mlp._stream_index(p, dev, fused_mlp.bwd_stream)]
                  if streamed and bf16 else None)
+    acts = None
+    if takes_acts and not bf16:
+        acts = x.new_empty((n, fused_mlp.acts_cols(p)))
+        fused_mlp.forward_cuda(p, x, v, v_div, acts)
 
     def run():
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -87,7 +100,10 @@ def caller(lib: ctypes.CDLL, p, x, v, v_div, g):
         if streamed:
             head += (None if ws_stream is None else ws_stream.data_ptr(),
                      0 if ws_stream is None else ws_stream.numel())
-        rc = fn(*head, bbuf.data_ptr(), grads.data_ptr(), dx.data_ptr(),
+        head += (bbuf.data_ptr(),)
+        if takes_acts:
+            head += (None if acts is None else acts.data_ptr(),)
+        rc = fn(*head, grads.data_ptr(), dx.data_ptr(),
                 dv.data_ptr(), ws.data_ptr(), n, *layout, bf16, stream)
         if rc != 0:
             raise RuntimeError(f"fused_mlp_bwd launch failed ({rc})")

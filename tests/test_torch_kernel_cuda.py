@@ -466,6 +466,200 @@ def test_cuda_apply_mlp_bf16_matches_cpu(cuda_device, reduced):
     assert err <= 2e-2 * max(1.0, float(ref.abs().max())), err
 
 
+# ----------------------------------- fp32 activations kept for the backward --
+
+def _outputs(res):
+    """Every tensor ``backward_cuda`` returns, in order."""
+    return res[0] + res[1] + [res[2], res[3]]
+
+
+# (config, rays, samples per ray = the views' row divisor): ragged point
+# counts (4,097 and 21 x 192 = 4,032, neither a multiple of 128) with v_div
+# 1 and 192, on the flagship 8x256 and on 6x64 with two skip inputs
+SAVED_CASES = {f"{c}_{r}x{s}": (c, r, s)
+               for c in ("full_folded", "skips_2_4_folded")
+               for r, s in ((4097, 1), (21, 192))}
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["split", "folded"])
+@pytest.mark.parametrize("case", list(SAVED_CASES))
+def test_cuda_backward_from_saved_acts_is_bit_equal(cuda_device, case, fold):
+    """The fp32 forward with an activations buffer gives the raw it gives
+    without one.  The backward reading those activations gives every
+    packed dW / dB, dx and dv within 1e-4 relative L2 of the plain version
+    and bit-equal to the standalone call, which runs that forward itself.
+    One ``bwd_saved`` counted for the call given them, none for the
+    other."""
+    name, R, S = SAVED_CASES[case]
+    cfg = ModelConfig(**CASES[name][0])
+    m, pe, ve, cot = _inputs(cfg, fold, torch.float32, cuda_device, R, S)
+    with torch.no_grad():
+        p, x, v, v_div = fused_mlp.prepare(m, pe, ve, cfg, torch.float32,
+                                           fold)
+        assert v_div == S and x.shape[0] % 128
+        acts = x.new_empty((x.shape[0], fused_mlp.acts_cols(p)))
+        kept = fused_mlp.forward_cuda(p, x, v, v_div, acts)
+        raw = fused_mlp.forward_cuda(p, x, v, v_div)
+        before = fused_mlp.bwd_saved
+        saved = fused_mlp.backward_cuda(p, x, v, v_div, cot, acts)
+        torch.cuda.synchronize()
+        assert fused_mlp.bwd_saved == before + 1
+        recomputed = fused_mlp.backward_cuda(p, x, v, v_div, cot)
+        torch.cuda.synchronize()
+        assert fused_mlp.bwd_saved == before + 1
+        ref = fused_mlp.backward_plain(p, x, v, v_div, cot)
+    assert torch.equal(kept, raw)
+    _hold_bwd(saved, ref, 1e-4)
+    for i, (a, b) in enumerate(zip(_outputs(saved), _outputs(recomputed))):
+        assert torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["split", "folded"])
+def test_cuda_saved_acts_across_forward_chunks(cuda_device, fold,
+                                               monkeypatch):
+    """At 1,000 points per fp32 forward chunk (29 rays x 111 samples: 999,
+    999, 999 and 222 points), each chunk writes its own rows of the one
+    activations buffer: the same buffer, bit for bit, as one chunk writes,
+    and a backward from it within 1e-4 relative L2 of the plain version."""
+    cfg = ModelConfig()
+    m, pe, ve, cot = _inputs(cfg, fold, torch.float32, cuda_device, 29, 111)
+    with torch.no_grad():
+        p, x, v, v_div = fused_mlp.prepare(m, pe, ve, cfg, torch.float32,
+                                           fold)
+        assert len(fused_mlp.fwd_chunks(x.shape[0], v_div)) == 1
+        whole = x.new_empty((x.shape[0], fused_mlp.acts_cols(p)))
+        fused_mlp.forward_cuda(p, x, v, v_div, whole)
+        monkeypatch.setattr(fused_mlp, "FWD_CHUNK", 1000)
+        assert len(fused_mlp.fwd_chunks(x.shape[0], v_div)) == 4
+        acts = torch.full_like(whole, float("nan"))
+        fused_mlp.forward_cuda(p, x, v, v_div, acts)
+        saved = fused_mlp.backward_cuda(p, x, v, v_div, cot, acts)
+        torch.cuda.synchronize()
+        ref = fused_mlp.backward_plain(p, x, v, v_div, cot)
+    assert torch.equal(acts, whole)
+    _hold_bwd(saved, ref, 1e-4)
+
+
+def test_cuda_saved_acts_refused_where_not_kept(cuda_device):
+    """Only the fp32 viewdirs kernels keep and read activations: bf16 and
+    a buffer of the wrong width or row count are refused before any
+    launch."""
+    cfg = ModelConfig(netdepth=3, netwidth=64)
+    m, pe, ve, cot = _inputs(cfg, False, torch.bfloat16, cuda_device, 3, 5)
+    with torch.no_grad():
+        p, x, v, v_div = fused_mlp.prepare(m, pe, ve, cfg, torch.bfloat16)
+        q, xf, vf, _ = fused_mlp.prepare(m, pe, ve, cfg, torch.float32)
+    acts = torch.empty(15, fused_mlp.acts_cols(q), device=cuda_device)
+    before = (fused_mlp.launches, fused_mlp.bwd_launches)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="fp32"):
+            fused_mlp.forward_cuda(p, x, v, v_div, acts)
+        with pytest.raises(ValueError, match="fp32"):
+            fused_mlp.backward_cuda(p, x, v, v_div, cot, acts)
+        with pytest.raises(ValueError, match="acts"):
+            fused_mlp.forward_cuda(q, xf, vf, v_div, acts[:, :-32])
+        with pytest.raises(ValueError, match="acts"):
+            fused_mlp.backward_cuda(q, xf, vf, v_div, cot,
+                                    acts[:, :-32].contiguous())
+        with pytest.raises(ValueError, match="acts"):
+            fused_mlp.backward_cuda(q, xf, vf, v_div, cot, acts[:-1])
+    assert (fused_mlp.launches, fused_mlp.bwd_launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_fused_function_counts_saved_backwards(cuda_device, dtype):
+    """A ``FusedMLPFunction`` step raises ``bwd_saved`` by one per fp32
+    backward and by none for bf16, which recomputes on chip; both run one
+    backward launch."""
+    cfg = ModelConfig(netdepth=4, netwidth=64, skips=(2,), multires=6)
+    m, pe, ve, cot = _inputs(cfg, True, torch.float32, cuda_device)
+    x = pe.detach().requires_grad_()
+    before = (fused_mlp.bwd_launches, fused_mlp.bwd_saved)
+    raw = fused_mlp.apply(m, x, ve, cfg, dtype, fold_heads=True)
+    (raw * cot.reshape(raw.shape)).sum().backward()
+    torch.cuda.synchronize()
+    assert fused_mlp.bwd_launches == before[0] + 1
+    assert fused_mlp.bwd_saved == before[1] + (dtype == torch.float32)
+    assert torch.isfinite(x.grad).all()
+
+
+@pytest.mark.parametrize("fold", [False, True], ids=["split", "folded"])
+def test_cuda_remat_grads_equal_the_plain_step(cuda_device, fold):
+    """``remat_mlp`` (``torch.utils.checkpoint``) drops what the fp32
+    forward keeps and reruns it in the backward, whose data pass then
+    reads the rerun's activations: loss and every grad of both networks
+    equal the plain step's, bit for bit."""
+    from plnerf_torch.core.config import RenderConfig
+    from plnerf_torch.train import step as tstep
+
+    dev = cuda_device
+    mcfg = ModelConfig(netdepth=4, netwidth=64, skips=(2,), multires=6,
+                       multires_views=2)
+    g = torch.Generator(device=dev).manual_seed(3)
+    o = torch.nn.functional.normalize(
+        torch.randn(64, 3, generator=g, device=dev), dim=-1) * 4.0
+    d = -o / 4.0 + 0.1 * torch.randn(64, 3, generator=g, device=dev)
+    rays = torch.cat([o, d, torch.full((64, 1), 2.0, device=dev),
+                      torch.full((64, 1), 6.0, device=dev),
+                      torch.nn.functional.normalize(d, dim=-1)], -1)
+    batch = {"rays": rays, "target": torch.rand(64, 3, generator=g,
+                                                device=dev)}
+    out = []
+    for remat in (False, True):
+        setup = tstep.TrainSetup(mcfg=mcfg, rcfg=RenderConfig(
+            n_samples=32, n_importance=32, mode="linear", white_bkgd=True,
+            perturb=False, use_fused_mlp=True, fused_fold_heads=fold,
+            remat_mlp=remat))
+        models = [NeRF(mcfg, torch.Generator(device=dev).manual_seed(s),
+                       device=dev) for s in (0, 1)]
+        before = fused_mlp.bwd_saved
+        loss, _ = tstep._render_loss(*models, batch, None, setup)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert fused_mlp.bwd_saved == before + 2
+        out.append((loss.detach(), [q.grad for mm in models
+                                    for q in mm.parameters()]))
+    assert torch.equal(out[0][0], out[1][0])
+    for i, (a, b) in enumerate(zip(out[0][1], out[1][1])):
+        assert torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["apply", "packed_net"])
+def test_cuda_inference_allocates_no_acts(cuda_device, packed):
+    """An fp32 forward of a 32,768-ray chunk (64 samples, 2^21 points, one
+    forward chunk) without gradients, through ``apply`` and through a
+    ``PackedNet``, peaks at the ping-pong workspace, raw and the padded
+    inputs: no [N, acts_cols] buffer (17 GiB here) is allocated."""
+    cfg = ModelConfig()
+    R, S = 32768, 64
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    m = NeRF(cfg, g, device=cuda_device)
+    pe = embed(torch.randn(R, S, 3, generator=g, device=cuda_device),
+               cfg.multires, cfg.pi_bands)
+    ve = embed(torch.nn.functional.normalize(
+        torch.randn(R, 3, generator=g, device=cuda_device), dim=-1),
+        cfg.multires_views, cfg.pi_bands)[:, None, :]
+    net = fused_mlp.PackedNet(m, cfg, torch.float32, True) if packed else m
+    n = R * S
+    p = fused_mlp.pack_weights(m, cfg, torch.float32, True)
+    ws = fused_mlp._library().plnerf_fused_mlp_fwd_workspace(n, p.w_p, 0)
+    assert ws == 2 * n * p.w_p * 4
+    # the workspace, raw and the density's softplus beside it, the padded
+    # x and views, the packed weights (a few MB)
+    bound = ws + 3 * n * 16 + n * p.in_p * 4 + R * p.v_p * 4 + (64 << 20)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    with torch.no_grad():
+        raw = fused_mlp.apply(net, pe, ve, cfg, torch.float32,
+                              fold_heads=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    assert raw.shape == (R, S, 4)
+    assert peak <= bound < n * fused_mlp.acts_cols(p) * 4, (peak, bound)
+
+
 # ------------------------------------------------ dot-walk probes --
 
 PROBE_SHAPES = [(128, 256), (256, 256), (256, 384), (256, 128), (128, 128),

@@ -129,6 +129,16 @@ def test_bench_kernel_runs_on_cpu():
             assert abs(val[f"{p} {k}"] - ref) <= 2e-2 * max(1.0, abs(ref))
 
 
+def test_bench_kernel_bwd_ways_needs_a_card():
+    """The fp32 backward's two ways (saved activations, recompute) are
+    the kernel's: ``--what bwd`` refuses the CPU instead of timing the
+    plain version under the kernel's name."""
+    with pytest.raises(ValueError, match="CUDA"):
+        bench_kernel.bwd_ways(TINY, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        bench_kernel.main(["--what", "bwd", "--device", "cpu"])
+
+
 def _x(cat, name, ts, dur, tid=1):
     return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
             "tid": tid}
